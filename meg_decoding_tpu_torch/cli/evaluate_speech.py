@@ -1,0 +1,188 @@
+"""Speech-decoding evaluation from a checkpoint (Gwilliams2022).
+Port of ``run`` from ``meg_decoding_tpu/cli/evaluate_speech.py``.
+
+Scores the whole test split in candidate pools of ``test_size`` segments:
+segment-retrieval top-1/top-10 and pairwise identification (correlation),
+and writes ``{save_root}/eval_results.json``.  It reads the same YAML
+configs through the port's ``core/config.py``.
+
+The checkpoint is a ``.pt`` state_dict in the port's names
+(``interop.params_from_jax`` converts flax variables; a ``loss.temp``
+entry is allowed): ``cfg.ckpt_path``, else ``{ckpt_dir or
+save_root/ckpt}/model.pt``.  The JAX package's orbax checkpoints need JAX
+to read and are not loaded here.
+
+Run: ``python -m meg_decoding_tpu_torch.cli.evaluate_speech
+[--config-path configs] [--config-name config] [--device cuda] key=value …``
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import numpy as np
+import torch
+
+from meg_decoding_tpu_torch.core.config import Config, compose
+from meg_decoding_tpu_torch.data.gwilliams import (
+    GwilliamsPacked,
+    build_gwilliams_dataset,
+    gather_speech_batch,
+    load_gwilliams_cache,
+)
+from meg_decoding_tpu_torch.data.layout import ch_locations_2d
+from meg_decoding_tpu_torch.data.sampling import random_split
+from meg_decoding_tpu_torch.device import resolve_device
+from meg_decoding_tpu_torch.interop import split_loss_params
+from meg_decoding_tpu_torch.models.factory import get_model
+from meg_decoding_tpu_torch.objectives.retrieval import (
+    pairwise_identification,
+    retrieval_accuracy,
+)
+from meg_decoding_tpu_torch.serving.forward import make_serving_forward
+from meg_decoding_tpu_torch.train.steps import CollateConfig
+
+__all__ = ["run", "find_gwilliams_cache", "checkpoint_path",
+           "collate_config", "SpeechPool", "load_gwilliams_test"]
+
+
+class SpeechPool:
+    """A packed split (or a subset of its segments) with the reference's
+    random subject-session pairing, drawn from a seeded ``torch.Generator``:
+    ``gather(idx) → (X, Y, subject_idxs)``."""
+
+    def __init__(self, ds: GwilliamsPacked, indices=None, seed: int = 0):
+        self.ds = ds
+        self.indices = None if indices is None else np.asarray(indices)
+        self.generator = torch.Generator().manual_seed(int(seed))
+        self.num_subjects = ds.num_subjects
+
+    def __len__(self):
+        return len(self.ds) if self.indices is None else len(self.indices)
+
+    def gather(self, idx):
+        seg = np.asarray(idx) if self.indices is None \
+            else self.indices[np.asarray(idx)]
+        X, Y, subs, _ = gather_speech_batch(self.ds, seg,
+                                            generator=self.generator)
+        return X, Y, subs
+
+
+def find_gwilliams_cache(cfg) -> str:
+    """``cfg.cache_dir`` if set, else the first dir under
+    ``{root_dir}/data/Gwilliams2022/preprocessed`` holding an ``x_dict.npy``.
+    Records the result on ``cfg.cache_dir`` (``ch_locations_2d`` reads a
+    cache-resident ``layout.npy`` from there)."""
+    cache_dir = cfg.get("cache_dir")
+    if cache_dir is None:
+        base = os.path.join(cfg.get("root_dir", "."), "data", "Gwilliams2022",
+                            "preprocessed")
+        cands = sorted(os.listdir(base)) if os.path.isdir(base) else []
+        for c in cands:
+            if os.path.exists(os.path.join(base, c, "x_dict.npy")):
+                cache_dir = os.path.join(base, c)
+                break
+    if cache_dir is None:
+        raise FileNotFoundError(
+            "No Gwilliams preprocessed cache found: point cfg.cache_dir at a "
+            "reference-format cache (x_dict.npy, y_dict.npy, onset tables)")
+    cfg.cache_dir = cache_dir
+    return cache_dir
+
+
+def load_gwilliams_test(cfg, seed: int, device) -> SpeechPool:
+    """The test split the trainer holds out: sentence/deep splits from the
+    packer, shallow by ``random_split`` over segments."""
+    x, y, meg_on, sp_on, sent = load_gwilliams_cache(find_gwilliams_cache(cfg))
+    split_mode = cfg.get("split_mode", "shallow")
+    packed = build_gwilliams_dataset(cfg, x, y, meg_on, sp_on, sent,
+                                     split_mode=split_mode, seed=seed,
+                                     device=device)
+    if split_mode in ("sentence", "deep"):
+        return SpeechPool(packed[1], seed=seed + 1)
+    _, te = random_split(torch.Generator().manual_seed(seed), len(packed),
+                         float(cfg.split_ratio))
+    return SpeechPool(packed, te, seed=seed + 1)
+
+
+def checkpoint_path(cfg) -> str:
+    if cfg.get("ckpt_path"):
+        return cfg.ckpt_path
+    ckpt_dir = cfg.get("ckpt_dir") or os.path.join(
+        cfg.get("save_root", "runs_out"), "ckpt")
+    return os.path.join(ckpt_dir, "model.pt")
+
+
+def collate_config(cfg) -> CollateConfig:
+    """The collate the trainer applied, from ``cfg.preprocs``."""
+    rate = float(cfg.preprocs.brain_resample_rate)
+    return CollateConfig(
+        baseline_len_samp=int(rate * float(cfg.preprocs.get("baseline_len_sec", 0))),
+        clamp_lim=float(cfg.preprocs.get("clamp_lim", 20)),
+        clamp=bool(cfg.preprocs.get("clamp", True)))
+
+
+def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
+    dev = resolve_device(device)
+    if cfg.dataset != "Gwilliams2022":
+        raise NotImplementedError(
+            f"dataset {cfg.dataset!r} is not ported yet (Gwilliams2022 only)")
+    seed = int(cfg.get("seed", 0))
+    save_root = cfg.get("save_root", "runs_out")
+    test_set = load_gwilliams_test(cfg, seed, dev)
+    cfg.num_subjects = test_set.num_subjects
+    cfg.num_channels = int(test_set.ds.recordings.shape[2])
+    model = get_model(cfg, ch_locations_2d(cfg), device=dev, seed=seed)
+
+    path = checkpoint_path(cfg)
+    model_sd, _ = split_loss_params(torch.load(path, map_location=dev,
+                                               weights_only=True))
+    model.load_state_dict(model_sd)
+    print(f"loaded checkpoint: {path}")
+    forward = make_serving_forward(collate_config(cfg))
+
+    # score the whole test split in candidate pools of `test_size` segments;
+    # the final pool overlaps backwards to keep every pool full
+    pool = min(len(test_set), int(cfg.get("test_size", cfg.batch_size)))
+    n_pools = max(-(-len(test_set) // pool), 1)
+    top1s, top10s, pids = [], [], []
+    for p in range(n_pools):
+        start = min(p * pool, len(test_set) - pool)
+        X, Y, subs = test_set.gather(np.arange(start, start + pool))
+        Z = forward(model, X, subs)
+        acc = retrieval_accuracy(Z, Y, top_ks=(1, 10))
+        top1s.append(float(acc["top1"]))
+        top10s.append(float(acc["top10"]))
+        pids.append(float(pairwise_identification(
+            Z, Y, metric="correlation").mean()))
+
+    results = {
+        "test_top1": float(np.mean(top1s)),
+        "test_top10": float(np.mean(top10s)),
+        "pairwise_correlation": float(np.mean(pids)),
+        "pool_size": pool,
+        "n_pools": n_pools,
+        "n_test_segments": len(test_set),
+    }
+    os.makedirs(save_root, exist_ok=True)
+    with open(os.path.join(save_root, "eval_results.json"), "w") as f:
+        json.dump(results, f, indent=2)
+    print(json.dumps(results, indent=2))
+    return results
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config-path", default="configs")
+    ap.add_argument("--config-name", default="config")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("overrides", nargs="*", help="key=value config overrides")
+    args = ap.parse_args(argv)
+    cfg = compose(args.config_path, args.config_name, args.overrides)
+    return run(cfg, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

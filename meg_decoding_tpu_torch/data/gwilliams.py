@@ -1,0 +1,291 @@
+"""Gwilliams2022 (MEG ↔ naturalistic speech) dataset, packed on the device.
+Port of ``meg_decoding_tpu/data/gwilliams.py`` (cache I/O, splits, packing
+and the batch gather).
+
+Reference: ``meg_decoding/dataclass/gwilliams2022.py`` — the preprocessed
+cache ``x_dict.npy`` {subjectNN_sessS_taskT → (208, T)}, ``y_dict.npy``
+{taskN → (1024, T)} and onset/sentence tables (:64-109); ``__getitem__``
+slices a 3 s window of a **random subject-session** holding the segment's
+task (:130-143).
+
+Both X and Y stay continuous on the device ((sessions, 4, C, T) padded
+recordings, (4, F, T) embedding streams) and a batch is two window gathers
+(``ops/kernels/window_gather.py``), one for X and one for Y.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from meg_decoding_tpu_torch.device import resolve_device
+from meg_decoding_tpu_torch.ops.kernels.window_gather import (
+    pad_time_for_gather,
+    window_gather,
+)
+
+__all__ = ["GwilliamsPacked", "load_gwilliams_cache", "parse_sessions",
+           "build_gwilliams_dataset", "sentence_split", "deep_split",
+           "drop_overlapping_words", "gather_speech_batch"]
+
+NUM_TASKS = 4
+
+
+# ---------------------------------------------------------------------------
+# cache I/O (reference-compatible layout)
+# ---------------------------------------------------------------------------
+
+def load_gwilliams_cache(cache_dir: str):
+    """Load the reference-format preprocessed cache dicts."""
+    def load(name):
+        return np.load(os.path.join(cache_dir, name), allow_pickle=True).item()
+
+    return (load("x_dict.npy"), load("y_dict.npy"), load("meg_onsets.npy"),
+            load("speech_onsets.npy"), load("sentence_idxs.npy"))
+
+
+def parse_sessions(keys):
+    """Sessions with all ``NUM_TASKS`` tasks present (cache keys
+    ``{subj}_{sess}_{task}``), and the sorted subject list."""
+    keys = sorted(keys)
+    sess_names = sorted({"_".join(k.split("_")[:-1]) for k in keys})
+    sess_names = [s for s in sess_names
+                  if sum(1 for k in keys if k.startswith(s + "_")) == NUM_TASKS]
+    subjects = sorted({s.split("_")[0] for s in sess_names})
+    return sess_names, subjects
+
+
+# ---------------------------------------------------------------------------
+# splits (host-side index logic; reference gwilliams2022.py:391-638)
+# ---------------------------------------------------------------------------
+
+def sentence_split(sentence_idxs: dict, split_ratio: float, seed: int = 0):
+    """Sentence-granularity split: shuffle sentence ids per task, 80/20, map
+    back to word indices (Gwilliams2022SentenceSplit, :425-451)."""
+    rng = np.random.RandomState(seed)
+    train_word_idxs, test_word_idxs = {}, {}
+    for task, sidxs in sentence_idxs.items():
+        uniq = np.unique(sidxs)
+        rng.shuffle(uniq)
+        split = int(len(uniq) * split_ratio)
+        train_s = set(uniq[:split].tolist())
+        words = np.arange(len(sidxs))
+        is_train = np.asarray([s in train_s for s in sidxs])
+        train_word_idxs[task] = words[is_train]
+        test_word_idxs[task] = words[~is_train]
+    return train_word_idxs, test_word_idxs
+
+
+def drop_overlapping_words(word_idxs: dict, other_idxs: dict,
+                           speech_onsets: dict, seq_len_sec: float):
+    """Drop words whose ``seq_len_sec`` window reaches past the onset of any
+    word of the *other* split (the reference's TODO at
+    gwilliams2022.py:691-698)."""
+    out = {}
+    for task, widx in word_idxs.items():
+        onsets = np.asarray(speech_onsets[task], float)
+        other = np.sort(onsets[other_idxs[task]])
+        if len(other) == 0:
+            out[task] = widx
+            continue
+        keep = []
+        for w in widx:
+            j = np.searchsorted(other, onsets[w], side="right")
+            if j >= len(other) or other[j] >= onsets[w] + seq_len_sec:
+                keep.append(w)
+        out[task] = np.asarray(keep, dtype=int)
+    return out
+
+
+def deep_split(speech_onsets: dict, split_ratio: float):
+    """Temporal head/tail split per task (Gwilliams2022DeepSplit, :591-629)."""
+    train_word_idxs, test_word_idxs = {}, {}
+    for task, onsets in speech_onsets.items():
+        n = len(onsets)
+        cut = int(n * split_ratio)
+        train_word_idxs[task] = np.arange(cut)
+        test_word_idxs[task] = np.arange(cut, n)
+    return train_word_idxs, test_word_idxs
+
+
+# ---------------------------------------------------------------------------
+# packed dataset
+# ---------------------------------------------------------------------------
+
+@dataclass
+class GwilliamsPacked:
+    """Device-resident packed Gwilliams dataset (one split).
+
+    recordings: (n_sessions, 4, C, T_max) f32 padded MEG at the brain rate,
+      already shifted 150 ms (X side).
+    y_stream:   (4, F, Ty_max) f32 padded embedding streams (end-cropped).
+    meg_onsets: (n_sessions, 4, W_max) int32 sample onsets (this split's words).
+    speech_onsets: (4, W_max) int32 sample onsets into y_stream.
+    n_words:    (4,) numpy valid word counts per task for this split.
+    session_subject: (n_sessions,) int64 subject index of each session.
+    seq_len: segment length in samples (360).
+    """
+
+    recordings: torch.Tensor
+    y_stream: torch.Tensor
+    meg_onsets: torch.Tensor
+    speech_onsets: torch.Tensor
+    n_words: np.ndarray
+    session_subject: torch.Tensor
+    seq_len: int
+    num_subjects: int
+    _seg_table: np.ndarray | None = None  # lazily built, immutable per split
+
+    def __len__(self):
+        return int(self.n_words.sum())
+
+    @property
+    def num_sessions(self) -> int:
+        return int(self.recordings.shape[0])
+
+    def segment_table(self) -> np.ndarray:
+        """(N, 2) rows (task, i_in_task) for global segment ids (cached)."""
+        if self._seg_table is None:
+            rows = [np.stack([np.full(n, t), np.arange(n)], 1)
+                    for t, n in enumerate(self.n_words)]
+            self._seg_table = np.concatenate(rows, axis=0)
+        return self._seg_table
+
+
+def _gather_batch(recordings, y_stream, meg_onsets, speech_onsets,
+                  session_subject, task_ids, i_in_task, sess_ids, seq_len,
+                  y_dtype=None):
+    """(X, Y, subject) windows for a batch: two launches of the window
+    gather, X from the session recordings and Y from the task's stream.
+    ``y_dtype`` optionally casts Y inside the gather (bf16); X stays f32 —
+    the collate's RobustScaler must see the recorded values."""
+    S, NT, C, T = recordings.shape
+    rec_flat = recordings.reshape(S * NT, C, T)
+    rec_ids = sess_ids * NT + task_ids
+
+    x_onsets = meg_onsets[sess_ids, task_ids, i_in_task]        # (B,)
+    X = window_gather(rec_flat, rec_ids, x_onsets, seq_len)     # (B, C, L)
+
+    y_onsets = speech_onsets[task_ids, i_in_task]
+    Y = window_gather(y_stream, task_ids, y_onsets, seq_len,
+                      out_dtype=y_dtype)                        # (B, F, L)
+    return X, Y, session_subject[sess_ids]
+
+
+def gather_speech_batch(ds: GwilliamsPacked, segment_ids: np.ndarray,
+                        sess_ids=None, generator: torch.Generator | None = None):
+    """Batch = segments by global id + one session each (the reference's
+    random subject-session pairing, ``__getitem__`` :130-143).
+
+    Sessions come from ``sess_ids`` when given, else are drawn uniformly
+    with ``generator`` (a CPU ``torch.Generator``).  Returns
+    ``(X, Y, subject_idxs, segment_ids)``."""
+    seg = ds.segment_table()[np.asarray(segment_ids)]
+    if sess_ids is None:
+        if generator is None:
+            raise ValueError("pass sess_ids or a torch.Generator to draw them")
+        sess_ids = torch.randint(0, ds.num_sessions, (len(seg),),
+                                 generator=generator)
+    dev = ds.recordings.device
+    sess_ids = torch.as_tensor(np.asarray(sess_ids), dtype=torch.int64,
+                               device=dev)
+    task_ids = torch.as_tensor(seg[:, 0], dtype=torch.int64, device=dev)
+    i_in_task = torch.as_tensor(seg[:, 1], dtype=torch.int64, device=dev)
+    X, Y, subs = _gather_batch(
+        ds.recordings, ds.y_stream, ds.meg_onsets, ds.speech_onsets,
+        ds.session_subject, task_ids, i_in_task, sess_ids, ds.seq_len)
+    return X, Y, subs, np.asarray(segment_ids)
+
+
+def build_gwilliams_dataset(cfg, x_dict: dict, y_dict: dict, meg_onsets: dict,
+                            speech_onsets: dict, sentence_idxs: dict,
+                            split_mode: str = "shallow", seed: int = 0,
+                            device: str | torch.device = "cuda"):
+    """Pack the cache dicts into device tensors; returns (train, test) for
+    sentence/deep splits or a single packed dataset for shallow.
+
+    Sessions with missing tasks are dropped (gwilliams2022.py:183-191);
+    recordings are zero-padded to the longest, and the time axes to
+    ``pad_time_for_gather`` — the gather's clamp bound depends on it."""
+    dev = resolve_device(device)
+    pre = cfg.preprocs
+    rate = float(pre.brain_resample_rate)
+    seq_len = int(rate * float(pre.seq_len_sec))
+    shift = int(rate * float(pre.get("shift_len", 150)) / 1000) \
+        if pre.get("shift_brain", True) else 0
+
+    sess_names, subjects = parse_sessions(x_dict.keys())
+    subject_of = {s: subjects.index(s.split("_")[0]) for s in sess_names}
+
+    n_sessions = len(sess_names)
+    tasks = [f"task{t}" for t in range(NUM_TASKS)]
+    C = next(iter(x_dict.values())).shape[0]
+    F = next(iter(y_dict.values())).shape[0]
+    T_max = pad_time_for_gather(
+        max(v.shape[1] for v in x_dict.values()) - shift, seq_len)
+    Ty_max = pad_time_for_gather(
+        max(v.shape[1] for v in y_dict.values()) - shift, seq_len)
+
+    recordings = np.zeros((n_sessions, NUM_TASKS, C, T_max), dtype=np.float32)
+    for si, sname in enumerate(sess_names):
+        for t, task in enumerate(tasks):
+            v = x_dict[f"{sname}_{task}"][:, shift:]  # X shifted forward
+            recordings[si, t, :, : v.shape[1]] = v
+    y_stream = np.zeros((NUM_TASKS, F, Ty_max), dtype=np.float32)
+    for t, task in enumerate(tasks):
+        v = y_dict[task]
+        v = v[:, : v.shape[1] - shift] if shift else v  # Y end-cropped
+        y_stream[t, :, : v.shape[1]] = v
+
+    def word_onsets_samples(d):  # seconds → sample indices (·rate, round)
+        return {k: np.round(np.asarray(v) * rate).astype(int) for k, v in d.items()}
+
+    meg_on = word_onsets_samples(meg_onsets)
+    sp_on = word_onsets_samples(speech_onsets)
+
+    if split_mode == "sentence":
+        tr_idx, te_idx = sentence_split(sentence_idxs, float(cfg.split_ratio), seed)
+        if cfg.get("drop_overlapping", False):
+            seq_sec = float(pre.seq_len_sec)
+            tr_idx = drop_overlapping_words(tr_idx, te_idx, speech_onsets,
+                                            seq_sec)
+            te_idx = drop_overlapping_words(te_idx, tr_idx, speech_onsets,
+                                            seq_sec)
+        splits = [tr_idx, te_idx]
+    elif split_mode == "deep":
+        splits = list(deep_split(speech_onsets, float(cfg.split_ratio)))
+    else:  # shallow: one packed set (random_split over segments happens later)
+        splits = [{t: np.arange(len(sp_on[t])) for t in tasks}]
+
+    # the splits differ ONLY in their onset tables — the recordings, streams
+    # and session table are uploaded once and shared by every split
+    recordings_dev = torch.from_numpy(recordings).to(dev)
+    y_stream_dev = torch.from_numpy(y_stream).to(dev)
+    session_subject_dev = torch.tensor([subject_of[s] for s in sess_names],
+                                       dtype=torch.int64, device=dev)
+
+    out = []
+    for word_idxs in splits:
+        n_words = np.asarray([len(word_idxs[t]) for t in tasks])
+        W_max = max(int(n_words.max()), 1)
+        mo = np.zeros((n_sessions, NUM_TASKS, W_max), dtype=np.int32)
+        so = np.zeros((NUM_TASKS, W_max), dtype=np.int32)
+        for t, task in enumerate(tasks):
+            widx = word_idxs[task]
+            so[t, : len(widx)] = sp_on[task][widx]
+            for si, sname in enumerate(sess_names):
+                mo[si, t, : len(widx)] = meg_on[f"{sname}_{task}"][widx]
+        out.append(GwilliamsPacked(
+            recordings=recordings_dev,
+            y_stream=y_stream_dev,
+            meg_onsets=torch.from_numpy(mo).to(dev),
+            speech_onsets=torch.from_numpy(so).to(dev),
+            n_words=n_words,
+            session_subject=session_subject_dev,
+            seq_len=seq_len,
+            num_subjects=len(subjects),
+        ))
+    return tuple(out) if len(out) > 1 else out[0]

@@ -1,0 +1,81 @@
+"""Sensor geometry: 2-D channel locations for spatial attention.
+
+Port of ``meg_decoding_tpu/data/layout.py`` for the Gwilliams2022 path
+(the GOD and Brennan branches come with their slices).  Resolution order:
+
+1. ``cfg.layout_csv`` — explicit CSV of per-channel coordinates (2 or 3 cols).
+2. Gwilliams — the cache-resident ``layout.npy`` the cache builder extracts
+   from the first BIDS recording (``cfg.cache_dir``).
+3. Otherwise a deterministic synthetic cap layout (Vogel spiral over the
+   scalp disc), structure-preserving only.
+
+Locations are min-max normalized into ``[0.1, 0.9]`` (reference
+``layout.py:42-45``).  Numpy only.
+"""
+
+from __future__ import annotations
+
+import csv
+import os
+import warnings
+
+import numpy as np
+
+__all__ = ["ch_locations_2d", "normalize_locations", "synthetic_cap_locations"]
+
+
+def normalize_locations(loc: np.ndarray) -> np.ndarray:
+    """Min-max normalize each axis then rescale into [0.1, 0.9] (the Fourier
+    attention basis is periodic, so keep a margin of 0.1 on each side)."""
+    loc = np.asarray(loc, dtype=np.float32)
+    loc = (loc - loc.min(axis=0)) / (loc.max(axis=0) - loc.min(axis=0))
+    return (loc * 0.8 + 0.1).astype(np.float32)
+
+
+def synthetic_cap_locations(num_channels: int, seed: int = 0) -> np.ndarray:
+    """Deterministic concentric-ring layout on the unit disc (cap-like)."""
+    # sunflower (Vogel) spiral: uniform over the disc, no two points coincide
+    idx = np.arange(num_channels, dtype=np.float64) + 0.5
+    r = np.sqrt(idx / num_channels)
+    theta = idx * (np.pi * (3.0 - np.sqrt(5.0)))
+    loc = np.stack([r * np.cos(theta), r * np.sin(theta)], axis=1)
+    return loc.astype(np.float32)
+
+
+def _read_csv_coords(path: str) -> np.ndarray:
+    rows = []
+    with open(path) as f:
+        for row in csv.reader(f):
+            if not row:
+                continue
+            rows.append([float(v) for v in row])
+    return np.asarray(rows, dtype=np.float32)
+
+
+def ch_locations_2d(cfg) -> np.ndarray:
+    """Resolve normalized (C, 2) sensor coordinates for ``cfg.dataset``."""
+    explicit = cfg.get("layout_csv")
+    if explicit:
+        return normalize_locations(_read_csv_coords(explicit)[:, :2])
+
+    if cfg.dataset != "Gwilliams2022":
+        raise NotImplementedError(
+            f"layout for dataset {cfg.dataset!r} is not ported yet "
+            "(Gwilliams2022 or an explicit layout_csv)")
+    num = int(cfg.get("num_channels", 208) or 208)
+    cache_dir = cfg.get("cache_dir")
+    layout_path = cache_dir and os.path.join(cache_dir, "layout.npy")
+    if layout_path and os.path.exists(layout_path):
+        loc = np.asarray(np.load(layout_path), dtype=np.float32)[:, :2]
+        if loc.shape[0] >= num:
+            return normalize_locations(loc[:num])
+        warnings.warn(
+            f"cache layout.npy has {loc.shape[0]} channels but the data "
+            f"has {num} — falling back to a synthetic cap")
+    else:
+        warnings.warn(
+            "no cache-resident Gwilliams sensor layout (layout.npy) — "
+            "using a synthetic cap.  SpatialAttention needs the real "
+            "geometry for accuracy parity; point cfg.layout_csv at "
+            "coordinates or rebuild the cache with its layout.")
+    return normalize_locations(synthetic_cap_locations(num))

@@ -1,0 +1,66 @@
+"""Carry flax variables into the port's state_dict names.
+
+The port keeps the flax parameter names wherever a name maps 1:1 (see
+``models/layers.py``), so the conversion is a rename plus transpose:
+
+* Dense kernel ``(in, out)`` → ``weight (out, in)``;
+* Conv kernel ``(ks, in, out)`` → ``weight (out, in, ks)``;
+* everything else (``z_re``/``z_im``, ``subject_layer.weight``, biases,
+  BN ``scale``/``bias``) keeps its name and layout;
+* ``batch_stats`` ``mean``/``var`` land in the BN buffers of the same name;
+* a TrainState-style ``params = {'model': …, 'loss': {'temp': …}}`` keeps
+  its temperature as ``'loss.temp'``.
+
+Input leaves are numpy arrays (``np.asarray`` each jax array first), so
+this module needs no JAX.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["params_from_jax", "split_loss_params"]
+
+
+def _flatten(tree: Mapping, prefix: str = ""):
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            yield from _flatten(v, key + ".")
+        else:
+            yield key, np.asarray(v)
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a).copy())
+
+
+def params_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``{'params', 'batch_stats'}`` tree of numpy arrays → state_dict."""
+    params = variables["params"]
+    loss = {}
+    if "model" in params:  # TrainState layout
+        loss = params.get("loss", {})
+        params = params["model"]
+    out = {}
+    for key, a in _flatten(params):
+        if key.endswith(".kernel"):
+            key = key[: -len("kernel")] + "weight"
+            a = a.T if a.ndim == 2 else np.transpose(a, (2, 1, 0))
+        out[key] = _tensor(a)
+    for key, a in _flatten(variables.get("batch_stats", {})):
+        out[key] = _tensor(a)
+    for key, a in _flatten(loss, "loss."):
+        out[key] = _tensor(a)
+    return out
+
+
+def split_loss_params(state_dict: Mapping) -> tuple[dict, dict]:
+    """(model entries, ``loss.*`` entries with the prefix removed)."""
+    model = {k: v for k, v in state_dict.items() if not k.startswith("loss.")}
+    loss = {k[len("loss."):]: v for k, v in state_dict.items()
+            if k.startswith("loss.")}
+    return model, loss

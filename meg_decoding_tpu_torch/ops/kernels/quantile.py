@@ -1,0 +1,136 @@
+"""Exact per-row percentiles: the CUDA kernel ``csrc/robust_quantiles.cu``
+and its plain PyTorch version.
+
+Port of ``meg_decoding_tpu/ops/pallas/quantile.py``.  The collate chain's
+RobustScaler needs the 25/50/75th percentiles of every (sample, channel)
+row over the time axis, with ``numpy.percentile(method='linear')``
+semantics under the total float order of XLA's sort (sign-flipped int32
+keys: −NaN < −inf < … < −0 < +0 < … < +inf < +NaN).
+
+* The kernel selects each order statistic exactly (bisection over the key
+  space, one warp per row) and blends in f32.
+* The plain version sorts the flipped int32 KEYS with ``torch.sort`` (a
+  float sort would put every NaN last and tie ±0), then applies the same
+  blend.
+* The blend is ``fma(v_lo, w_lo, v_hi·w_hi)`` with f32 weights, the form
+  XLA gives the JAX kernel's ``v_lo·w_lo + v_hi·w_hi`` on the CPU.  The
+  kernel calls ``fmaf``; the plain version forms the exact product in f64
+  and rounds the sum once to f32, which equals ``fmaf`` except where the
+  f64 sum itself rounds onto an f32 rounding midpoint (≤ 1 ulp apart then).
+
+``robust_quantiles`` launches the kernel for a CUDA tensor and runs the
+plain version only for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+__all__ = ["robust_quantiles", "robust_quantiles_plain", "ranks_and_weights",
+           "launches", "reset_launches"]
+
+_I32_MAX = int(np.iinfo(np.int32).max)
+_MAX_QUANTILES = 4
+_MAX_T = (227 * 1024) // 4  # one row's keys in the opt-in shared memory
+
+# kernel launches since the last reset_launches()
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def ranks_and_weights(T: int, qs) -> list[tuple[int, float, float, bool]]:
+    """Per quantile: (order statistic, f32 weight of it, f32 weight of the
+    next one, whether to interpolate) — the Pallas kernel's host constants
+    (``pos = q/100·(T−1)``, rank ⌊pos⌋, weights rounded to f32 first)."""
+    out = []
+    for q in qs:
+        pos = float(q) / 100.0 * (T - 1)
+        frac = pos - np.floor(pos)
+        out.append((int(np.floor(pos)), float(np.float32(1.0 - frac)),
+                    float(np.float32(frac)), bool(frac != 0.0)))
+    return out
+
+
+def _flip(b: torch.Tensor) -> torch.Tensor:
+    """float32 bits (as int32) → monotonically ordered int32 keys (an
+    involution: it also maps keys back to bits)."""
+    return torch.where(b < 0, b ^ _I32_MAX, b)
+
+
+def robust_quantiles_plain(x2d: torch.Tensor,
+                           qs: tuple = (25.0, 50.0, 75.0)) -> torch.Tensor:
+    """Sort-based version: (N, T) f32 → (N, len(qs)) f32."""
+    keys, _ = torch.sort(_flip(x2d.contiguous().view(torch.int32)), dim=-1)
+    cols = []
+    for rank, w_lo, w_hi, interp in ranks_and_weights(x2d.shape[1], qs):
+        v_lo = _flip(keys[:, rank]).view(torch.float32)
+        if not interp:
+            cols.append(v_lo)
+            continue
+        v_hi = _flip(keys[:, rank + 1]).view(torch.float32)
+        cols.append((v_lo.double() * w_lo + (v_hi * w_hi).double()).float())
+    return torch.stack(cols, dim=1)
+
+
+class _QuantileSpec(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_int),
+                ("rank", ctypes.c_int * _MAX_QUANTILES),
+                ("interp", ctypes.c_int * _MAX_QUANTILES),
+                ("w_lo", ctypes.c_float * _MAX_QUANTILES),
+                ("w_hi", ctypes.c_float * _MAX_QUANTILES)]
+
+
+def _lib():
+    from meg_decoding_tpu_torch.ops.kernels.build import load_library
+
+    fn = load_library("robust_quantiles").robust_quantiles_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.POINTER(_QuantileSpec),
+                       ctypes.c_void_p]
+    return fn
+
+
+def robust_quantiles(x2d: torch.Tensor,
+                     qs: tuple = (25.0, 50.0, 75.0)) -> torch.Tensor:
+    """Exact linear-interpolated percentiles along the last axis:
+    (N, T) float32 → (N, len(qs)) float32, matching
+    ``np.percentile(x2d, qs, axis=1, method='linear')`` under the
+    NaN-beyond-infinity total order."""
+    if x2d.dim() != 2 or x2d.shape[1] < 1:
+        raise ValueError(f"expected (N, T ≥ 1), got {tuple(x2d.shape)}")
+    if x2d.dtype != torch.float32:
+        raise TypeError(f"robust_quantiles takes float32, got {x2d.dtype}")
+    if not 1 <= len(qs) <= _MAX_QUANTILES:
+        raise ValueError(f"1 to {_MAX_QUANTILES} quantiles, got {len(qs)}")
+    if x2d.device.type == "cpu":
+        return robust_quantiles_plain(x2d, qs)
+    if not x2d.is_cuda:
+        raise ValueError(f"robust_quantiles runs on cuda or cpu, not {x2d.device}")
+    N, T = x2d.shape
+    if not x2d.is_contiguous():
+        raise ValueError("x2d must be contiguous")
+    if T > _MAX_T:
+        raise ValueError(f"row length {T} exceeds the kernel's {_MAX_T}")
+    spec = _QuantileSpec()
+    spec.n = len(qs)
+    for j, (rank, w_lo, w_hi, interp) in enumerate(ranks_and_weights(T, qs)):
+        spec.rank[j], spec.interp[j] = rank, int(interp)
+        spec.w_lo[j], spec.w_hi[j] = w_lo, w_hi
+    out = torch.empty((N, len(qs)), dtype=torch.float32, device=x2d.device)
+    err = _lib()(x2d.data_ptr(), out.data_ptr(), N, T, ctypes.byref(spec),
+                 torch.cuda.current_stream(x2d.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"robust_quantiles kernel launch failed: CUDA error {err}")
+    global launches
+    launches += 1
+    return out
