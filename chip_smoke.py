@@ -1,25 +1,38 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (meg_decoding_tpu_torch).
 
-Drives the port's Gwilliams2022 serving and eval path on one NVIDIA GPU at
-the full width of the speech model in ``configs/config.yaml`` (C = 208,
-D1 = 270, D2 = 320, F = 1024, K = 32, 5 ConvBlocks, seq2seq, T = 360,
-27 subjects, batch 64), with random weights from ``--seed``.  Phases, each
-printed as one JSON line:
+Drives the port's Gwilliams2022 serving and eval path and its training
+path on one NVIDIA GPU at the full width of the speech model in
+``configs/config.yaml`` (C = 208, D1 = 270, D2 = 320, F = 1024, K = 32,
+5 ConvBlocks, seq2seq, T = 360, 27 subjects, batch 64, f32), with random
+weights from ``--seed``.  Phases, each printed as one JSON line:
 
-1. build   — compile both CUDA kernels from ``meg_decoding_tpu_torch/csrc``
-             (one nvcc per source, in parallel);
-2. device  — the card's name and power limit, as nvidia-smi reports them;
-3. kernels — each kernel against its plain PyTorch version on the card at
-             the main path's shapes (gather bit-exact, percentiles ≤ 1 ulp),
-             with CUDA-event times (median of 30, L2 flushed before each)
-             of the kernel, the plain version and one PyTorch library call;
-4. serving — a synthetic 27-subject cache, 4 requests of 64 raw windows
-             through ``serving/forward.py`` (Z checked finite, of shape
-             (64, 1024, 360), and against the same model on the CPU), then
-             the eval CLI over the test pools.  The kernels' launch counts
-             are zeroed just before and read just after;
-5. the ``kernels`` line, then the ``ok`` line.
+1. build    — compile the three CUDA sources of
+              ``meg_decoding_tpu_torch/csrc`` (window_gather,
+              robust_quantiles, batchnorm_stats; one nvcc per source, in
+              parallel);
+2. device   — the card's name and power limit, as nvidia-smi reports them;
+3. kernels  — each of the four kernels against its plain PyTorch version
+              on the card at the main path's shapes (gather bit-exact,
+              percentiles ≤ 1 ulp, BN sums within 1e-5 of the sum of
+              magnitudes per channel and bit-identical across two
+              launches), and off those shapes, with CUDA-event times
+              (median of 30, L2 flushed before each) of the kernel, the
+              plain version and one PyTorch library call where there is one;
+4. serving  — a synthetic 27-subject cache, 4 requests of 64 raw windows
+              through ``serving/forward.py`` (Z checked finite, of shape
+              (64, 1024, 360), and against the same model on the CPU), then
+              the eval CLI over the test pools;
+5. training — one train step on the card against the same step on the CPU
+              (loss and global gradient norm within 1e-4), step times of
+              the fused step (first and steady), then the train CLI
+              (``cli/train_speech.py``) for one epoch of 6 updates with its
+              test-pool evaluation and checkpoints: finite losses, no
+              skipped step, and the exact launch count of every kernel;
+6. the ``kernels`` line, then the ``ok`` line.
+
+The serving and the training path each run with every launch count set to
+0 just before and read just after.
 
 Any failure raises and exits non-zero.  Without CUDA, or without the rest
 of the repository beside it, it exits non-zero and prints no result.
@@ -30,7 +43,9 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -40,26 +55,36 @@ import time
 import numpy as np
 import torch
 
-from meg_decoding_tpu_torch.cli import evaluate_speech
+from meg_decoding_tpu_torch.cli import evaluate_speech, train_speech
 from meg_decoding_tpu_torch.core.config import compose
-from meg_decoding_tpu_torch.data.gwilliams import (
-    build_gwilliams_dataset,
-    load_gwilliams_cache,
-)
 from meg_decoding_tpu_torch.data.layout import ch_locations_2d
-from meg_decoding_tpu_torch.data.sampling import random_split
-from meg_decoding_tpu_torch.data.synthetic import make_synthetic_gwilliams_cache
+from meg_decoding_tpu_torch.data.synthetic import (
+    CONFIGS_DIR,
+    FULL_WIDTH_CACHE,
+    full_width_speech,
+)
 from meg_decoding_tpu_torch.device import resolve_device
 from meg_decoding_tpu_torch.models.factory import get_model
+from meg_decoding_tpu_torch.ops.kernels import batchnorm as bk
 from meg_decoding_tpu_torch.ops.kernels import build
 from meg_decoding_tpu_torch.ops.kernels import quantile as qk
 from meg_decoding_tpu_torch.ops.kernels import window_gather as wg
 from meg_decoding_tpu_torch.serving.forward import make_serving_forward
+from meg_decoding_tpu_torch.train.checkpoint import CheckpointManager
+from meg_decoding_tpu_torch.train.loop import _test_pool_starts
+from meg_decoding_tpu_torch.train.scan_loop import make_fused_speech_step
+from meg_decoding_tpu_torch.train.schedules import make_optimizer
+from meg_decoding_tpu_torch.train.state import create_train_state
+from meg_decoding_tpu_torch.train.steps import make_train_step
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
-N_SUBJECTS, C, F, RATE, REC_SEC, WORDS = 27, 208, 1024, 120, 20.0, 96
+F32_FLOP_PER_S = 67e12     # H100 SXM published f32 rate outside the tensor cores
+C, F = FULL_WIDTH_CACHE["C"], FULL_WIDTH_CACHE["F"]
 BATCH, N_REQUESTS = 64, 4
+D2 = 320                   # BN width of every ConvBlock in configs/config.yaml
+TRAIN_UPDATES, TIMED_STEPS = 6, 10
+BN_PER_STEP = 10           # 5 ConvBlocks × (bn0, bn1)
 
 
 def emit(obj) -> None:
@@ -220,6 +245,103 @@ def phase_kernels(ds, flush) -> dict:
     return {"gather": cases, "quantiles": quant}
 
 
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(least time in ms, what sets it) on the published H100 rates."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bn_check(x: torch.Tensor, g: torch.Tensor) -> dict:
+    """Both BN statistics kernels on (x, g) against their plain versions:
+    per channel |kernel − plain| ≤ 1e-5·Σ|term| (f32 sums taken in another
+    order), and two launches bit-identical (no atomics)."""
+    shape = tuple(x.shape)
+    M = x.numel() // x.shape[1]
+    s, ss = bk.bn_stats(x)
+    mean = s / M
+    invstd = torch.rsqrt(ss / M - mean * mean + 1e-5)
+    got = {"sum_x": s, "sum_x2": ss}
+    got["sum_g"], got["sum_gxhat"] = bk.bn_bwd_stats(g, x, mean, invstd)
+    again = dict(zip(("sum_x", "sum_x2"), bk.bn_stats(x)))
+    again.update(zip(("sum_g", "sum_gxhat"), bk.bn_bwd_stats(g, x, mean, invstd)))
+    want = dict(zip(("sum_x", "sum_x2"), bk.bn_stats_plain(x)))
+    want.update(zip(("sum_g", "sum_gxhat"),
+                    bk.bn_bwd_stats_plain(g, x, mean, invstd)))
+    xf, gf = x.float(), g.float()
+    xhat = (xf - mean[:, None]) * invstd[:, None]
+    scale = {"sum_x": xf.abs().sum((0, 2)), "sum_x2": (xf * xf).sum((0, 2)),
+             "sum_g": gf.abs().sum((0, 2)),
+             "sum_gxhat": (gf * xhat).abs().sum((0, 2))}
+    torch.cuda.synchronize()
+    err = {}
+    for k in got:
+        if not torch.equal(got[k], again[k]):
+            raise AssertionError(f"BN statistics {shape} {x.dtype}: {k} differs "
+                                 "between two launches")
+        d = (got[k] - want[k]).abs()
+        if not bool((d <= 1e-5 * scale[k]).all()):
+            raise AssertionError(f"BN statistics {shape} {x.dtype}: {k} off by "
+                                 f"{float((d / scale[k]).max())} of Σ|term|")
+        err[k] = float(d.max())
+    return err
+
+
+def phase_bn_kernels(flush) -> dict:
+    """bn_stats and bn_bwd_stats at the training step's shape (64, 320, 360)
+    in f32 and bf16, timed, and at shapes off the main path."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def inputs(B, Cc, T, dtype, offset=0):
+        n = B * Cc * T + offset
+        x = (torch.randn(n, device="cuda", generator=gen) * 3 + 1.5).to(dtype)
+        g = torch.randn(n, device="cuda", generator=gen).to(dtype)
+        return x[offset:].view(B, Cc, T), g[offset:].view(B, Cc, T)
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, g = inputs(BATCH, D2, 360, dtype)
+        err = bn_check(x, g)
+        M = x.numel() // D2
+        mean = torch.zeros(D2, device="cuda")
+        invstd = torch.ones(D2, device="cuda")
+        n, esize = x.numel(), x.element_size()
+        fwd_bound = bound(n * esize + 2 * D2 * 4, 3 * n)
+        bwd_bound = bound(2 * n * esize + 4 * D2 * 4, 5 * n)
+        rows = {
+            "bn_stats": {
+                "max_abs_err": max(err["sum_x"], err["sum_x2"]),
+                "kernel_ms": time_ms(lambda: bk.bn_stats(x), flush),
+                "plain_ms": time_ms(lambda: bk.bn_stats_plain(x), flush),
+                "library_ms": time_ms(lambda: torch.var_mean(
+                    x, dim=(0, 2), correction=0), flush),
+                "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]},
+            "bn_bwd_stats": {
+                "max_abs_err": max(err["sum_g"], err["sum_gxhat"]),
+                "kernel_ms": time_ms(lambda: bk.bn_bwd_stats(g, x, mean, invstd),
+                                     flush),
+                "plain_ms": time_ms(lambda: bk.bn_bwd_stats_plain(
+                    g, x, mean, invstd), flush),
+                "library_ms": None,  # no single PyTorch call computes Σg·x̂
+                "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]},
+        }
+        for name, row in rows.items():
+            emit({"phase": "kernels", "kernel": name, "shape": list(x.shape),
+                  "dtype": str(dtype), "M": M,
+                  "tolerance": "1e-5 of sum |term| per channel; bit-identical "
+                               "across two launches", **row})
+        out[str(dtype)] = rows
+    # off the main path's shapes: C of 21, T = 37 (rows not 16-byte
+    # aligned: the element-wise loop), B·T below one CTA's thread count, and
+    # a base address 4 bytes past a 16-byte boundary
+    for B, Cc, T, dtype, offset in ((BATCH, 21, 360, torch.float32, 0),
+                                    (3, D2, 37, torch.float32, 0),
+                                    (3, D2, 37, torch.bfloat16, 0),
+                                    (1, 7, 40, torch.float32, 0),
+                                    (2, 5, 64, torch.float32, 1)):
+        bn_check(*inputs(B, Cc, T, dtype, offset))
+    return out
+
+
 def phase_serving(cfg, ds, tr_idx, seed) -> dict:
     """The main path: requests through the serving forward, then the eval
     CLI over the test pools.  Returns the launch counts of the run."""
@@ -234,8 +356,7 @@ def phase_serving(cfg, ds, tr_idx, seed) -> dict:
     forward = make_serving_forward(evaluate_speech.collate_config(cfg))
     pool = evaluate_speech.SpeechPool(ds, tr_idx, seed=seed)
 
-    wg.reset_launches()
-    qk.reset_launches()
+    reset_all_launches()
     req_ms, gather_ms, first = [], [], None
     for r in range(N_REQUESTS):
         idx = np.arange(r * BATCH, (r + 1) * BATCH) % len(pool)
@@ -274,6 +395,126 @@ def phase_serving(cfg, ds, tr_idx, seed) -> dict:
     return launches
 
 
+def reset_all_launches() -> None:
+    wg.reset_launches()
+    qk.reset_launches()
+    bk.reset_launches()
+
+
+def all_launches() -> dict:
+    return {"window_gather": wg.launches, "robust_quantiles": qk.launches,
+            **bk.launches}
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = float(a), float(b)
+    return abs(a - b) / abs(b)
+
+
+def phase_training(cfg, ds, tr_idx, seed, work) -> dict:
+    """One step on the card against the CPU, the fused step's times, then
+    the main path: the train CLI for one epoch.  Returns its launch counts."""
+    dev = torch.device("cuda")
+    loc = ch_locations_2d(cfg)
+    loss_cfg = dataclasses.replace(train_speech.loss_config(cfg), grad_norms=True)
+    collate_cfg = evaluate_speech.collate_config(cfg)
+    updates = int(cfg.updates)
+
+    def train_state(device):
+        model = get_model(cfg, loc, device=device, seed=seed)
+        opt = make_optimizer(cfg, updates)
+        state = create_train_state(model, opt, float(cfg.init_temperature), seed)
+        return model, opt, state
+
+    # one step on the card and on the CPU: same weights, batch and centre
+    model, opt, state = train_state(dev)
+    cpu_model, cpu_opt, cpu_state = train_state("cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    pool = evaluate_speech.SpeechPool(ds, tr_idx, seed=seed)
+    X, Y, subs = pool.gather(np.arange(BATCH))
+    centre = int(torch.randint(C, (), generator=torch.Generator().manual_seed(seed)))
+    step = make_train_step(model, opt, loss_cfg, collate_cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, X, Y, subs, centre=centre)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    cpu_step = make_train_step(cpu_model, cpu_opt, loss_cfg, collate_cfg)
+    _, mc = cpu_step(cpu_state, X.cpu(), Y.cpu(), subs.cpu(), centre=centre)
+    check = {"loss_rel_err": rel_err(m["loss"], mc["loss"]),
+             "grad_norm_rel_err": rel_err(m["grad_norm"], mc["grad_norm"]),
+             "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    if not (check["loss_rel_err"] <= 1e-4 and check["grad_norm_rel_err"] <= 1e-4):
+        raise AssertionError(f"card vs CPU train step: {check}")
+
+    # the fused step (session draw + gather + step) as the trainer runs it
+    fused = make_fused_speech_step(model, opt, loss_cfg, collate_cfg, ds)
+    rng = np.random.RandomState(seed)
+    step_ms, losses = [], []
+    for i in range(TIMED_STEPS):
+        idx = pool.segment_ids(rng.randint(0, len(pool), BATCH))
+        gen = torch.Generator().manual_seed(seed * 1000 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = fused(state, idx, generator=gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        if float(m["skipped"]) != 0.0 or not math.isfinite(losses[-1]):
+            raise AssertionError(f"fused step {i}: loss {losses[-1]}, "
+                                 f"skipped {float(m['skipped'])}")
+    del model, opt, state, cpu_model, cpu_opt, cpu_state
+
+    # the main path: the train CLI, one epoch of TRAIN_UPDATES updates with
+    # its test-pool evaluation and checkpoints
+    out = os.path.join(work, "train_out")
+    tcfg = compose(CONFIGS_DIR, "config", [
+        f"cache_dir={cfg.cache_dir}", f"save_root={out}", f"seed={seed}",
+        f"batch_size={BATCH}", "epochs=1", f"updates={TRAIN_UPDATES}",
+        "run_name=smoke"])
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best = train_speech.run(tcfg, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = all_launches()
+
+    with open(os.path.join(out, "runs", "smoke", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if len(rows) != 1 or rows[0]["train_skipped"] != 0.0 \
+            or not math.isfinite(rows[0]["train_loss"]):
+        raise AssertionError(f"train CLI: {rows}")
+    model, _, fresh = train_state(dev)
+    restored = CheckpointManager(os.path.join(out, "ckpt")).restore("model_last",
+                                                                   fresh)
+    if int(restored.step) != TRAIN_UPDATES:
+        raise AssertionError(f"model_last holds step {int(restored.step)}")
+    # every launch accounted for: per update 2 gathers, 1 collate, 10 BN
+    # forward and 10 BN backward statistics; per test pool 2 gathers and
+    # 1 collate (eval-mode BN uses the running statistics)
+    n_test = len(ds) - len(tr_idx)
+    pools = len(_test_pool_starts(
+        n_test, min(n_test, int(tcfg.get("test_size", BATCH))),
+        bool(tcfg.get("test_sweep", True))))
+    expected = {"window_gather": 2 * (TRAIN_UPDATES + pools),
+                "robust_quantiles": TRAIN_UPDATES + pools,
+                "bn_stats": BN_PER_STEP * TRAIN_UPDATES,
+                "bn_bwd_stats": BN_PER_STEP * TRAIN_UPDATES}
+    if launches != expected:
+        raise AssertionError(f"train CLI launches {launches}, expected {expected}")
+    emit({"phase": "training", "card_vs_cpu": check, "rel_err_limit": 1e-4,
+          "first_step_ms": first_ms, "fused_step_ms": step_ms,
+          "steady_step_ms": float(np.median(step_ms[1:])),
+          "fused_losses": losses, "train_cli_s": run_s,
+          "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
+                                             "train_top1", "train_top10",
+                                             "test_loss", "test_top1",
+                                             "test_top10")},
+          "test_pools": pools, "launches": launches})
+    return {"launches": launches, "steady_step_ms": float(np.median(step_ms[1:]))}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke run of the port")
     ap.add_argument("--seed", type=int, default=0)
@@ -290,41 +531,44 @@ def main(argv=None) -> int:
     work = os.path.join(ROOT, "runs_out", f"chip_smoke_{os.getpid()}")
     try:
         t0 = time.perf_counter()
-        cache = os.path.join(work, "cache")
-        make_synthetic_gwilliams_cache(
-            cache, n_subjects=N_SUBJECTS, n_sessions_per=1, C=C, rate=RATE,
-            rec_sec=REC_SEC, words_per_task=WORDS, F=F, seed=args.seed)
-        cfg = compose(os.path.join(ROOT, "configs"), "config", [
-            f"cache_dir={cache}", f"save_root={os.path.join(work, 'out')}",
-            f"seed={args.seed}", f"batch_size={BATCH}"])
-        ds = build_gwilliams_dataset(cfg, *load_gwilliams_cache(cache),
-                                     split_mode=cfg.split_mode,
-                                     seed=args.seed, device="cuda")
-        tr_idx, _ = random_split(torch.Generator().manual_seed(args.seed),
-                                 len(ds), float(cfg.split_ratio))
-        cfg.num_subjects = ds.num_subjects
-        cfg.num_channels = C
+        cfg, ds, tr_idx = full_width_speech(
+            work, args.seed, [f"save_root={os.path.join(work, 'out')}",
+                              f"batch_size={BATCH}"])
         emit({"phase": "data", "seconds": time.perf_counter() - t0,
               "recordings": list(ds.recordings.shape),
               "y_stream": list(ds.y_stream.shape), "segments": len(ds)})
 
         flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
         measured = phase_kernels(ds, flush)
+        bn = phase_bn_kernels(flush)[str(torch.float32)]
         del flush
-        launches = phase_serving(cfg, ds, tr_idx, args.seed)
+        serving = phase_serving(cfg, ds, tr_idx, args.seed)
+        training = phase_training(cfg, ds, tr_idx, args.seed, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name}: no launch on the main path")
-    g = measured["gather"][:2]  # one served batch: the X and the f32 Y gather
+    for path, launches in (("serving", serving), ("training", training["launches"])):
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"{name}: no launch on the {path} path")
+    launches = {k: serving.get(k, 0) + n for k, n in training["launches"].items()}
+    by_path = lambda k: {"serving": serving.get(k, 0),
+                         "training": training["launches"][k]}
+    g = measured["gather"][:2]  # one batch: the X and the f32 Y gather
     q = measured["quantiles"]
+    # the kernels' device time in one f32 training step, against its time
+    per_step = (sum(c["kernel_ms"] for c in g) + q["kernel_ms"]
+                + BN_PER_STEP * (bn["bn_stats"]["kernel_ms"]
+                                 + bn["bn_bwd_stats"]["kernel_ms"]))
+    emit({"phase": "step_share", "kernels_ms_per_step": per_step,
+          "steady_step_ms": training["steady_step_ms"],
+          "share": per_step / training["steady_step_ms"]})
     emit({"kernels": [
         {"name": "window_gather", "route": "cuda",
          "source": "meg_decoding_tpu_torch/csrc/window_gather.cu",
          "replaces": "meg_decoding_tpu/ops/pallas/window_gather.py:126",
          "launches": launches["window_gather"],
+         "launches_by_path": by_path("window_gather"),
          "max_abs_err": max(c["max_abs_err"] for c in g),
          "ms": sum(c["kernel_ms"] for c in g),
          "plain_ms": sum(c["plain_ms"] for c in g),
@@ -334,9 +578,19 @@ def main(argv=None) -> int:
          "source": "meg_decoding_tpu_torch/csrc/robust_quantiles.cu",
          "replaces": "meg_decoding_tpu/ops/pallas/quantile.py:120",
          "launches": launches["robust_quantiles"],
+         "launches_by_path": by_path("robust_quantiles"),
          "max_abs_err": q["max_abs_err"], "ms": q["kernel_ms"],
          "plain_ms": q["plain_ms"], "bound_ms": q["bound_us"] / 1e3,
          "bound_by": "bytes", "library_ms": q["library_ms"]},
+        *({"name": name, "route": "cuda",
+           "source": "meg_decoding_tpu_torch/csrc/batchnorm_stats.cu",
+           "replaces": f"meg_decoding_tpu/ops/pallas/batchnorm.py:{line}",
+           "launches": launches[name], "launches_by_path": by_path(name),
+           "max_abs_err": bn[name]["max_abs_err"], "ms": bn[name]["kernel_ms"],
+           "plain_ms": bn[name]["plain_ms"], "bound_ms": bn[name]["bound_ms"],
+           "bound_by": bn[name]["bound_by"],
+           "library_ms": bn[name]["library_ms"]}
+          for name, line in (("bn_stats", 69), ("bn_bwd_stats", 111))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

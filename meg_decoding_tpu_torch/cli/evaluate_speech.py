@@ -6,11 +6,13 @@ segment-retrieval top-1/top-10 and pairwise identification (correlation),
 and writes ``{save_root}/eval_results.json``.  It reads the same YAML
 configs through the port's ``core/config.py``.
 
-The checkpoint is a ``.pt`` state_dict in the port's names
-(``interop.params_from_jax`` converts flax variables; a ``loss.temp``
-entry is allowed): ``cfg.ckpt_path``, else ``{ckpt_dir or
-save_root/ckpt}/model.pt``.  The JAX package's orbax checkpoints need JAX
-to read and are not loaded here.
+The checkpoint is ``cfg.ckpt_path``, else the first of ``model_best.pt``,
+``model_last.pt`` (the train CLI's, as the JAX package prefers best, then
+last) and ``model.pt`` under ``{ckpt_dir or save_root/ckpt}``.  It holds
+either a state_dict in the port's names (``interop.params_from_jax``
+converts flax variables; a ``loss.temp`` entry is allowed) or a full train
+state (``train/state.py``), whose parameters are taken.  The JAX package's
+orbax checkpoints need JAX to read and are not loaded here.
 
 Run: ``python -m meg_decoding_tpu_torch.cli.evaluate_speech
 [--config-path configs] [--config-name config] [--device cuda] key=value …``
@@ -45,13 +47,15 @@ from meg_decoding_tpu_torch.serving.forward import make_serving_forward
 from meg_decoding_tpu_torch.train.steps import CollateConfig
 
 __all__ = ["run", "find_gwilliams_cache", "checkpoint_path",
-           "collate_config", "SpeechPool", "load_gwilliams_test"]
+           "load_model_state", "collate_config", "SpeechPool",
+           "load_gwilliams_splits"]
 
 
 class SpeechPool:
     """A packed split (or a subset of its segments) with the reference's
     random subject-session pairing, drawn from a seeded ``torch.Generator``:
-    ``gather(idx) → (X, Y, subject_idxs)``."""
+    ``gather(idx) → (X, Y, subject_idxs)``; ``gather(idx, generator)``
+    draws the sessions from the given generator instead."""
 
     def __init__(self, ds: GwilliamsPacked, indices=None, seed: int = 0):
         self.ds = ds
@@ -62,11 +66,15 @@ class SpeechPool:
     def __len__(self):
         return len(self.ds) if self.indices is None else len(self.indices)
 
-    def gather(self, idx):
-        seg = np.asarray(idx) if self.indices is None \
+    def segment_ids(self, idx) -> np.ndarray:
+        """Pool positions → global segment ids of ``ds``."""
+        return np.asarray(idx) if self.indices is None \
             else self.indices[np.asarray(idx)]
-        X, Y, subs, _ = gather_speech_batch(self.ds, seg,
-                                            generator=self.generator)
+
+    def gather(self, idx, generator: torch.Generator | None = None):
+        X, Y, subs, _ = gather_speech_batch(
+            self.ds, self.segment_ids(idx),
+            generator=self.generator if generator is None else generator)
         return X, Y, subs
 
 
@@ -92,19 +100,20 @@ def find_gwilliams_cache(cfg) -> str:
     return cache_dir
 
 
-def load_gwilliams_test(cfg, seed: int, device) -> SpeechPool:
-    """The test split the trainer holds out: sentence/deep splits from the
-    packer, shallow by ``random_split`` over segments."""
+def load_gwilliams_splits(cfg, seed: int, device) -> tuple[SpeechPool, SpeechPool]:
+    """The (train, test) pools of the trainer: sentence/deep splits from the
+    packer, shallow by ``random_split`` over segments of one packed set."""
     x, y, meg_on, sp_on, sent = load_gwilliams_cache(find_gwilliams_cache(cfg))
     split_mode = cfg.get("split_mode", "shallow")
     packed = build_gwilliams_dataset(cfg, x, y, meg_on, sp_on, sent,
                                      split_mode=split_mode, seed=seed,
                                      device=device)
     if split_mode in ("sentence", "deep"):
-        return SpeechPool(packed[1], seed=seed + 1)
-    _, te = random_split(torch.Generator().manual_seed(seed), len(packed),
-                         float(cfg.split_ratio))
-    return SpeechPool(packed, te, seed=seed + 1)
+        return (SpeechPool(packed[0], seed=seed),
+                SpeechPool(packed[1], seed=seed + 1))
+    tr, te = random_split(torch.Generator().manual_seed(seed), len(packed),
+                          float(cfg.split_ratio))
+    return SpeechPool(packed, tr, seed=seed), SpeechPool(packed, te, seed=seed + 1)
 
 
 def checkpoint_path(cfg) -> str:
@@ -112,7 +121,18 @@ def checkpoint_path(cfg) -> str:
         return cfg.ckpt_path
     ckpt_dir = cfg.get("ckpt_dir") or os.path.join(
         cfg.get("save_root", "runs_out"), "ckpt")
-    return os.path.join(ckpt_dir, "model.pt")
+    paths = [os.path.join(ckpt_dir, f"{n}.pt")
+             for n in ("model_best", "model_last", "model")]
+    return next((p for p in paths if os.path.exists(p)), paths[-1])
+
+
+def load_model_state(path: str, device) -> dict:
+    """The encoder's state_dict from a checkpoint file: a state_dict, or
+    the ``params`` of a saved train state; ``loss.*`` entries dropped."""
+    sd = torch.load(path, map_location=device, weights_only=True)
+    if "params" in sd and "opt" in sd:  # TrainState.state_dict()
+        sd = sd["params"]
+    return split_loss_params(sd)[0]
 
 
 def collate_config(cfg) -> CollateConfig:
@@ -131,15 +151,13 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
             f"dataset {cfg.dataset!r} is not ported yet (Gwilliams2022 only)")
     seed = int(cfg.get("seed", 0))
     save_root = cfg.get("save_root", "runs_out")
-    test_set = load_gwilliams_test(cfg, seed, dev)
+    test_set = load_gwilliams_splits(cfg, seed, dev)[1]
     cfg.num_subjects = test_set.num_subjects
     cfg.num_channels = int(test_set.ds.recordings.shape[2])
     model = get_model(cfg, ch_locations_2d(cfg), device=dev, seed=seed)
 
     path = checkpoint_path(cfg)
-    model_sd, _ = split_loss_params(torch.load(path, map_location=dev,
-                                               weights_only=True))
-    model.load_state_dict(model_sd)
+    model.load_state_dict(load_model_state(path, dev))
     print(f"loaded checkpoint: {path}")
     forward = make_serving_forward(collate_config(cfg))
 

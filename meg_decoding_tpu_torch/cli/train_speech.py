@@ -1,0 +1,125 @@
+"""Speech-decoding trainer, Gwilliams2022 on one device.  Port of ``run``
+from ``meg_decoding_tpu/cli/train_speech.py`` along its default path: the
+fused gather + train step (``train/scan_loop.py``) driven by ``fit``.
+
+Reference: ``train.py`` — builds the dataset per ``split_mode``
+(sentence/shallow/deep, :57-90), per-batch Adam updates, a test pass and
+model_last each epoch.  It reads the same YAML configs; the data source is
+a reference-format preprocessed cache (``cfg.cache_dir``, or the first
+cache under ``{root_dir}/data/Gwilliams2022/preprocessed``).
+
+Writes ``{save_root}/runs/<run>/metrics.jsonl`` and ``config.yaml``, and
+``{save_root}/ckpt/model_last.pt`` / ``model_best.pt`` (the full train
+state; ``resume=true`` continues from model_last).
+
+Not ported yet, and refused: Brennan2018, the host-resident spill path,
+whole-epoch scans, the cached collate statistics, the unfused step, wandb,
+and data parallelism over several GPUs (pass ``data_parallel=false`` to
+train on one of them).
+
+Run: ``python -m meg_decoding_tpu_torch.cli.train_speech
+[--config-path configs] [--config-name config] [--device cuda] key=value …``
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+from meg_decoding_tpu_torch.cli.evaluate_speech import (
+    collate_config,
+    load_gwilliams_splits,
+)
+from meg_decoding_tpu_torch.core.config import Config, compose
+from meg_decoding_tpu_torch.data.layout import ch_locations_2d
+from meg_decoding_tpu_torch.device import resolve_device
+from meg_decoding_tpu_torch.models.factory import get_model
+from meg_decoding_tpu_torch.train.checkpoint import CheckpointManager
+from meg_decoding_tpu_torch.train.loop import (
+    fit,
+    resume_if_requested,
+    steps_per_epoch,
+)
+from meg_decoding_tpu_torch.train.scan_loop import make_fused_speech_step
+from meg_decoding_tpu_torch.train.schedules import make_optimizer
+from meg_decoding_tpu_torch.train.state import create_train_state
+from meg_decoding_tpu_torch.train.steps import LossConfig, make_eval_step
+from meg_decoding_tpu_torch.utils.logging import RunLogger
+
+__all__ = ["run", "loss_config"]
+
+
+def _refuse_unported(cfg, dev: torch.device) -> None:
+    if cfg.dataset != "Gwilliams2022":
+        raise NotImplementedError(
+            f"dataset {cfg.dataset!r} is not ported yet (Gwilliams2022 only)")
+    for key, what in (("host_resident", "the host-resident spill path"),
+                      ("use_scan_epochs", "whole-epoch scans"),
+                      ("cache_collate_stats", "the cached collate statistics"),
+                      ("use_wandb", "wandb logging"),
+                      ("distributed", "multi-host training")):
+        if cfg.get(key, False):
+            raise NotImplementedError(f"{key}: {what} is not ported yet")
+    if not cfg.get("fuse_gather", True):
+        raise NotImplementedError("fuse_gather=false: only the fused step is ported")
+    if (dev.type == "cuda" and torch.cuda.device_count() > 1
+            and cfg.get("data_parallel", True)):
+        raise NotImplementedError(
+            "data parallelism over several GPUs is not ported yet; pass "
+            "data_parallel=false to train on one")
+
+
+def loss_config(cfg) -> LossConfig:
+    return LossConfig(kind=cfg.select("loss.kind", "clip"),
+                      reduction=cfg.get("reduction", "mean"),
+                      clip_impl=str(cfg.select("loss.clip_impl", "factored")),
+                      temp_trainable=bool(cfg.get("temp_trainable", True)))
+
+
+def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
+    """Train per ``cfg``; returns the epoch row with the best test top-10."""
+    dev = resolve_device(device)
+    _refuse_unported(cfg, dev)
+    seed = int(cfg.get("seed", 0))
+    save_root = cfg.get("save_root", "runs_out")
+    os.makedirs(save_root, exist_ok=True)
+
+    train_set, test_set = load_gwilliams_splits(cfg, seed, dev)
+    cfg.num_subjects = train_set.num_subjects
+    cfg.num_channels = int(train_set.ds.recordings.shape[2])
+    model = get_model(cfg, ch_locations_2d(cfg), device=dev, seed=seed)
+    collate_cfg = collate_config(cfg)
+    loss_cfg = loss_config(cfg)
+    optimizer = make_optimizer(cfg, int(cfg.get("updates", 1200)))
+    state = create_train_state(
+        model, optimizer,
+        init_temperature=float(cfg.get("init_temperature", 5.1)), seed=seed)
+    fused = make_fused_speech_step(model, optimizer, loss_cfg, collate_cfg,
+                                   train_set.ds)
+    eval_step = make_eval_step(model, loss_cfg, collate_cfg)
+
+    logger = RunLogger(save_root, run_name=cfg.get("run_name"))
+    logger.dump_config(cfg)
+    ckpt = CheckpointManager(os.path.join(save_root, "ckpt"))
+    state, start_epoch = resume_if_requested(
+        cfg, ckpt, state, save_root, steps_per_epoch(cfg, len(train_set)))
+    _, best = fit(cfg, train_set, test_set, state, fused, eval_step, logger,
+                  ckpt, seed=seed, start_epoch=start_epoch)
+    return best
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config-path", default="configs")
+    ap.add_argument("--config-name", default="config")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("overrides", nargs="*", help="key=value config overrides")
+    args = ap.parse_args(argv)
+    cfg = compose(args.config_path, args.config_name, args.overrides)
+    return run(cfg, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

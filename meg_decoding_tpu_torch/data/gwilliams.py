@@ -176,12 +176,14 @@ def _gather_batch(recordings, y_stream, meg_onsets, speech_onsets,
 
 
 def gather_speech_batch(ds: GwilliamsPacked, segment_ids: np.ndarray,
-                        sess_ids=None, generator: torch.Generator | None = None):
+                        sess_ids=None, generator: torch.Generator | None = None,
+                        y_dtype: torch.dtype | None = None):
     """Batch = segments by global id + one session each (the reference's
     random subject-session pairing, ``__getitem__`` :130-143).
 
     Sessions come from ``sess_ids`` when given, else are drawn uniformly
-    with ``generator`` (a CPU ``torch.Generator``).  Returns
+    with ``generator`` (a CPU ``torch.Generator``).  ``y_dtype`` casts Y
+    inside the gather (see ``_gather_batch``).  Returns
     ``(X, Y, subject_idxs, segment_ids)``."""
     seg = ds.segment_table()[np.asarray(segment_ids)]
     if sess_ids is None:
@@ -196,7 +198,8 @@ def gather_speech_batch(ds: GwilliamsPacked, segment_ids: np.ndarray,
     i_in_task = torch.as_tensor(seg[:, 1], dtype=torch.int64, device=dev)
     X, Y, subs = _gather_batch(
         ds.recordings, ds.y_stream, ds.meg_onsets, ds.speech_onsets,
-        ds.session_subject, task_ids, i_in_task, sess_ids, ds.seq_len)
+        ds.session_subject, task_ids, i_in_task, sess_ids, ds.seq_len,
+        y_dtype=y_dtype)
     return X, Y, subs, np.asarray(segment_ids)
 
 

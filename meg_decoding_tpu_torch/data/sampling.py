@@ -1,10 +1,15 @@
 """Batch samplers driven by a ``torch.Generator``.
-Port of ``random_split`` from ``meg_decoding_tpu/data/sampling.py``.
+Port of ``sample_with_replacement``, ``shuffle_batches`` and
+``random_split`` from ``meg_decoding_tpu/data/sampling.py``.
 
-The split is the same shuffle-split as the JAX package's, but a
-``torch.Generator`` does not reproduce ``jax.random.permutation``: the same
-seed gives another permutation.  Tests that compare the two hand both sides
-the same indices.
+Reference: ``meg_decoding/utils/get_dataloaders.py`` — ``RandomSampler(
+replacement=True, num_samples=updates·batch_size)`` defines an epoch as a
+fixed number of update steps (the Gwilliams/GOD mode); plain shuffle
+batching otherwise.
+
+The samplers are the JAX package's, but a ``torch.Generator`` does not
+reproduce ``jax.random``: the same seed gives other indices.  Tests that
+compare the two hand both sides the same indices.
 """
 
 from __future__ import annotations
@@ -12,7 +17,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["random_split"]
+__all__ = ["sample_with_replacement", "shuffle_batches", "random_split"]
+
+
+def sample_with_replacement(generator: torch.Generator, n: int, updates: int,
+                            batch_size: int) -> np.ndarray:
+    """(updates, batch_size) indices drawn i.i.d. with replacement from [0, n)."""
+    return torch.randint(0, n, (updates, batch_size),
+                         generator=generator).numpy()
+
+
+def shuffle_batches(generator: torch.Generator, n: int,
+                    batch_size: int) -> np.ndarray:
+    """Shuffled epoch split into full batches, (n // batch_size, batch_size);
+    the remainder is dropped."""
+    perm = torch.randperm(n, generator=generator).numpy()
+    num_full = n // batch_size
+    return perm[: num_full * batch_size].reshape(num_full, batch_size)
 
 
 def random_split(generator: torch.Generator, n: int,

@@ -14,11 +14,26 @@ import json
 import os
 
 import numpy as np
+import torch
 
-from meg_decoding_tpu_torch.core.config import Config
+from meg_decoding_tpu_torch.core.config import Config, compose
+from meg_decoding_tpu_torch.data.gwilliams import (
+    GwilliamsPacked,
+    build_gwilliams_dataset,
+    load_gwilliams_cache,
+)
 from meg_decoding_tpu_torch.data.layout import synthetic_cap_locations
+from meg_decoding_tpu_torch.data.sampling import random_split
 
-__all__ = ["make_synthetic_gwilliams_cache"]
+__all__ = ["make_synthetic_gwilliams_cache", "full_width_speech",
+           "CONFIGS_DIR", "FULL_WIDTH_CACHE"]
+
+CONFIGS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "configs")
+# 27 subjects at the widths of configs/config.yaml's speech model: C = 208
+# sensors, F = 1024 embedding features, 120 Hz; 20 s per recording
+FULL_WIDTH_CACHE = dict(n_subjects=27, n_sessions_per=1, C=208, rate=120,
+                        rec_sec=20.0, words_per_task=96, F=1024)
 
 
 def make_synthetic_gwilliams_cache(cache_dir: str, n_subjects: int = 2,
@@ -80,3 +95,25 @@ def make_synthetic_gwilliams_cache(cache_dir: str, n_subjects: int = 2,
             "last4layers": False,
         },
     })
+
+
+def full_width_speech(work: str, seed: int, overrides=(), device="cuda"
+                      ) -> tuple[Config, GwilliamsPacked, np.ndarray]:
+    """The full-width synthetic run set-up of the on-card smoke run and the
+    step profiler: the ``FULL_WIDTH_CACHE`` cache under ``{work}/cache``
+    (written once), ``configs/config.yaml`` over it with ``overrides``, the
+    dataset packed on ``device``, and the shallow split's training segment
+    ids.  Returns ``(cfg, ds, train_idx)``."""
+    cache = os.path.join(work, "cache")
+    if not os.path.exists(os.path.join(cache, "x_dict.npy")):
+        make_synthetic_gwilliams_cache(cache, seed=seed, **FULL_WIDTH_CACHE)
+    cfg = compose(CONFIGS_DIR, "config",
+                  [f"cache_dir={cache}", f"seed={seed}", *overrides])
+    ds = build_gwilliams_dataset(cfg, *load_gwilliams_cache(cache),
+                                 split_mode=cfg.split_mode, seed=seed,
+                                 device=device)
+    train_idx, _ = random_split(torch.Generator().manual_seed(seed), len(ds),
+                                float(cfg.split_ratio))
+    cfg.num_subjects = ds.num_subjects
+    cfg.num_channels = int(ds.recordings.shape[2])
+    return cfg, ds, train_idx

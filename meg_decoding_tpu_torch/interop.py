@@ -9,7 +9,9 @@ The port keeps the flax parameter names wherever a name maps 1:1 (see
   BN ``scale``/``bias``) keeps its name and layout;
 * ``batch_stats`` ``mean``/``var`` land in the BN buffers of the same name;
 * a TrainState-style ``params = {'model': …, 'loss': {'temp': …}}`` keeps
-  its temperature as ``'loss.temp'``.
+  its temperature as ``'loss.temp'``;
+* ``optax.adam``'s state: its ``ScaleByAdamState`` moments ``mu``/``nu``
+  follow the parameters' names and layouts, ``count`` stays a scalar.
 
 Input leaves are numpy arrays (``np.asarray`` each jax array first), so
 this module needs no JAX.
@@ -22,7 +24,9 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "split_loss_params"]
+from meg_decoding_tpu_torch.train.optim import AdamState
+
+__all__ = ["params_from_jax", "adam_state_from_jax", "split_loss_params"]
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -38,9 +42,9 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy())
 
 
-def params_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
-    """flax ``{'params', 'batch_stats'}`` tree of numpy arrays → state_dict."""
-    params = variables["params"]
+def _params_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """A flax params tree (or a TrainState's ``{'model', 'loss'}``, or a
+    moment tree of the same structure) → the port's names and layouts."""
     loss = {}
     if "model" in params:  # TrainState layout
         loss = params.get("loss", {})
@@ -51,11 +55,26 @@ def params_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
             key = key[: -len("kernel")] + "weight"
             a = a.T if a.ndim == 2 else np.transpose(a, (2, 1, 0))
         out[key] = _tensor(a)
-    for key, a in _flatten(variables.get("batch_stats", {})):
-        out[key] = _tensor(a)
     for key, a in _flatten(loss, "loss."):
         out[key] = _tensor(a)
     return out
+
+
+def params_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``{'params', 'batch_stats'}`` tree of numpy arrays → state_dict."""
+    out = _params_state_dict(variables["params"])
+    for key, a in _flatten(variables.get("batch_stats", {})):
+        out[key] = _tensor(a)
+    return out
+
+
+def adam_state_from_jax(opt_state) -> AdamState:
+    """``optax.adam``'s state (the chain's tuple, numpy leaves) → the port's
+    ``AdamState``, its moments keyed like ``params_from_jax``."""
+    adam = next(s for s in opt_state if hasattr(s, "mu"))
+    return AdamState(mu=_params_state_dict(adam.mu),
+                     nu=_params_state_dict(adam.nu),
+                     count=_tensor(np.asarray(adam.count)))
 
 
 def split_loss_params(state_dict: Mapping) -> tuple[dict, dict]:

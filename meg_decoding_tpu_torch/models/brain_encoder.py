@@ -1,8 +1,10 @@
-"""Brain encoder (eval mode).  Port of ``meg_decoding_tpu/models/brain_encoder.py``.
+"""Brain encoder.  Port of ``meg_decoding_tpu/models/brain_encoder.py``.
 
 Reference: ``meg_decoding/models.py`` — ``SubjectBlock`` (244-273),
 ``BrainEncoder`` (341-383).  Called as ``model(X, subject_idxs)`` with
-``X: (B, C, T)``; activations stay NCW throughout.
+``X: (B, C, T)``; activations stay NCW throughout.  ``model.train()``
+turns on spatial dropout (a training forward takes the dropout ``centre``
+or a ``generator`` to draw it) and batch-statistics BatchNorm.
 """
 
 from __future__ import annotations
@@ -27,10 +29,12 @@ class SubjectBlock(nn.Module):
     (no bias)."""
 
     def __init__(self, loc: np.ndarray, num_subjects: int, D1: int = 270,
-                 K: int = 32, dtype: torch.dtype | None = None, device=None,
+                 K: int = 32, d_drop: float = 0.1,
+                 dtype: torch.dtype | None = None, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.spatial_attention = SpatialAttention(loc, D1=D1, K=K,
+                                                  d_drop=d_drop,
                                                   device=device,
                                                   generator=generator)
         self.conv = Conv1x1(D1, D1, dtype=dtype, device=device,
@@ -38,8 +42,10 @@ class SubjectBlock(nn.Module):
         self.subject_layer = SubjectLayers(num_subjects, D1, device=device,
                                            generator=generator)
 
-    def forward(self, X: torch.Tensor, subject_idxs: torch.Tensor) -> torch.Tensor:
-        X = self.spatial_attention(X)
+    def forward(self, X: torch.Tensor, subject_idxs: torch.Tensor,
+                centre: int | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        X = self.spatial_attention(X, centre=centre, generator=generator)
         X = self.conv(X)
         return self.subject_layer(X, subject_idxs)
 
@@ -51,10 +57,11 @@ class BrainEncoder(nn.Module):
 
     ``dtype``: compute dtype of the convolutions (None = the input's, f32);
     parameters stay f32.  ``emit_f32`` casts the output to f32.
-    ``generator`` draws the initial weights (torch's default ranges)."""
+    ``generator`` draws the initial weights (torch's default ranges);
+    ``d_drop`` is the spatial-dropout radius of training mode."""
 
     def __init__(self, loc: np.ndarray, num_subjects: int, D1: int = 270,
-                 D2: int = 320, F: int = 512, K: int = 32,
+                 D2: int = 320, F: int = 512, K: int = 32, d_drop: float = 0.1,
                  seq2seq: bool = False, num_blocks: int = 5,
                  dtype: torch.dtype | None = None,
                  gelu_approximate: bool = False, gelu_impl: str | None = None,
@@ -62,11 +69,12 @@ class BrainEncoder(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.seq2seq = seq2seq
+        self.dtype = dtype
         self.emit_f32 = emit_f32
         self.gelu_impl = resolve_impl(gelu_impl, gelu_approximate)
         self.subject_block = SubjectBlock(loc, num_subjects, D1=D1, K=K,
-                                          dtype=dtype, device=device,
-                                          generator=generator)
+                                          d_drop=d_drop, dtype=dtype,
+                                          device=device, generator=generator)
         for k in range(num_blocks):
             self.add_module(f"conv{k}", ConvBlock(
                 k, D1 if k == 0 else D2, D2, dtype=dtype,
@@ -77,8 +85,14 @@ class BrainEncoder(nn.Module):
         self.conv_final2 = Conv1x1(2 * D2, F, dtype=dtype, device=device,
                                    generator=generator)
 
-    def forward(self, X: torch.Tensor, subject_idxs: torch.Tensor) -> torch.Tensor:
-        X = self.subject_block(X, subject_idxs)
+    def forward(self, X: torch.Tensor, subject_idxs: torch.Tensor,
+                centre: int | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``centre``/``generator``: the spatial-dropout centre of a
+        training forward, or the CPU generator to draw it (ignored in eval
+        mode)."""
+        X = self.subject_block(X, subject_idxs, centre=centre,
+                               generator=generator)
         for k in range(self.num_blocks):
             X = getattr(self, f"conv{k}")(X)
         X = gelu(self.conv_final1(X), self.gelu_impl)

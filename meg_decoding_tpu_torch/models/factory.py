@@ -40,6 +40,7 @@ def get_model(cfg, loc: np.ndarray, device: str | torch.device = "cuda",
         D2=int(cfg.get("D2", 320)),
         F=_resolve_F(cfg),
         K=int(cfg.get("K", 32)),
+        d_drop=float(cfg.get("d_drop", 0.1)),
         seq2seq=bool(cfg.get("seq2seq", False)),
         dtype=_DTYPES[str(cfg.get("compute_dtype", "float32"))],
         gelu_approximate=bool(cfg.get("gelu_approximate", False)),

@@ -1,7 +1,8 @@
-"""Core encoder layers, eval mode.  Port of ``meg_decoding_tpu/models/layers.py``.
+"""Core encoder layers.  Port of ``meg_decoding_tpu/models/layers.py``.
 
 Reference semantics: ``meg_decoding/models.py`` — ``SpatialAttention``
-(167-220), ``SubjectBlock`` (244-273), ``ConvBlock`` (276-322).
+(167-220), ``SpatialDropout`` (223-241), ``SubjectBlock`` (244-273),
+``ConvBlock`` (276-322).
 
 Layout: the JAX package runs time-major ``(B, T, C)`` inside the encoder;
 here activations are NCW ``(B, C, T)``, PyTorch's convolution layout, and
@@ -10,8 +11,13 @@ follow the flax tree (``z_re``/``z_im``, ``weight``, ``conv0``…``conv2b``,
 ``bn0``/``bn1`` with ``scale``/``bias`` and buffers ``mean``/``var``) so
 ``interop.params_from_jax`` is a rename plus transpose.
 
-Training-mode pieces (spatial dropout, batch statistics) come with the
-training slice; these modules run the eval forward.
+Training mode (``module.train()``): spatial dropout with one centre per
+batch, and BatchNorm on batch statistics through ``ops/batchnorm.py``.
+A training forward does not write the BN running statistics: each
+``FusedBatchNorm`` keeps its update as a proposal, and the train step
+commits every proposal only where the step was finite
+(``commit_running_stats``), as the JAX step keeps the old ``batch_stats``
+of a skipped step.
 """
 
 from __future__ import annotations
@@ -21,14 +27,17 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from meg_decoding_tpu_torch.ops.batchnorm import batch_norm_train
 from meg_decoding_tpu_torch.ops.gelu import gelu
 
 __all__ = [
     "fourier_basis",
     "spatial_attention_weights",
+    "spatial_dropout_mask",
     "SpatialAttention",
     "SubjectLayers",
     "FusedBatchNorm",
+    "commit_running_stats",
     "Conv1x1",
     "Conv1d",
     "ConvBlock",
@@ -52,19 +61,36 @@ def spatial_attention_weights(z_re, z_im, cos, sin) -> torch.Tensor:
     return torch.softmax(z_re @ cos + z_im @ sin, dim=-1)  # (D1, C)
 
 
+def spatial_dropout_mask(loc: torch.Tensor, d_drop: float,
+                         centre: int) -> torch.Tensor:
+    """Zero the channels within ``d_drop`` (strictly) of sensor ``centre``,
+    one centre for the whole batch (reference ``models.py:232-241``).
+    loc (C, 2) → (C,) mask of 0.0/1.0."""
+    diff = loc - loc[centre]
+    distances = torch.sqrt((diff * diff).sum(dim=-1))
+    return torch.where(distances < d_drop, 0.0, 1.0).to(loc.dtype)
+
+
 class SpatialAttention(nn.Module):
     """Fourier-parameterized spatial attention: (B, C, T) → (B, D1, T).
 
     ``z_re``/``z_im`` are the real/imaginary parts of the reference's complex
-    ``z ∈ C^{D1×K²}``, initialized U[0, 1) like ``torch.rand(cfloat)``."""
+    ``z ∈ C^{D1×K²}``, initialized U[0, 1) like ``torch.rand(cfloat)``.
+    In training mode the input channels near one random sensor are dropped
+    (``spatial_dropout_mask``) before the attention."""
 
     def __init__(self, loc: np.ndarray, D1: int = 270, K: int = 32,
-                 device=None, generator: torch.Generator | None = None):
+                 d_drop: float = 0.1, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
+        self.d_drop = d_drop
         cos_t, sin_t = fourier_basis(loc, K)
         self.register_buffer("cos", torch.tensor(cos_t, device=device),
                              persistent=False)
         self.register_buffer("sin", torch.tensor(sin_t, device=device),
+                             persistent=False)
+        self.register_buffer("loc", torch.tensor(np.asarray(loc, np.float32),
+                                                 device=device),
                              persistent=False)
         self.z_re = nn.Parameter(torch.empty(D1, K * K, device=device))
         self.z_im = nn.Parameter(torch.empty(D1, K * K, device=device))
@@ -75,8 +101,21 @@ class SpatialAttention(nn.Module):
         self.z_re.uniform_(0.0, 1.0, generator=generator)
         self.z_im.uniform_(0.0, 1.0, generator=generator)
 
-    def forward(self, X: torch.Tensor) -> torch.Tensor:
+    def forward(self, X: torch.Tensor, centre: int | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """In training mode the dropout centre is ``centre`` when given, else
+        drawn uniformly from the sensors with ``generator`` (a CPU
+        ``torch.Generator``, so the draw needs no device sync)."""
         sa = spatial_attention_weights(self.z_re, self.z_im, self.cos, self.sin)
+        if self.training:
+            if centre is None:
+                if generator is None:
+                    raise ValueError("a training forward needs a dropout "
+                                     "centre or a torch.Generator to draw it")
+                centre = int(torch.randint(self.loc.shape[0], (),
+                                           generator=generator))
+            mask = spatial_dropout_mask(self.loc, self.d_drop, centre)
+            X = X * mask[None, :, None]
         return torch.matmul(sa, X)  # (D1, C) @ (B, C, T)
 
 
@@ -102,32 +141,60 @@ class SubjectLayers(nn.Module):
 
 
 class FusedBatchNorm(nn.Module):
-    """BatchNorm over dim 1 of (B, C, T) with running statistics (eval mode).
+    """BatchNorm over dim 1 of (B, C, T) with running statistics.
 
-    The affine is written out as the JAX package computes it
+    Eval mode: the affine is written out as the JAX package computes it
     (``layers.py:190-194``): ``a = scale·rsqrt(var + eps)``,
     ``b = bias − mean·a``, ``y = x·a + b`` in f32, rounded once to the
-    output dtype (``F.batch_norm`` rounds differently)."""
+    output dtype (``F.batch_norm`` rounds differently).
 
-    def __init__(self, num_features: int, epsilon: float = 1e-5,
-                 dtype: torch.dtype | None = None, device=None):
+    Training mode: batch statistics through ``batch_norm_train`` (biased
+    variance, which ``nn.BatchNorm1d`` would not store), and the running
+    update ``m·ra + (1 − m)·batch`` kept in ``proposed`` until
+    ``commit_running_stats`` writes it."""
+
+    def __init__(self, num_features: int, momentum: float = 0.99,
+                 epsilon: float = 1e-5, dtype: torch.dtype | None = None,
+                 device=None):
         super().__init__()
+        self.momentum = momentum
         self.epsilon = epsilon
         self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(num_features, device=device))
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
         self.register_buffer("mean", torch.zeros(num_features, device=device))
         self.register_buffer("var", torch.ones(num_features, device=device))
+        # (mean, var) running statistics of the last training forward, not
+        # yet committed
+        self.proposed: tuple[torch.Tensor, torch.Tensor] | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "batch-statistics BatchNorm comes with the training port; "
-                "call model.eval()")
+            y, mean, var = batch_norm_train(x, self.scale, self.bias,
+                                            self.epsilon)
+            m = self.momentum
+            with torch.no_grad():
+                self.proposed = (m * self.mean + (1.0 - m) * mean,
+                                 m * self.var + (1.0 - m) * var)
+            return y.to(self.dtype or x.dtype)
         a = self.scale * torch.rsqrt(self.var + self.epsilon)
         b = self.bias - self.mean * a
         y = x.to(torch.float32) * a[:, None] + b[:, None]
         return y.to(self.dtype or x.dtype)
+
+
+@torch.no_grad()
+def commit_running_stats(model: nn.Module, ok: torch.Tensor) -> None:
+    """Write the proposed running statistics of every ``FusedBatchNorm`` in
+    ``model`` where ``ok`` (a 0-dim bool tensor) holds and keep the old ones
+    where it does not — on the device, without a sync — then clear the
+    proposals, so none can be committed twice or by a later step."""
+    for mod in model.modules():
+        if isinstance(mod, FusedBatchNorm) and mod.proposed is not None:
+            new_mean, new_var = mod.proposed
+            mod.mean.copy_(torch.where(ok, new_mean, mod.mean))
+            mod.var.copy_(torch.where(ok, new_var, mod.var))
+            mod.proposed = None
 
 
 def _torch_uniform_(t: torch.Tensor, fan_in: int,
@@ -202,10 +269,13 @@ class ConvBlock(nn.Module):
         self.k = k
         self.gelu_impl = gelu_impl
         conv = lambda cin: Conv1d(cin, D2, ks, dtype, device, generator)
+        # flax momentum 0.9 = 1 − torch momentum 0.1 (layers.py:221)
+        bn = lambda: FusedBatchNorm(D2, momentum=0.9, dtype=dtype,
+                                    device=device)
         self.conv0 = conv(in_dim)
-        self.bn0 = FusedBatchNorm(D2, dtype=dtype, device=device)
+        self.bn0 = bn()
         self.conv1 = conv(D2)
-        self.bn1 = FusedBatchNorm(D2, dtype=dtype, device=device)
+        self.bn1 = bn()
         self.conv2a = conv(D2)
         self.conv2b = conv(D2)
 

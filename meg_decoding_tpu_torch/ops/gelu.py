@@ -1,4 +1,4 @@
-"""GELU implementations.  Port of ``meg_decoding_tpu/ops/gelu.py`` (forward).
+"""GELU implementations.  Port of ``meg_decoding_tpu/ops/gelu.py``.
 
 * ``'erf'``  — exact GELU (``F.gelu``, the reference's default);
 * ``'tanh'`` — the tanh approximation (an opt-in deviation in the JAX
@@ -6,7 +6,9 @@
 * ``'erf_poly'`` — GELU through the JAX package's exp-free
   piecewise-polynomial erf (≤ 2.5 f32 ulp of erf), with the same
   coefficients, so a config that selects it computes the same function.
-  Forward only here; its analytic backward comes with training.
+  Its backward is the analytic GELU derivative Φ(x) + x·φ(x) (the JAX
+  package's custom JVP), not autograd through the three polynomials.
+  'erf' and 'tanh' keep PyTorch's own autograd.
 
   |u| ≤ 1          erf(u) = u · P₆(u²)
   1 < |u| ≤ 2.2    erf(u) = M₉(|u| − 1.6)       (mirrored by sign)
@@ -19,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["erf_poly", "gelu_erf_poly", "gelu", "resolve_impl"]
+__all__ = ["erf_poly", "gelu_erf_poly", "GeluErfPoly", "gelu", "resolve_impl"]
 
 
 def resolve_impl(impl: str | None, approximate: bool) -> str:
@@ -31,6 +33,7 @@ def resolve_impl(impl: str | None, approximate: bool) -> str:
 
 
 _SQRT_HALF = 0.7071067811865476
+_INV_SQRT_2PI = 0.3989422804014327
 _UMAX = 3.92
 _B1 = 2.2
 _C1 = 1.6   # mid-interval Horner center, (1 + 2.2)/2
@@ -85,6 +88,25 @@ def gelu_erf_poly(x: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+class GeluErfPoly(torch.autograd.Function):
+    """``gelu_erf_poly`` with the analytic backward
+    ``(Φ(x) + x·φ(x))·g`` in f32, rounded once to x's dtype
+    (``ops/gelu.py:119-137`` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return gelu_erf_poly(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        x32 = x.to(torch.float32)
+        cdf = 0.5 * (1.0 + erf_poly(x32 * _SQRT_HALF))
+        pdf = _INV_SQRT_2PI * torch.exp(-0.5 * x32 * x32)
+        return ((cdf + x32 * pdf) * g.to(torch.float32)).to(x.dtype)
+
+
 def gelu(x: torch.Tensor, impl: str = "erf") -> torch.Tensor:
     """GELU dispatcher: 'erf' | 'tanh' | 'erf_poly'."""
     if impl == "erf":
@@ -92,5 +114,5 @@ def gelu(x: torch.Tensor, impl: str = "erf") -> torch.Tensor:
     if impl == "tanh":
         return F.gelu(x, approximate="tanh")
     if impl == "erf_poly":
-        return gelu_erf_poly(x)
+        return GeluErfPoly.apply(x)
     raise ValueError(f"unknown gelu impl {impl!r}")

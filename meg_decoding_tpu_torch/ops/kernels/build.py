@@ -1,6 +1,8 @@
 """Build the port's CUDA kernels from ``csrc/`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
+The sources are ``window_gather.cu``, ``robust_quantiles.cu`` and
+``batchnorm_stats.cu`` (``bn_stats`` and ``bn_bwd_stats``).  Each
+``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``meg_decoding_tpu_torch/_build/`` (ignored by git).  The library's file
 name carries a hash of the source and the flags, so an edited source is
@@ -28,7 +30,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-KERNELS = ("window_gather", "robust_quantiles")
+KERNELS = ("window_gather", "robust_quantiles", "batchnorm_stats")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

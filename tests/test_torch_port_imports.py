@@ -68,6 +68,7 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_entry_points_refuse_cuda_without_a_gpu(monkeypatch, tmp_path):
+    from meg_decoding_tpu_torch.cli import train_speech
     from meg_decoding_tpu_torch.cli.evaluate_speech import run
     from meg_decoding_tpu_torch.core.config import compose
     from meg_decoding_tpu_torch.data.gwilliams import build_gwilliams_dataset
@@ -82,6 +83,7 @@ def test_entry_points_refuse_cuda_without_a_gpu(monkeypatch, tmp_path):
         lambda: get_model(cfg, np.full((208, 2), 0.5, np.float32)),
         lambda: build_gwilliams_dataset(cfg, {}, {}, {}, {}, {}),
         lambda: run(cfg),
+        lambda: train_speech.run(cfg),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
