@@ -18,7 +18,9 @@ weights from ``--seed``.  Phases, each printed as one JSON line:
               magnitudes per channel and bit-identical across two
               launches), and off those shapes, with CUDA-event times
               (median of 30, L2 flushed before each) of the kernel, the
-              plain version and one PyTorch library call where there is one;
+              plain version and one PyTorch library call where there is
+              one, and the kernel's device time per call in a run of 64
+              back-to-back calls on inputs cold in the L2 (``run_ms``);
 4. serving  — a synthetic 27-subject cache, 4 requests of 64 raw windows
               through ``serving/forward.py`` (Z checked finite, of shape
               (64, 1024, 360), and against the same model on the CPU), then
@@ -80,6 +82,7 @@ from meg_decoding_tpu_torch.train.steps import make_train_step
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 F32_FLOP_PER_S = 67e12     # H100 SXM published f32 rate outside the tensor cores
+L2_BYTES = 50 * 2**20      # H100 L2 cache
 C, F = FULL_WIDTH_CACHE["C"], FULL_WIDTH_CACHE["F"]
 BATCH, N_REQUESTS = 64, 4
 D2 = 320                   # BN width of every ConvBlock in configs/config.yaml
@@ -93,7 +96,8 @@ def emit(obj) -> None:
 
 def time_ms(fn, flush: torch.Tensor, reps: int = 30) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs, the L2 cache
-    flushed (a 256 MB memset) before each so every run reads cold."""
+    flushed (a 256 MB memset) before each so every run reads cold.  A time
+    of one launch: it includes the launch and the events themselves."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -107,6 +111,41 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 30) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def run_ms(fns, n: int = 64, reps: int = 5) -> float:
+    """Device time per call of a run of ``n`` calls ``fns[i % len(fns)]``
+    between two CUDA events (median of ``reps`` runs).  The run waits behind
+    a sleep kernel three times as long as the host takes to queue it, so
+    the host's own time per call does not enter; each fn reads its own copy
+    of the inputs (``copies``), so every call finds them cold in the L2."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fns[i % len(fns)]()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(int(3 * host_s * 2e9) + 10**6)  # cycles at <= 2 GHz
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(n):
+            fns[i % len(fns)]()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return float(np.median(times))
+
+
+def copies(x: torch.Tensor, nbytes: int) -> list:
+    """``x`` and clones of it, for calls that read ``nbytes`` each to take
+    turns on: four times the 50 MB L2 together (at most 64 copies)."""
+    k = min(64, math.ceil(4 * L2_BYTES / nbytes))
+    return [x] + [x.clone() for _ in range(k - 1)]
 
 
 def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -170,6 +209,9 @@ def gather_case(src, B, L, seed, out_dtype, flush):
         "tolerance": "bit-exact", "bit_exact": True, "max_abs_err": err,
         "kernel_ms": time_ms(lambda: wg.window_gather(
             src, rec, on, L, out_dtype=out_dtype), flush),
+        "run_ms": run_ms([lambda s=s: wg.window_gather(
+            s, rec, on, L, out_dtype=out_dtype)
+            for s in copies(src, B * Cs * L * 4)]),
         "plain_ms": time_ms(lambda: wg.window_gather_plain(
             src, rec, on, L, out_dtype=out_dtype), flush),
         "library_ms": (time_ms(lambda: src[i_r, i_c, i_t], flush)
@@ -180,6 +222,9 @@ def gather_case(src, B, L, seed, out_dtype, flush):
 
 
 def phase_kernels(ds, flush) -> dict:
+    # the time a run gives a launch that does nothing: one 4-byte memset
+    emit({"phase": "kernels",
+          "launch_floor_ms": run_ms([lambda: flush[:1].zero_()])})
     S, NT, Cx, T = ds.recordings.shape
     L = ds.seq_len
     rec_flat = ds.recordings.reshape(S * NT, Cx, T)
@@ -199,50 +244,77 @@ def phase_kernels(ds, flush) -> dict:
             raise AssertionError(f"window_gather (C = {Cs}, L = {Ls}): "
                                  "kernel and plain version differ")
 
-    # percentiles of a baseline-corrected X batch, as the collate fits them,
-    # with rows of NaN (both signs), ±inf, ±0, constants and duplicates
+    # percentiles of a baseline-corrected X batch, as the collate fits them
     X = wg.window_gather(rec_flat, torch.arange(BATCH, device="cuda") % (S * NT),
                          torch.arange(BATCH, device="cuda") * 17, L)
     x2d = (X - X[..., :60].mean(-1, keepdim=True)).reshape(-1, L).contiguous()
+    quant = quantile_checks(x2d, flush)
+    emit({"phase": "kernels", "kernel": "robust_quantiles", **quant})
+    return {"gather": cases, "quantiles": quant}
+
+
+def with_hard_rows(x2d: torch.Tensor) -> torch.Tensor:
+    """Rows of NaN (both signs), ±inf, ±0, constants and duplicates, and one
+    row whose six order statistics (rank and rank + 1 of the 25/50/75th
+    percentiles) all fall in one run of equal values."""
+    T = x2d.shape[1]
     x2d[0] = 3.0
     x2d[1, ::3] = float("nan")
     x2d[2, ::4] = -float("nan")
     x2d[3, ::2], x2d[3, 1::2] = float("inf"), -float("inf")
     x2d[4, ::2], x2d[4, 1::2] = 0.0, -0.0
-    x2d[5, : L // 2], x2d[5, L // 2:] = 1.0, -1.0
+    x2d[5, : T // 2], x2d[5, T // 2:] = 1.0, -1.0
     x2d[6] = torch.round(x2d[6])
+    lo, hi = T // 5, T - T // 5  # the run covers sorted positions lo … hi-1
+    x2d[7, :lo] = -1.0 - x2d[7, :lo].abs()
+    x2d[7, lo:hi] = 0.5
+    x2d[7, hi:] = 2.0 + x2d[7, hi:].abs()
+    return x2d
+
+
+def quantile_check(x2d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The kernel against its plain version: equal NaN positions, ≤ 1 ulp."""
     got = qk.robust_quantiles(x2d)
     want = qk.robust_quantiles_plain(x2d)
     torch.cuda.synchronize()
+    shape = tuple(x2d.shape)
     if not torch.equal(torch.isnan(got), torch.isnan(want)):
-        raise AssertionError("robust_quantiles: NaN positions differ")
+        raise AssertionError(f"robust_quantiles {shape}: NaN positions differ")
     ulps = ulp_distance(got, want)
     if ulps > 1:
-        raise AssertionError(f"robust_quantiles: {ulps} ulp from the plain version")
-    # off the main path's shapes: a last CTA with fewer rows than warps,
-    # rows shorter than a warp, and rows whose keys need more than the
+        raise AssertionError(f"robust_quantiles {shape}: {ulps} ulp from the "
+                             "plain version")
+    return got, want, ulps
+
+
+def quantile_checks(x2d: torch.Tensor, flush) -> dict:
+    """robust_quantiles on the main path's (N, T) batch with its hard rows,
+    timed, and at shapes off the main path."""
+    N, L = x2d.shape
+    got, want, ulps = quantile_check(with_hard_rows(x2d))
+    # off the main path's shapes: a last CTA with fewer rows than warps;
+    # rows shorter than a warp; 31, 32, 33 keys (one key per lane and the
+    # step to two); the register path's limit of 1024 keys (32 per lane) and
+    # 1025 (the shared-memory bisection); rows whose keys need more than the
     # default 48 KB of shared memory
     g = torch.Generator(device="cuda").manual_seed(4)
-    for n, t in ((45, 7), (13, 1), (9, 2), (37, 20000)):
+    for n, t in ((45, 7), (13, 1), (9, 2), (45, 31), (45, 32), (45, 33),
+                 (45, qk.REGISTER_MAX_T), (45, qk.REGISTER_MAX_T + 1),
+                 (37, 20000)):
         xe = torch.randn(n, t, device="cuda", generator=g)
-        e = ulp_distance(qk.robust_quantiles(xe), qk.robust_quantiles_plain(xe))
-        if e > 1:
-            raise AssertionError(f"robust_quantiles ({n}, {t}): {e} ulp from "
-                                 "the plain version")
+        quantile_check(with_hard_rows(xe) if t >= 8 else xe)
     fin = torch.isfinite(got) & torch.isfinite(want)
-    q_err = float((got[fin] - want[fin]).abs().max())
     q_lib = torch.tensor([0.25, 0.5, 0.75], device="cuda")
-    N = x2d.shape[0]
     q_bytes = N * L * 4 + N * 3 * 4
-    quant = {"shape": [N, L], "tolerance": "<= 1 ulp", "max_ulp": ulps,
-             "max_abs_err": q_err,
-             "kernel_ms": time_ms(lambda: qk.robust_quantiles(x2d), flush),
-             "plain_ms": time_ms(lambda: qk.robust_quantiles_plain(x2d), flush),
-             "library_ms": time_ms(lambda: torch.quantile(x2d, q_lib, dim=1),
-                                   flush),
-             "bytes": q_bytes, "bound_us": q_bytes / HBM_BYTES_PER_S * 1e6}
-    emit({"phase": "kernels", "kernel": "robust_quantiles", **quant})
-    return {"gather": cases, "quantiles": quant}
+    return {"shape": [N, L], "tolerance": "<= 1 ulp", "max_ulp": ulps,
+            "max_abs_err": float((got[fin] - want[fin]).abs().max()),
+            "kernel_ms": time_ms(lambda: qk.robust_quantiles(x2d), flush),
+            "run_ms": run_ms([lambda x=x: qk.robust_quantiles(x)
+                              for x in copies(x2d, q_bytes)]),
+            "plain_ms": time_ms(lambda: qk.robust_quantiles_plain(x2d), flush),
+            "library_ms": time_ms(lambda: torch.quantile(x2d, q_lib, dim=1),
+                                  flush),
+            "bytes": q_bytes, "bound_us": q_bytes / HBM_BYTES_PER_S * 1e6}
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -305,12 +377,14 @@ def phase_bn_kernels(flush) -> dict:
         mean = torch.zeros(D2, device="cuda")
         invstd = torch.ones(D2, device="cuda")
         n, esize = x.numel(), x.element_size()
+        xs, gs = copies(x, n * esize), copies(g, n * esize)
         fwd_bound = bound(n * esize + 2 * D2 * 4, 3 * n)
         bwd_bound = bound(2 * n * esize + 4 * D2 * 4, 5 * n)
         rows = {
             "bn_stats": {
                 "max_abs_err": max(err["sum_x"], err["sum_x2"]),
                 "kernel_ms": time_ms(lambda: bk.bn_stats(x), flush),
+                "run_ms": run_ms([lambda x=x: bk.bn_stats(x) for x in xs]),
                 "plain_ms": time_ms(lambda: bk.bn_stats_plain(x), flush),
                 "library_ms": time_ms(lambda: torch.var_mean(
                     x, dim=(0, 2), correction=0), flush),
@@ -319,6 +393,8 @@ def phase_bn_kernels(flush) -> dict:
                 "max_abs_err": max(err["sum_g"], err["sum_gxhat"]),
                 "kernel_ms": time_ms(lambda: bk.bn_bwd_stats(g, x, mean, invstd),
                                      flush),
+                "run_ms": run_ms([lambda g=g, x=x: bk.bn_bwd_stats(
+                    g, x, mean, invstd) for g, x in zip(gs, xs)]),
                 "plain_ms": time_ms(lambda: bk.bn_bwd_stats_plain(
                     g, x, mean, invstd), flush),
                 "library_ms": None,  # no single PyTorch call computes Σg·x̂
@@ -330,14 +406,23 @@ def phase_bn_kernels(flush) -> dict:
                   "tolerance": "1e-5 of sum |term| per channel; bit-identical "
                                "across two launches", **row})
         out[str(dtype)] = rows
+        del xs, gs
     # off the main path's shapes: C of 21, T = 37 (rows not 16-byte
-    # aligned: the element-wise loop), B·T below one CTA's thread count, and
-    # a base address 4 bytes past a 16-byte boundary
+    # aligned: the element-wise loop), B·T below one CTA's thread count, a
+    # base address 4 bytes past a 16-byte boundary, one channel, B = 65 (not
+    # a multiple of 4), and rows longer than a CTA's threads
     for B, Cc, T, dtype, offset in ((BATCH, 21, 360, torch.float32, 0),
                                     (3, D2, 37, torch.float32, 0),
                                     (3, D2, 37, torch.bfloat16, 0),
                                     (1, 7, 40, torch.float32, 0),
-                                    (2, 5, 64, torch.float32, 1)):
+                                    (2, 5, 64, torch.float32, 1),
+                                    (BATCH, 1, 360, torch.float32, 0),
+                                    (1, 3, 8, torch.bfloat16, 0),
+                                    (3, 1, 5, torch.bfloat16, 0),
+                                    (BATCH + 1, 24, 360, torch.float32, 0),
+                                    (BATCH + 1, 24, 360, torch.bfloat16, 0),
+                                    (6, 3, 4096, torch.float32, 0),
+                                    (6, 3, 1001, torch.float32, 0)):
         bn_check(*inputs(B, Cc, T, dtype, offset))
     return out
 
@@ -571,6 +656,7 @@ def main(argv=None) -> int:
          "launches_by_path": by_path("window_gather"),
          "max_abs_err": max(c["max_abs_err"] for c in g),
          "ms": sum(c["kernel_ms"] for c in g),
+         "run_ms": sum(c["run_ms"] for c in g),
          "plain_ms": sum(c["plain_ms"] for c in g),
          "bound_ms": sum(c["bound_us"] for c in g) / 1e3, "bound_by": "bytes",
          "library_ms": sum(c["library_ms"] for c in g)},
@@ -580,13 +666,15 @@ def main(argv=None) -> int:
          "launches": launches["robust_quantiles"],
          "launches_by_path": by_path("robust_quantiles"),
          "max_abs_err": q["max_abs_err"], "ms": q["kernel_ms"],
-         "plain_ms": q["plain_ms"], "bound_ms": q["bound_us"] / 1e3,
+         "run_ms": q["run_ms"], "plain_ms": q["plain_ms"],
+         "bound_ms": q["bound_us"] / 1e3,
          "bound_by": "bytes", "library_ms": q["library_ms"]},
         *({"name": name, "route": "cuda",
            "source": "meg_decoding_tpu_torch/csrc/batchnorm_stats.cu",
            "replaces": f"meg_decoding_tpu/ops/pallas/batchnorm.py:{line}",
            "launches": launches[name], "launches_by_path": by_path(name),
            "max_abs_err": bn[name]["max_abs_err"], "ms": bn[name]["kernel_ms"],
+           "run_ms": bn[name]["run_ms"],
            "plain_ms": bn[name]["plain_ms"], "bound_ms": bn[name]["bound_ms"],
            "bound_by": bn[name]["bound_by"],
            "library_ms": bn[name]["library_ms"]}

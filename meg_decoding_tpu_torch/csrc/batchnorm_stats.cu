@@ -28,6 +28,14 @@
 // atomics, so two launches on the same input give bit-identical sums.
 // Loads stop at the end of each row, so nothing past the tensor is read and
 // the TPU kernel's masking of padding rows has no counterpart here.
+//
+// Alternatives measured for bn_stats at (64, 320, 360) on an H100 SXM, all
+// slower there than one CTA per channel (PERF.md): a thread-block cluster
+// of 2, 4 or 8 CTAs per channel summed through distributed shared memory,
+// 1,280 plain CTAs, row-tiled walks, fewer threads per CTA, and 2 to 4
+// 16-byte loads in flight per thread.  The cluster split is faster only
+// with fewer channels than two CTAs per SM (C = 1 or 24), which no ported
+// model has (every ConvBlock's BN is 320 wide).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

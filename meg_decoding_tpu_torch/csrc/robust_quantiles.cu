@@ -10,11 +10,10 @@
 // * floats map to sign-flipped int32 keys (b < 0 ? b ^ INT32_MAX : b), the
 //   total order of XLA's float sort: -NaN < -inf < ... < -0 < +0 < ... <
 //   +inf < +NaN;
-// * each order statistic k = floor(q (T-1) / 100) is found EXACTLY by a
-//   32-step bisection over the key space: the smallest key m with
-//   count(keys <= m) >= k + 1;
-// * the interpolation partner (order statistic k + 1) is the same key when
-//   it is duplicated, else the smallest strictly greater key;
+// * order statistic k = floor(q (T-1) / 100) is the k-th smallest key,
+//   exactly;
+// * the interpolation partner is order statistic k + 1 (the same key when
+//   it is duplicated, else the smallest strictly greater key);
 // * the blend v_lo * w_lo + v_hi * w_hi uses f32 weights rounded on the
 //   host and is evaluated as fmaf(v_lo, w_lo, v_hi * w_hi) — the
 //   contraction XLA applies to the JAX kernel's blend on the CPU — so the
@@ -22,17 +21,40 @@
 //
 // Bound on an H100 SXM (3.35 TB/s): one read of the input and a small
 // write.  Collate of a Gwilliams serving batch, (B·C, T) = (13312, 360):
-// 19.2 MB read + 0.16 MB written -> ~5.8 us.  An exact selection needs only
-// a few operations per element, so the function is bound by bytes.
-// Design: one warp per row; the row is read from global memory once,
-// coalesced, into shared memory as keys; every bisection step is a strided
-// pass over the keys in shared memory plus one warp-wide __reduce_add_sync.
-// Nothing but the final values goes back to global memory.  The price of
-// the bisection is its own floor above the byte bound: 3 x 33 passes over
-// 360 keys per row are 474 M key visits (a shared-memory load, a compare
-// and an add each), ~1.9 GB of shared-memory reads at ~33 TB/s and ~0.95 G
-// integer operations at ~17 T/s (64 INT32 lanes per SM) -> ~57 us.  A radix
-// select that visits each key a few times would lower it.
+// 19.2 MB read + 0.16 MB written -> 5.8 us.
+//
+// Design for rows of up to kRegisterMaxT = 1024 keys (the collate's rows
+// are 360): one warp per row, the row sorted in registers.  Each lane loads
+// keys j·32 + lane (coalesced, all K loads in flight) into K registers, K
+// the power of two >= ceil(T/32); slots past T hold INT_MAX, which sorts
+// after every key, so a pad can only sit at a sorted position >= T and no
+// rank (<= T - 1) reads one.  A bitonic network then sorts the 32·K keys in
+// the order i = lane·K + j: stages whose partner lies in the same lane are
+// compare-exchanges of two registers, the others one __shfl_xor_sync per
+// register.  The network is written in its flip form (each merge starts by
+// pairing i with i ^ (k - 1)), so the lower index always keeps the smaller
+// key and no stage needs a direction.  The order statistics are then read
+// from the lanes that hold them.  Nothing depends on the values: no
+// atomics, no branch on data, and NaN, ±inf and ±0 need no special case.
+//
+// Reckoned floor at (13312, 360), K = 16 (512 slots): 45 stages, 15 of
+// them across lanes (16 shuffles, 16 min/max pairs and their selects
+// each), 30 inside a lane (8 compare-exchanges, 16 min/max, each).  Per
+// warp that is ~960 integer min/max, 240 shuffles and ~400 compares,
+// selects and logic instructions.  The ~1,300 integer ALU instructions of
+// each of the 13,312 warps go through the SMs' integer pipes, 64 lanes per
+// clock per SM: 132 SMs at ~1.755 GHz take ~37 us.  So the sort's integer
+// instructions, not its 19 MB, set the floor, ~6x the byte bound;
+// chip_smoke.py measures ~40 us on an H100 SXM as a run of launches.
+// Trading registers for more resident warps did not change the time, as a
+// pipe limit (and not latency) predicts.  Another design gets closer only
+// by issuing fewer instructions per key (a radix select, whose atomics
+// collide on rows full of duplicates).
+//
+// Longer rows keep the shared-memory bisection: the row's keys in shared
+// memory, per quantile 32 bisection passes over the key space (the smallest
+// key m with count(keys <= m) >= k + 1) and one pass for the partner, each
+// pass a strided sweep plus a __reduce_add_sync.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -52,6 +74,8 @@ struct QuantileSpec {
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRegisterMaxT = 1024;  // 32 keys per lane
+constexpr int kSortWarps = 8;        // rows per CTA on the register path
 
 __device__ __forceinline__ int flip(int b) { return b < 0 ? b ^ INT_MAX : b; }
 
@@ -59,9 +83,106 @@ __device__ __forceinline__ float unflip(int k) {
   return __int_as_float(k < 0 ? k ^ INT_MAX : k);
 }
 
-__global__ void robust_quantiles_kernel(const float* __restrict__ x,
-                                        float* __restrict__ out, int N, int T,
-                                        QuantileSpec spec) {
+// a <- min(a, b), b <- max(a, b)
+__device__ __forceinline__ void cas(int& a, int& b) {
+  const int lo = min(a, b);
+  b = max(a, b);
+  a = lo;
+}
+
+// One stage of the network whose partner differs in lane bits only:
+// partner key v[j] of lane ^ m; the lower lane keeps the minimum.
+template <int K>
+__device__ __forceinline__ void cross_lane(int (&v)[K], int m, bool lower) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int o = __shfl_xor_sync(kFull, v[j], m);
+    v[j] = lower ? min(v[j], o) : max(v[j], o);
+  }
+}
+
+// Sorts the warp's 32·K keys ascending in the order i = lane·K + j.
+template <int K, int LOG_K>
+__device__ __forceinline__ void warp_bitonic_sort(int (&v)[K], int lane) {
+#pragma unroll
+  for (int lk = 1; lk <= LOG_K + 5; ++lk) {  // merges of blocks of k = 2^lk
+    const int k = 1 << lk;
+    if (k <= K) {  // flip stage inside the lane: j with j ^ (k - 1)
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        if ((j ^ (k - 1)) > j) cas(v[j], v[j ^ (k - 1)]);
+      }
+    } else {  // across lanes: (lane, j) with (lane ^ (k/K - 1), K - 1 - j)
+      int o[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        o[j] = __shfl_xor_sync(kFull, v[K - 1 - j], k / K - 1);
+      }
+      const bool lower = (lane & (k / (2 * K))) == 0;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        v[j] = lower ? min(v[j], o[j]) : max(v[j], o[j]);
+      }
+    }
+#pragma unroll
+    for (int ld = lk - 2; ld >= 0; --ld) {  // half-cleaners: i with i ^ d
+      const int d = 1 << ld;
+      if (d < K) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          if ((j & d) == 0) cas(v[j], v[j | d]);
+        }
+      } else {
+        cross_lane<K>(v, d / K, (lane & (d / K)) == 0);
+      }
+    }
+  }
+}
+
+// The key at sorted position r (the same r in every lane).
+template <int K>
+__device__ __forceinline__ int key_at(const int (&v)[K], int r) {
+  const int slot = r & (K - 1);
+  int k = v[0];
+#pragma unroll
+  for (int j = 1; j < K; ++j) {
+    if (j == slot) k = v[j];
+  }
+  return __shfl_sync(kFull, k, r / K);
+}
+
+template <int K, int LOG_K>
+__global__ void __launch_bounds__(kSortWarps * 32)
+    robust_quantiles_sort_kernel(const float* __restrict__ x,
+                                 float* __restrict__ out, int N, int T,
+                                 QuantileSpec spec) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kSortWarps + (threadIdx.x >> 5);
+  if (row >= N) return;  // the whole warp leaves together
+  const float* xr = x + (int64_t)row * T;
+  int v[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int t = j * 32 + lane;
+    v[j] = t < T ? flip(__float_as_int(xr[t])) : INT_MAX;
+  }
+  warp_bitonic_sort<K, LOG_K>(v, lane);
+#pragma unroll
+  for (int q = 0; q < kMaxQuantiles; ++q) {
+    if (q >= spec.n) break;
+    const float v_lo = unflip(key_at<K>(v, spec.rank[q]));
+    float r = v_lo;
+    if (spec.interp[q]) {
+      const float v_hi = unflip(key_at<K>(v, spec.rank[q] + 1));
+      r = __fmaf_rn(v_lo, spec.w_lo[q], __fmul_rn(v_hi, spec.w_hi[q]));
+    }
+    if (lane == 0) out[(int64_t)row * spec.n + q] = r;
+  }
+}
+
+__global__ void robust_quantiles_bisect_kernel(const float* __restrict__ x,
+                                               float* __restrict__ out, int N,
+                                               int T, QuantileSpec spec) {
   extern __shared__ int smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -106,6 +227,14 @@ __global__ void robust_quantiles_kernel(const float* __restrict__ x,
   }
 }
 
+template <int K, int LOG_K>
+void launch_sort(const float* x, float* out, int N, int T,
+                 const QuantileSpec& spec, cudaStream_t s) {
+  robust_quantiles_sort_kernel<K, LOG_K>
+      <<<(N + kSortWarps - 1) / kSortWarps, kSortWarps * 32, 0, s>>>(
+          x, out, N, T, spec);
+}
+
 }  // namespace
 
 // x (N, T) f32 and out (N, spec->n) f32, contiguous on the device; `spec`
@@ -119,6 +248,26 @@ extern "C" int robust_quantiles_launch(const void* x, void* out, int N, int T,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (N == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  float* of = static_cast<float*>(out);
+  if (T <= kRegisterMaxT) {
+    const int per_lane = (T + 31) / 32;
+    if (per_lane <= 1) {
+      launch_sort<1, 0>(xf, of, N, T, *spec, s);
+    } else if (per_lane <= 2) {
+      launch_sort<2, 1>(xf, of, N, T, *spec, s);
+    } else if (per_lane <= 4) {
+      launch_sort<4, 2>(xf, of, N, T, *spec, s);
+    } else if (per_lane <= 8) {
+      launch_sort<8, 3>(xf, of, N, T, *spec, s);
+    } else if (per_lane <= 16) {
+      launch_sort<16, 4>(xf, of, N, T, *spec, s);
+    } else {
+      launch_sort<32, 5>(xf, of, N, T, *spec, s);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   // 8 warps (rows) per CTA while their keys fit the default 48 KB of
   // shared memory; longer rows take fewer warps, then the opt-in maximum
   const size_t row_bytes = (size_t)T * sizeof(int);
@@ -127,13 +276,12 @@ extern "C" int robust_quantiles_launch(const void* x, void* out, int N, int T,
   const size_t smem = warps * row_bytes;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        robust_quantiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        robust_quantiles_bisect_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int grid = (N + warps - 1) / warps;
-  robust_quantiles_kernel<<<grid, warps * 32, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), N, T, *spec);
+  robust_quantiles_bisect_kernel<<<grid, warps * 32, smem, s>>>(xf, of, N, T,
+                                                                *spec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,8 +7,11 @@ row over the time axis, with ``numpy.percentile(method='linear')``
 semantics under the total float order of XLA's sort (sign-flipped int32
 keys: −NaN < −inf < … < −0 < +0 < … < +inf < +NaN).
 
-* The kernel selects each order statistic exactly (bisection over the key
-  space, one warp per row) and blends in f32.
+* The kernel takes one warp per row.  A row of up to ``REGISTER_MAX_T``
+  keys is sorted in registers by a warp-wide bitonic network and the order
+  statistics are read from the lanes that hold them; a longer row is kept
+  in shared memory and each order statistic found by bisection over the
+  key space.  Both blend in f32.
 * The plain version sorts the flipped int32 KEYS with ``torch.sort`` (a
   float sort would put every NaN last and tie ±0), then applies the same
   blend.
@@ -30,11 +33,13 @@ import numpy as np
 import torch
 
 __all__ = ["robust_quantiles", "robust_quantiles_plain", "ranks_and_weights",
-           "launches", "reset_launches"]
+           "REGISTER_MAX_T", "launches", "reset_launches"]
 
 _I32_MAX = int(np.iinfo(np.int32).max)
 _MAX_QUANTILES = 4
 _MAX_T = (227 * 1024) // 4  # one row's keys in the opt-in shared memory
+# longest row the kernel sorts in registers (kRegisterMaxT in the source)
+REGISTER_MAX_T = 1024
 
 # kernel launches since the last reset_launches()
 launches = 0
