@@ -15,12 +15,16 @@ weights from ``--seed``.  Phases, each printed as one JSON line:
 3. kernels  — each of the four kernels against its plain PyTorch version
               on the card at the main path's shapes (gather bit-exact,
               percentiles ≤ 1 ulp, BN sums within 1e-5 of the sum of
-              magnitudes per channel and bit-identical across two
-              launches), and off those shapes, with CUDA-event times
-              (median of 30, L2 flushed before each) of the kernel, the
-              plain version and one PyTorch library call where there is
-              one, and the kernel's device time per call in a run of 64
-              back-to-back calls on inputs cold in the L2 (``run_ms``);
+              magnitudes per channel, the BN backward's dx within the bound
+              those sums carry to it, plus one bf16 ulp in bf16; every BN
+              result bit-identical across two launches), and off those
+              shapes, with CUDA-event times (median of 30, L2 flushed
+              before each) of the kernel, the plain version and one PyTorch
+              library call where there is one, and the kernel's device time
+              per call in a run of 64 back-to-back calls on inputs cold in
+              the L2 (``run_ms``).  The Pallas ``bn_bwd_stats`` row is the
+              train path's kernel, ``bn_bwd`` (sums and dx in one launch);
+              its sums alone (``bn_bwd_stats``) are timed beside it;
 4. serving  — a synthetic 27-subject cache, 4 requests of 64 raw windows
               through ``serving/forward.py`` (Z checked finite, of shape
               (64, 1024, 360), and against the same model on the CPU), then
@@ -323,27 +327,75 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def bn_check(x: torch.Tensor, g: torch.Tensor) -> dict:
-    """Both BN statistics kernels on (x, g) against their plain versions:
-    per channel |kernel − plain| ≤ 1e-5·Σ|term| (f32 sums taken in another
-    order), and two launches bit-identical (no atomics)."""
-    shape = tuple(x.shape)
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each value of ``t`` (8 significant bits)."""
+    _, e = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def bn_bwd_check(g, x, scale, mean, invstd, got, want, what: str) -> dict:
+    """bn_bwd's (dx, Σg, Σg·x̂) ``got`` against the plain version's
+    ``want``: each sum within 1e-5 of Σ|term| per channel (f32 sums taken in
+    another order); dx per element within 1e-5·|scale·invstd|·(|g| + Σ|g|/M
+    + |x̂|·Σ|g·x̂|/M), the sums' tolerance carried through dx, plus one bf16
+    ulp of the plain dx in bf16.  Returns the largest absolute errors."""
+    dx, sg, sgx = got
+    pdx, psg, psgx = want
     M = x.numel() // x.shape[1]
+    gf = g.float()
+    xhat = (x.float() - mean[:, None]) * invstd[:, None]
+    abs_g = gf.abs().sum((0, 2))
+    abs_gx = (gf * xhat).abs().sum((0, 2))
+    err = {}
+    for key, a, b, scale_ in (("sum_g", sg, psg, abs_g),
+                              ("sum_gxhat", sgx, psgx, abs_gx)):
+        d = (a - b).abs()
+        if not bool((d <= 1e-5 * scale_).all()):
+            raise AssertionError(f"{what}: {key} off by "
+                                 f"{float((d / scale_).max())} of Σ|term|")
+        err[key] = float(d.max())
+    tol = 1e-5 * (scale * invstd).abs()[:, None] * (
+        gf.abs() + (abs_g / M)[:, None] + xhat.abs() * (abs_gx / M)[:, None])
+    if x.dtype == torch.bfloat16:
+        tol = tol + bf16_ulp(pdx)
+    d = (dx.float() - pdx.float()).abs()
+    if not bool((d <= tol).all()):
+        raise AssertionError(f"{what}: dx off by {float((d / tol).max())} "
+                             "of its bound")
+    err["dx"] = float(d.max())
+    return err
+
+
+def bn_check(x: torch.Tensor, g: torch.Tensor, cotangents: bool = False) -> dict:
+    """The BN kernels on (x, g) against their plain versions, each launched
+    twice and the two launches bit-identical (no atomics): the statistics
+    per channel |kernel − plain| ≤ 1e-5·Σ|term| (f32 sums taken in another
+    order); bn_bwd's dx within ``bn_bwd_check``'s bound, with the mean and
+    var cotangents when ``cotangents``."""
+    shape = tuple(x.shape)
+    C = x.shape[1]
+    M = x.numel() // C
     s, ss = bk.bn_stats(x)
     mean = s / M
     invstd = torch.rsqrt(ss / M - mean * mean + 1e-5)
+    gen = torch.Generator(device="cuda").manual_seed(C)
+    scale = torch.rand(C, device="cuda", generator=gen) + 0.5
+    cots = ((torch.randn(C, device="cuda", generator=gen),
+             torch.randn(C, device="cuda", generator=gen))
+            if cotangents else (None, None))
     got = {"sum_x": s, "sum_x2": ss}
     got["sum_g"], got["sum_gxhat"] = bk.bn_bwd_stats(g, x, mean, invstd)
     again = dict(zip(("sum_x", "sum_x2"), bk.bn_stats(x)))
     again.update(zip(("sum_g", "sum_gxhat"), bk.bn_bwd_stats(g, x, mean, invstd)))
+    bwd = [bk.bn_bwd(g, x, scale, mean, invstd, *cots) for _ in range(2)]
     want = dict(zip(("sum_x", "sum_x2"), bk.bn_stats_plain(x)))
     want.update(zip(("sum_g", "sum_gxhat"),
                     bk.bn_bwd_stats_plain(g, x, mean, invstd)))
     xf, gf = x.float(), g.float()
     xhat = (xf - mean[:, None]) * invstd[:, None]
-    scale = {"sum_x": xf.abs().sum((0, 2)), "sum_x2": (xf * xf).sum((0, 2)),
-             "sum_g": gf.abs().sum((0, 2)),
-             "sum_gxhat": (gf * xhat).abs().sum((0, 2))}
+    scale_ = {"sum_x": xf.abs().sum((0, 2)), "sum_x2": (xf * xf).sum((0, 2)),
+              "sum_g": gf.abs().sum((0, 2)),
+              "sum_gxhat": (gf * xhat).abs().sum((0, 2))}
     torch.cuda.synchronize()
     err = {}
     for k in got:
@@ -351,16 +403,36 @@ def bn_check(x: torch.Tensor, g: torch.Tensor) -> dict:
             raise AssertionError(f"BN statistics {shape} {x.dtype}: {k} differs "
                                  "between two launches")
         d = (got[k] - want[k]).abs()
-        if not bool((d <= 1e-5 * scale[k]).all()):
+        if not bool((d <= 1e-5 * scale_[k]).all()):
             raise AssertionError(f"BN statistics {shape} {x.dtype}: {k} off by "
-                                 f"{float((d / scale[k]).max())} of Σ|term|")
+                                 f"{float((d / scale_[k]).max())} of Σ|term|")
         err[k] = float(d.max())
+    bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    (dx, sg, sgx), (dx2, sg2, sgx2) = bwd
+    if not (torch.equal(dx.view(bits), dx2.view(bits)) and torch.equal(sg, sg2)
+            and torch.equal(sgx, sgx2)):
+        raise AssertionError(f"bn_bwd {shape} {x.dtype}: two launches differ")
+    for k, v in bn_bwd_check(g, x, scale, mean, invstd, bwd[0],
+                             bk.bn_bwd_plain(g, x, scale, mean, invstd, *cots),
+                             f"bn_bwd {shape} {x.dtype}").items():
+        err[f"bn_bwd_{k}"] = v
     return err
 
 
+def library_time(fn, flush) -> tuple[float | None, str | None]:
+    """``time_ms`` of a PyTorch yardstick, or (None, why) where PyTorch
+    refuses these inputs."""
+    try:
+        return time_ms(fn, flush), None
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:200]
+
+
 def phase_bn_kernels(flush) -> dict:
-    """bn_stats and bn_bwd_stats at the training step's shape (64, 320, 360)
-    in f32 and bf16, timed, and at shapes off the main path."""
+    """The BN kernels at the training step's shape (64, 320, 360) in f32 and
+    bf16, timed, and at shapes off the main path: bn_stats, bn_bwd (the
+    layer's backward, the kernel of the train path) and bn_bwd_stats (its
+    sums alone, the one-to-one counterpart of the Pallas kernel)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
 
     def inputs(B, Cc, T, dtype, offset=0):
@@ -373,13 +445,22 @@ def phase_bn_kernels(flush) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         x, g = inputs(BATCH, D2, 360, dtype)
         err = bn_check(x, g)
+        err.update({f"cot_{k}": v for k, v in bn_check(x, g, True).items()})
         M = x.numel() // D2
         mean = torch.zeros(D2, device="cuda")
         invstd = torch.ones(D2, device="cuda")
+        scale = torch.ones(D2, device="cuda")
         n, esize = x.numel(), x.element_size()
         xs, gs = copies(x, n * esize), copies(g, n * esize)
         fwd_bound = bound(n * esize + 2 * D2 * 4, 3 * n)
-        bwd_bound = bound(2 * n * esize + 4 * D2 * 4, 5 * n)
+        sums_bound = bound(2 * n * esize + 4 * D2 * 4, 5 * n)
+        bwd_bound = bound(3 * n * esize + 5 * D2 * 4, 12 * n)
+        lib_stats = library_time(lambda: torch.batch_norm_stats(x, 1e-5), flush)
+        lib_reduce = library_time(lambda: torch.batch_norm_backward_reduce(
+            g, x, mean, invstd, scale, False, True, True), flush)
+        lib_bwd = library_time(lambda: torch.ops.aten.native_batch_norm_backward(
+            g, x, scale, None, None, mean, invstd, True, 1e-5,
+            [True, True, True]), flush)
         rows = {
             "bn_stats": {
                 "max_abs_err": max(err["sum_x"], err["sum_x2"]),
@@ -388,42 +469,63 @@ def phase_bn_kernels(flush) -> dict:
                 "plain_ms": time_ms(lambda: bk.bn_stats_plain(x), flush),
                 "library_ms": time_ms(lambda: torch.var_mean(
                     x, dim=(0, 2), correction=0), flush),
+                "library_batch_norm_stats_ms": lib_stats[0],
+                "library_batch_norm_stats_refused": lib_stats[1],
                 "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]},
             "bn_bwd_stats": {
-                "max_abs_err": max(err["sum_g"], err["sum_gxhat"]),
-                "kernel_ms": time_ms(lambda: bk.bn_bwd_stats(g, x, mean, invstd),
-                                     flush),
-                "run_ms": run_ms([lambda g=g, x=x: bk.bn_bwd_stats(
-                    g, x, mean, invstd) for g, x in zip(gs, xs)]),
-                "plain_ms": time_ms(lambda: bk.bn_bwd_stats_plain(
+                "max_abs_err": max(v for k, v in err.items()
+                                   if k.startswith(("bn_bwd_", "cot_bn_bwd_"))),
+                "kernel_ms": time_ms(lambda: bk.bn_bwd(g, x, scale, mean,
+                                                       invstd), flush),
+                "run_ms": run_ms([lambda g=g, x=x: bk.bn_bwd(
+                    g, x, scale, mean, invstd) for g, x in zip(gs, xs)]),
+                "plain_ms": time_ms(lambda: bk.bn_bwd_plain(
+                    g, x, scale, mean, invstd), flush),
+                "library_ms": lib_bwd[0],
+                "library": "torch.ops.aten.native_batch_norm_backward",
+                "library_refused": lib_bwd[1],
+                "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+                "stats_only_max_abs_err": max(err["sum_g"], err["sum_gxhat"]),
+                "stats_only_ms": time_ms(lambda: bk.bn_bwd_stats(
                     g, x, mean, invstd), flush),
-                "library_ms": None,  # no single PyTorch call computes Σg·x̂
-                "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]},
+                "stats_only_run_ms": run_ms([lambda g=g, x=x: bk.bn_bwd_stats(
+                    g, x, mean, invstd) for g, x in zip(gs, xs)]),
+                "stats_only_plain_ms": time_ms(lambda: bk.bn_bwd_stats_plain(
+                    g, x, mean, invstd), flush),
+                "stats_only_library_ms": lib_reduce[0],
+                "stats_only_library": "torch.batch_norm_backward_reduce",
+                "stats_only_library_refused": lib_reduce[1],
+                "stats_only_bound_ms": sums_bound[0]},
         }
         for name, row in rows.items():
             emit({"phase": "kernels", "kernel": name, "shape": list(x.shape),
                   "dtype": str(dtype), "M": M,
-                  "tolerance": "1e-5 of sum |term| per channel; bit-identical "
-                               "across two launches", **row})
+                  "tolerance": "sums: 1e-5 of sum |term| per channel; dx: "
+                               "bn_bwd_check's bound; bit-identical across "
+                               "two launches", **row})
         out[str(dtype)] = rows
         del xs, gs
     # off the main path's shapes: C of 21, T = 37 (rows not 16-byte
     # aligned: the element-wise loop), B·T below one CTA's thread count, a
     # base address 4 bytes past a 16-byte boundary, one channel, B = 65 (not
-    # a multiple of 4), and rows longer than a CTA's threads
-    for B, Cc, T, dtype, offset in ((BATCH, 21, 360, torch.float32, 0),
-                                    (3, D2, 37, torch.float32, 0),
-                                    (3, D2, 37, torch.bfloat16, 0),
-                                    (1, 7, 40, torch.float32, 0),
-                                    (2, 5, 64, torch.float32, 1),
-                                    (BATCH, 1, 360, torch.float32, 0),
-                                    (1, 3, 8, torch.bfloat16, 0),
-                                    (3, 1, 5, torch.bfloat16, 0),
-                                    (BATCH + 1, 24, 360, torch.float32, 0),
-                                    (BATCH + 1, 24, 360, torch.bfloat16, 0),
-                                    (6, 3, 4096, torch.float32, 0),
-                                    (6, 3, 1001, torch.float32, 0)):
-        bn_check(*inputs(B, Cc, T, dtype, offset))
+    # a multiple of 4), rows longer than a CTA's threads, and B = 256 in f32
+    # (too many rows for the register kernel: the two-walk kernel); the
+    # mean and var cotangents on the element-wise loop and at B = 256
+    for B, Cc, T, dtype, offset, cot in (
+            (BATCH, 21, 360, torch.float32, 0, False),
+            (3, D2, 37, torch.float32, 0, False),
+            (3, D2, 37, torch.bfloat16, 0, True),
+            (1, 7, 40, torch.float32, 0, False),
+            (2, 5, 64, torch.float32, 1, False),
+            (BATCH, 1, 360, torch.float32, 0, False),
+            (1, 3, 8, torch.bfloat16, 0, False),
+            (3, 1, 5, torch.bfloat16, 0, False),
+            (BATCH + 1, 24, 360, torch.float32, 0, False),
+            (BATCH + 1, 24, 360, torch.bfloat16, 0, False),
+            (6, 3, 4096, torch.float32, 0, False),
+            (6, 3, 1001, torch.float32, 0, False),
+            (4 * BATCH, 24, 360, torch.float32, 0, True)):
+        bn_check(*inputs(B, Cc, T, dtype, offset), cotangents=cot)
     return out
 
 
@@ -564,6 +666,11 @@ def phase_training(cfg, ds, tr_idx, seed, work) -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = all_launches()
+    # the BN backward is bn_bwd's one kernel a layer: no launch of the sums
+    # alone (which would need an eager dx chain after it)
+    if bk.sums_only_launches != 0:
+        raise AssertionError(f"train CLI: {bk.sums_only_launches} launches of "
+                             "bn_bwd_stats's sums alone, expected 0")
 
     with open(os.path.join(out, "runs", "smoke", "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
@@ -576,8 +683,8 @@ def phase_training(cfg, ds, tr_idx, seed, work) -> dict:
     if int(restored.step) != TRAIN_UPDATES:
         raise AssertionError(f"model_last holds step {int(restored.step)}")
     # every launch accounted for: per update 2 gathers, 1 collate, 10 BN
-    # forward and 10 BN backward statistics; per test pool 2 gathers and
-    # 1 collate (eval-mode BN uses the running statistics)
+    # forward statistics and 10 BN backward kernels; per test pool 2
+    # gathers and 1 collate (eval-mode BN uses the running statistics)
     n_test = len(ds) - len(tr_idx)
     pools = len(_test_pool_starts(
         n_test, min(n_test, int(tcfg.get("test_size", BATCH))),
@@ -596,7 +703,8 @@ def phase_training(cfg, ds, tr_idx, seed, work) -> dict:
                                              "train_top1", "train_top10",
                                              "test_loss", "test_top1",
                                              "test_top10")},
-          "test_pools": pools, "launches": launches})
+          "test_pools": pools, "launches": launches,
+          "bn_bwd_sums_only_launches": bk.sums_only_launches})
     return {"launches": launches, "steady_step_ms": float(np.median(step_ms[1:]))}
 
 
@@ -641,7 +749,8 @@ def main(argv=None) -> int:
                          "training": training["launches"][k]}
     g = measured["gather"][:2]  # one batch: the X and the f32 Y gather
     q = measured["quantiles"]
-    # the kernels' device time in one f32 training step, against its time
+    # the kernels' device time in one f32 training step (bn_bwd: the whole
+    # BN backward), against its time
     per_step = (sum(c["kernel_ms"] for c in g) + q["kernel_ms"]
                 + BN_PER_STEP * (bn["bn_stats"]["kernel_ms"]
                                  + bn["bn_bwd_stats"]["kernel_ms"]))
@@ -677,8 +786,13 @@ def main(argv=None) -> int:
            "run_ms": bn[name]["run_ms"],
            "plain_ms": bn[name]["plain_ms"], "bound_ms": bn[name]["bound_ms"],
            "bound_by": bn[name]["bound_by"],
-           "library_ms": bn[name]["library_ms"]}
-          for name, line in (("bn_stats", 69), ("bn_bwd_stats", 111))),
+           "library_ms": bn[name]["library_ms"],
+           **{k: bn[name][k] for k in extra}}
+          for name, line, extra in (
+              ("bn_stats", 69, ("library_batch_norm_stats_ms",)),
+              # bn_bwd (sums and dx) above; its sums alone beside them
+              ("bn_bwd_stats", 111, ("stats_only_ms", "stats_only_run_ms",
+                                     "stats_only_library_ms")))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

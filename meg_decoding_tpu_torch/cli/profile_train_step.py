@@ -55,7 +55,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 
 # kernel name → group, first match wins
 _GROUPS = (
-    ("bn_statistics", r"bn_stats_kernel|bn_bwd_stats_kernel"),
+    ("bn_statistics", r"bn_stats_kernel|bn_bwd_\w*kernel"),
     ("window_gather", r"window_gather"),
     ("robust_quantiles", r"quantile"),
     ("convolution", r"conv|cudnn|xmma|implicit|wgrad|dgrad|fprop"),

@@ -4,9 +4,10 @@
 
 Semantics are flax's fast variance (``var = E[x²] − E[x]²``, biased), with
 f32 statistics and the affine output computed in f32 and rounded once to
-x's dtype.  The statistics always come from ``ops/kernels/batchnorm.py``:
-the CUDA kernels on the card, their plain versions on the CPU; there is no
-backend switch.
+x's dtype.  The statistics, and the whole backward, always come from
+``ops/kernels/batchnorm.py``: the CUDA kernels on the card (``bn_stats`` in
+the forward; ``bn_bwd``, one kernel for the sums and dx, in the backward),
+their plain versions on the CPU; there is no backend switch.
 
 Layout: x is NCW ``(B, C, T)``; the channel is dim 1 and M = B·T.
 """
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from meg_decoding_tpu_torch.ops.kernels.batchnorm import bn_bwd_stats, bn_stats
+from meg_decoding_tpu_torch.ops.kernels.batchnorm import bn_bwd, bn_stats
 
 __all__ = ["batch_norm_train"]
 
@@ -46,18 +47,8 @@ class _BatchNormTrain(torch.autograd.Function):
         x, scale, mean, invstd = ctx.saved_tensors
         if gy is None:
             gy = torch.zeros_like(x)
-        gy = gy.contiguous()
-        sg, sgx = bn_bwd_stats(gy, x, mean, invstd)
-        M = x.numel() // x.shape[1]
-        xc = x.to(torch.float32) - mean[:, None]
-        xhat = xc * invstd[:, None]
-        dx = (scale * invstd)[:, None] * (gy.to(torch.float32) - (sg / M)[:, None]
-                                         - xhat * (sgx / M)[:, None])
-        if gmean is not None:
-            dx = dx + gmean[:, None] / M
-        if gvar is not None:
-            dx = dx + gvar[:, None] * 2.0 * xc / M
-        return dx.to(x.dtype), sgx, sg, None
+        dx, sg, sgx = bn_bwd(gy.contiguous(), x, scale, mean, invstd, gmean, gvar)
+        return dx, sgx, sg, None
 
 
 def batch_norm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

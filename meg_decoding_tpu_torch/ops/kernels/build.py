@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels from ``csrc/`` and load them with ctypes.
 
 The sources are ``window_gather.cu``, ``robust_quantiles.cu`` and
-``batchnorm_stats.cu`` (``bn_stats`` and ``bn_bwd_stats``).  Each
+``batchnorm_stats.cu`` (``bn_stats``, ``bn_bwd_stats`` and ``bn_bwd``).  Each
 ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``meg_decoding_tpu_torch/_build/`` (ignored by git).  The library's file

@@ -20,6 +20,14 @@ version and the JAX Pallas kernel (interpret mode) it replaces.
   in f64) within rtol 1e-5 / atol 1e-4 of the plain version and the Pallas
   kernel (f32 sums taken in another order, as
   tests/test_torch_port_train_modules.py).
+* ``csrc/batchnorm_stats.cu``, ``bn_bwd``: the launcher's choice of kernel
+  by shape; the register kernel's slots and persistent channel walk, and
+  the two-walk kernel's division-free forward and reverse walks, each
+  covering every vector once; the sums in the kernels' order against the
+  plain version and the Pallas kernel (rtol 1e-5, atol 1e-4, as above);
+  dx from those sums, each step rounded as the kernel rounds it, against
+  ``bn_bwd_plain`` (f32 rtol 1e-5 / atol 1e-6: the sums' difference
+  carried through; bf16 rtol/atol 2e-2, one rounding apart).
 """
 
 import os
@@ -220,15 +228,20 @@ def _mirror_bn_stats(x: np.ndarray, V: int) -> np.ndarray:
                     a = f32(a + e)
                     q = f32(np.float64(e) * np.float64(e) + np.float64(q))
             s[t], ss[t] = a, q
-        for k, arr in enumerate((s.reshape(-1, 32), ss.reshape(-1, 32))):
-            arr = arr.copy()
-            for o in (16, 8, 4, 2, 1):
-                arr[:, :o] = arr[:, :o] + arr[:, o:2 * o]
-            total = arr[0, 0]
-            for w in range(1, arr.shape[0]):
-                total = f32(total + arr[w, 0])
-            out[k, c] = total
+        out[0, c], out[1, c] = _cta_sum(s), _cta_sum(ss)
     return out
+
+
+def _cta_sum(per_thread: np.ndarray) -> np.float32:
+    """block_sum2: each warp's shuffle-down tree, then the warps' sums added
+    in warp order by one thread."""
+    arr = per_thread.reshape(-1, 32).copy()
+    for o in (16, 8, 4, 2, 1):
+        arr[:, :o] = arr[:, :o] + arr[:, o:2 * o]
+    total = arr[0, 0]
+    for w in range(1, arr.shape[0]):
+        total = np.float32(total + arr[w, 0])
+    return total
 
 
 @pytest.mark.parametrize("B", [1, 3, 64, 65])
@@ -246,6 +259,196 @@ def test_bn_stats_walk_sums_match_plain_and_pallas(B):
                                        atol=1e-4)
             np.testing.assert_allclose(got[k], np.asarray(pallas[k]),
                                        rtol=1e-5, atol=1e-4)
+
+
+# --- bn_bwd: the register kernel and the two-walk kernel -------------------
+
+def _bwd_threads() -> int:
+    return _const("kBwdThreads", "batchnorm_stats")
+
+
+def _max_slots() -> int:
+    return _const("kBwdMaxSlots", "batchnorm_stats")
+
+
+def _bwd_pick(B: int, T: int, dtype: str, aligned: bool = True,
+              with_dx: bool = True) -> tuple[str, int]:
+    """launch_bwd's choice: ("registers", slots a thread) or ("two_walk", 0)."""
+    V = 4 if dtype == "float32" else 8
+    need = -(-(B * (T // V)) // _bwd_threads())
+    if (dtype == "float32" and with_dx and aligned and T % V == 0
+            and need <= _max_slots()):
+        return "registers", _max_slots()
+    return "two_walk", 0
+
+
+def test_bn_bwd_slot_choices_match_the_source():
+    """One register kernel of kBwdMaxSlots slots, taken when a thread's
+    share of the channel fits them; it holds the training step's f32
+    channel of 64 rows of 360."""
+    src = _source("batchnorm_stats")
+    assert "need <= kBwdMaxSlots" in src
+    assert "constexpr int NV = kBwdMaxSlots;" in src
+    assert len(re.findall(r"bn_bwd_reg_kernel<<<", src)) == 1
+    assert _max_slots() * _bwd_threads() * 4 >= 64 * 360
+
+
+@pytest.mark.parametrize("B,T,dtype,aligned,with_dx,want", [
+    (64, 360, "float32", True, True, ("registers", 12)),  # the train path
+    (65, 360, "float32", True, True, ("registers", 12)),
+    (1, 40, "float32", True, True, ("registers", 12)),    # slots left unused
+    (69, 360, "float32", True, True, ("two_walk", 0)),    # > 12 slots
+    (256, 360, "float32", True, True, ("two_walk", 0)),
+    (64, 360, "bfloat16", True, True, ("two_walk", 0)),   # the train path
+    (3, 37, "float32", True, True, ("two_walk", 0)),      # rows unaligned
+    (2, 64, "float32", False, True, ("two_walk", 0)),     # base unaligned
+    (64, 360, "float32", True, False, ("two_walk", 0)),   # the sums alone
+])
+def test_bn_bwd_launcher_picks_the_kernel_by_shape(B, T, dtype, aligned,
+                                                   with_dx, want):
+    assert _bwd_pick(B, T, dtype, aligned, with_dx) == want
+
+
+def test_bn_bwd_on_chip_budgets_at_the_training_shape():
+    """(64, 320, 360): the f32 register kernel's slots fit the SM's 64 K
+    registers and a thread's 255, its shared memory (block_sum2's warp sums
+    and the totals) is far under 232,448 B; the bf16 two-walk kernel's g and
+    x fit the 50 MB L2, so its second walk re-reads them from there."""
+    threads = _bwd_threads()
+    _, nv = _bwd_pick(64, 360, "float32")
+    assert 2 * nv * 4 * threads <= 65536 and 2 * nv * 4 < 255
+    assert (2 * (threads // 32) + 2) * 4 < 232448
+    assert 2 * 64 * 320 * 360 * 2 <= 50 * 2**20
+
+
+@pytest.mark.parametrize("B", [1, 3, 64, 65])
+def test_bn_bwd_register_walk_loads_and_writes_every_vector_once(B):
+    threads = _bwd_threads()
+    n = B * 90  # f32 rows of 360: 90 vectors of 16 bytes
+    kernel, nv = _bwd_pick(B, 360, "float32")
+    assert kernel == "registers" and nv * threads >= n
+    loaded = np.zeros(n, np.int64)
+    for t in range(threads):
+        for m in range(nv):
+            if t + m * threads < n:
+                loaded[t + m * threads] += 1
+    # each loaded slot is written back as dx once, from the same registers
+    assert (loaded == 1).all()
+    # the persistent grid: CTA q takes channels q, q + grid, …
+    for C in (1, 24, 320):
+        grid = min(C, 132)
+        seen = np.zeros(C, np.int64)
+        for q in range(grid):
+            seen[q::grid] += 1
+        assert (seen == 1).all()
+
+
+def _step(row, col, drow, dcol, tv, back=False):
+    if back:
+        row, col = row - drow, col - dcol
+        return (row - 1, col + tv) if col < 0 else (row, col)
+    row, col = row + drow, col + dcol
+    return (row + 1, col - tv) if col >= tv else (row, col)
+
+
+@pytest.mark.parametrize("B", [1, 3, 64, 65])
+def test_bn_bwd_two_walk_visits_every_vector_once_each_way(B):
+    """Thread t's (row, col), stepped without a division, are divmod(i, tv)
+    for its vectors i = t, t + kBwdThreads, …; the dx walk visits the same
+    vectors in reverse from one stride past the last."""
+    threads = _bwd_threads()
+    for tv in (90, 45, 37, 1):  # f32 / bf16 rows of 360, rows of 37, 1
+        n = B * tv
+        drow, dcol = divmod(threads, tv)
+        seen = np.zeros(n, np.int64)
+        for t in range(threads):
+            row, col = divmod(t, tv)
+            fwd = []
+            for i in range(t, n, threads):
+                assert (row, col) == divmod(i, tv)
+                fwd.append((row, col))
+                seen[i] += 1
+                row, col = _step(row, col, drow, dcol, tv)
+            back = []
+            for _ in fwd:
+                row, col = _step(row, col, drow, dcol, tv, back=True)
+                back.append((row, col))
+            assert back == fwd[::-1]
+        assert (seen == 1).all(), f"B={B} tv={tv}"
+
+
+def _mirror_bn_bwd_sums(g: np.ndarray, x: np.ndarray, mean: np.ndarray,
+                        invstd: np.ndarray, V: int) -> np.ndarray:
+    """Σg and Σg·x̂ per channel in both kernels' order: thread t's vectors
+    t, t + kBwdThreads, … in turn (its registers' slots in the register
+    kernel, its first walk in the two-walk kernel), then block_sum2."""
+    threads = _bwd_threads()
+    B, C, T = x.shape
+    tv = T // V
+    f32, f64 = np.float32, np.float64
+    out = np.zeros((2, C), f32)
+    for c in range(C):
+        mu, inv = f32(mean[c]), f32(invstd[c])
+        sg = np.zeros(threads, f32)
+        sgx = np.zeros(threads, f32)
+        for t in range(threads):
+            a, q = f32(0), f32(0)
+            for i in range(t, B * tv, threads):
+                b, j = divmod(i, tv)
+                for gv, xv in zip(g[b, c, j * V:(j + 1) * V],
+                                  x[b, c, j * V:(j + 1) * V]):
+                    a = f32(a + gv)
+                    xh = f32(f32(xv - mu) * inv)
+                    q = f32(f64(gv) * f64(xh) + f64(q))
+            sg[t], sgx[t] = a, q
+        out[0, c], out[1, c] = _cta_sum(sg), _cta_sum(sgx)
+    return out
+
+
+def _mirror_dx(g, x, scale, mean, invstd, sg, sgx) -> np.ndarray:
+    """dx_of: each step rounded to f32 on its own, in the plain order."""
+    f32 = np.float32
+    M = f32(x.shape[0] * x.shape[2])
+    col = lambda v: np.asarray(v, f32)[None, :, None]
+    a = col(f32(scale) * f32(invstd))
+    k1, k2 = col(f32(sg) / M), col(f32(sgx) / M)
+    xc = x.astype(f32) - col(mean)
+    xhat = xc * col(invstd)
+    return a * ((g.astype(f32) - k1) - xhat * k2)
+
+
+@pytest.mark.parametrize("B", [1, 3, 64, 65])
+@pytest.mark.parametrize("dtype,V", [("float32", 4), ("bfloat16", 8)])
+def test_bn_bwd_sums_and_dx_in_kernel_order_match_plain_and_pallas(dtype, V,
+                                                                   B):
+    C, T = 2, 40
+    rng = np.random.RandomState(100 + B)
+    tdt = getattr(torch, dtype)
+    x = torch.from_numpy((rng.randn(B, C, T) * 3 + 1.5).astype(np.float32)).to(tdt)
+    g = torch.from_numpy(rng.randn(B, C, T).astype(np.float32)).to(tdt)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32))
+    xf = x.float()
+    mean = xf.mean((0, 2))
+    invstd = torch.rsqrt(xf.var((0, 2), correction=0) + 1e-5)
+    xn, gn = xf.numpy(), g.float().numpy()
+    got = _mirror_bn_bwd_sums(gn, xn, mean.numpy(), invstd.numpy(), V)
+    plain = tbnk.bn_bwd_stats_plain(g, x, mean, invstd)
+    pallas = jbn.bn_bwd_stats(
+        jnp.asarray(np.swapaxes(gn, 1, 2).reshape(-1, C), jnp.dtype(dtype)),
+        jnp.asarray(np.swapaxes(xn, 1, 2).reshape(-1, C), jnp.dtype(dtype)),
+        jnp.asarray(mean.numpy()), jnp.asarray(invstd.numpy()),
+        block_rows=256, interpret=True)
+    for k in range(2):
+        np.testing.assert_allclose(got[k], plain[k].numpy(), rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(got[k], np.asarray(pallas[k]), rtol=1e-5,
+                                   atol=1e-4)
+    # dx from the mirrored sums, rounded once to the inputs' type
+    dx = torch.from_numpy(_mirror_dx(gn, xn, scale.numpy(), mean.numpy(),
+                                     invstd.numpy(), got[0], got[1])).to(tdt)
+    want = tbnk.bn_bwd_plain(g, x, scale, mean, invstd)[0]
+    tol = (dict(rtol=1e-5, atol=1e-6) if dtype == "float32"
+           else dict(rtol=2e-2, atol=2e-2))
+    np.testing.assert_allclose(dx.float().numpy(), want.float().numpy(), **tol)
 
 
 # --- the profile's kernel groups --------------------------------------------

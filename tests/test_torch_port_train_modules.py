@@ -1,7 +1,8 @@
 """Training modules of the port (meg_decoding_tpu_torch) against their JAX
-counterparts on the CPU, at small sizes: BN statistics, the batch-norm
-autograd function, the running-statistics update, spatial dropout, the
-erf_poly GELU gradient, Adam with its schedules, and checkpoints.
+counterparts on the CPU, at small sizes: BN statistics, the BN backward
+(``bn_bwd``) against the JAX custom VJP, the batch-norm autograd function,
+the running-statistics update, spatial dropout, the erf_poly GELU
+gradient, Adam with its schedules, and checkpoints.
 
 The JAX BatchNorm statistics run their Pallas kernels in interpret mode
 (``impl='pallas'``) or as plain XLA reductions (``impl='xla'``); the port's
@@ -10,8 +11,9 @@ wrappers take their plain versions because the tensors lie on the CPU.
 Tolerances, each with its reason:
 * BN sums — rtol 1e-5, atol 1e-4 (as tests/test_batchnorm.py): f32 sums
   taken in another order;
-* batch_norm_train forward and backward — rtol 2e-4, atol 1e-6 (as
-  tests/test_batchnorm.py); bf16 — rtol/atol 2e-2, one bf16 rounding apart;
+* batch_norm_train forward and backward, and bn_bwd — rtol 2e-4, atol 1e-6
+  (as tests/test_batchnorm.py); bf16 — rtol/atol 2e-2, one bf16 rounding
+  apart;
 * running statistics — rtol 1e-5, the batch statistics' own tolerance;
 * spatial-dropout masks — exactly equal;
 * erf_poly GELU gradient — rtol 2e-6, atol 1e-6: the same closed form,
@@ -93,6 +95,73 @@ def test_bn_wrappers_refuse_what_the_kernel_does_not_take():
     tbnk.bn_stats(x)
     tbnk.bn_bwd_stats(x, x, torch.zeros(3), torch.ones(3))
     assert tbnk.launches == {"bn_stats": 0, "bn_bwd_stats": 0}  # CPU: plain
+
+
+# --- the BatchNorm backward (bn_bwd's plain version here) -------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cotangents", [False, True])
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_bn_bwd_plain_matches_jax_vjp(impl, cotangents, dtype):
+    """(dx, Σg, Σg·x̂) against the JAX custom VJP's (dx, dscale, dbias),
+    with and without the cotangents of the batch mean and variance."""
+    rng = np.random.RandomState(3)
+    x = (rng.randn(B, T, C) * 3 + 1.5).astype(np.float32)
+    gy = rng.randn(B, T, C).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, C).astype(np.float32)
+    bias = (0.1 * rng.randn(C)).astype(np.float32)
+    gmean, gvar = rng.randn(2, C).astype(np.float32)
+    if not cotangents:
+        gmean = gvar = np.zeros(C, np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    xj, gj = jnp.asarray(x, jdt), jnp.asarray(gy, jdt)
+    (_, jm, jv), vjp = jax.vjp(
+        lambda a, s, b: jbn.batch_norm_train(a, s, b, 1e-5, impl),
+        xj, jnp.asarray(scale), jnp.asarray(bias))
+    jdx, jsgx, jsg = vjp((gj, jnp.asarray(gmean), jnp.asarray(gvar)))
+
+    tdt = getattr(torch, dtype)
+    mean = torch.from_numpy(np.array(jm))
+    invstd = torch.rsqrt(torch.from_numpy(np.array(jv)) + 1e-5)
+    cots = ((torch.from_numpy(gmean), torch.from_numpy(gvar)) if cotangents
+            else (None, None))
+    dx, sg, sgx = tbnk.bn_bwd_plain(
+        _to_ncw(np.asarray(gj, np.float32)).to(tdt),
+        _to_ncw(np.asarray(xj, np.float32)).to(tdt), torch.from_numpy(scale),
+        mean, invstd, *cots)
+    assert dx.dtype == tdt and sg.dtype == sgx.dtype == torch.float32
+    tol = (dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16"
+           else dict(rtol=2e-4, atol=1e-6))
+    np.testing.assert_allclose(dx.float().numpy(),
+                               np.swapaxes(np.asarray(jdx, np.float32), 1, 2),
+                               **tol)
+    np.testing.assert_allclose(sg.numpy(), np.asarray(jsg), **tol)
+    np.testing.assert_allclose(sgx.numpy(), np.asarray(jsgx), **tol)
+
+
+def test_bn_bwd_on_cpu_is_its_plain_version_and_launches_nothing():
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(3, 4, 16, generator=g) * 2 + 1
+    gy = torch.randn(3, 4, 16, generator=g)
+    scale = torch.rand(4, generator=g) + 0.5
+    mean = x.mean((0, 2))
+    invstd = torch.rsqrt(x.var((0, 2), correction=0) + 1e-5)
+    tbnk.reset_launches()
+    for cots in ((None, None), (torch.randn(4, generator=g), None),
+                 (None, torch.randn(4, generator=g))):
+        got = tbnk.bn_bwd(gy, x, scale, mean, invstd, *cots)
+        want = tbnk.bn_bwd_plain(gy, x, scale, mean, invstd, *cots)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    tbnk.bn_bwd_stats(gy, x, mean, invstd)
+    assert tbnk.launches == {"bn_stats": 0, "bn_bwd_stats": 0}
+    assert tbnk.sums_only_launches == 0
+    with pytest.raises(ValueError, match="scale"):
+        tbnk.bn_bwd(gy, x, torch.ones(3), mean, invstd)
+    with pytest.raises(ValueError, match="gvar"):
+        tbnk.bn_bwd(gy, x, scale, mean, invstd, None, torch.zeros(4).double())
+    with pytest.raises(ValueError, match="differ"):
+        tbnk.bn_bwd(gy.to(torch.bfloat16), x, scale, mean, invstd)
 
 
 # --- batch_norm_train ------------------------------------------------------
