@@ -4,8 +4,11 @@
 Drives the port's Gwilliams2022 serving and eval path and its training
 path on one NVIDIA GPU at the full width of the speech model in
 ``configs/config.yaml`` (C = 208, D1 = 270, D2 = 320, F = 1024, K = 32,
-5 ConvBlocks, seq2seq, T = 360, 27 subjects, batch 64, f32), with random
-weights from ``--seed``.  Phases, each printed as one JSON line:
+5 ConvBlocks, seq2seq, T = 360, 27 subjects, batch 64, f32), then the GOD
+image workload's data build, train and eval path at the full width of
+``configs/config_GOD.yaml`` (22 ROI channels, D1 = 270, D2 = 320, F = 512,
+mean-pooled, T = 24, batch 64, f32), with random weights from ``--seed``.
+Phases, each printed as one JSON line:
 
 1. build    — compile the three CUDA sources of
               ``meg_decoding_tpu_torch/csrc`` (window_gather,
@@ -35,10 +38,31 @@ weights from ``--seed``.  Phases, each printed as one JSON line:
               (``cli/train_speech.py``) for one epoch of 6 updates with its
               test-pool evaluation and checkpoints: finite losses, no
               skipped step, and the exact launch count of every kernel;
-6. the ``kernels`` line, then the ``ok`` line.
+6. god_data — synthetic GOD sessions (203 channels at 1000 Hz, one train
+              session of 600 trials, one val session of 50; the one cut
+              against the real dataset is the number of sessions), the
+              train split built on the card (bandpass, resample and epoch
+              gather on the device) and on the CPU: max |card − CPU| ≤
+              1e-5·max|X|;
+7. god_kernels — the four kernels at the GOD shapes against their plain
+              versions with the checks and times of phase 3: 600 windows of
+              L = 24 out of one (22, Tp) recording (and ``epoch_slice``'s
+              clamps of onsets past the end), the percentiles of a
+              (64, 22, 24) batch, the BN kernels at (64, 320, 24);
+8. god_training — one GOD train step on the card against the CPU (loss and
+              global gradient norm within 1e-4), the per-step form's times,
+              then ``cli/train_god.py`` for one epoch of the cv split (7
+              updates, 2 test pools): finite losses, no skipped step, the
+              exact launch count of every kernel;
+9. god_eval — ``cli/evaluate_god.py`` on that checkpoint: the JAX
+              package's metric keys, finite, exact launch counts;
+10. ``step_share`` and ``god_step_share``, the ``kernels`` line (each
+              kernel's launches by path and its times at the GOD shapes
+              under ``god``), then the ``ok`` line.
 
-The serving and the training path each run with every launch count set to
-0 just before and read just after.
+The serving, training, GOD training and GOD eval paths each run with every
+launch count set to 0 just before and read just after; the run fails
+unless each kernel launched on the speech paths and on the GOD paths.
 
 Any failure raises and exits non-zero.  Without CUDA, or without the rest
 of the repository beside it, it exits non-zero and prints no result.
@@ -61,12 +85,21 @@ import time
 import numpy as np
 import torch
 
-from meg_decoding_tpu_torch.cli import evaluate_speech, train_speech
-from meg_decoding_tpu_torch.core.config import compose
+from meg_decoding_tpu_torch.cli import (
+    evaluate_god,
+    evaluate_speech,
+    train_god,
+    train_speech,
+)
+from meg_decoding_tpu_torch.core.config import Config, compose, to_dict
+from meg_decoding_tpu_torch.data.god import build_god_dataset
 from meg_decoding_tpu_torch.data.layout import ch_locations_2d
+from meg_decoding_tpu_torch.data.roi import roi
 from meg_decoding_tpu_torch.data.synthetic import (
     CONFIGS_DIR,
     FULL_WIDTH_CACHE,
+    FULL_WIDTH_GOD,
+    full_width_god,
     full_width_speech,
 )
 from meg_decoding_tpu_torch.device import resolve_device
@@ -75,6 +108,8 @@ from meg_decoding_tpu_torch.ops.kernels import batchnorm as bk
 from meg_decoding_tpu_torch.ops.kernels import build
 from meg_decoding_tpu_torch.ops.kernels import quantile as qk
 from meg_decoding_tpu_torch.ops.kernels import window_gather as wg
+from meg_decoding_tpu_torch.ops.resample import resample_len
+from meg_decoding_tpu_torch.ops.scaling import epoch_slice
 from meg_decoding_tpu_torch.serving.forward import make_serving_forward
 from meg_decoding_tpu_torch.train.checkpoint import CheckpointManager
 from meg_decoding_tpu_torch.train.loop import _test_pool_starts
@@ -253,6 +288,7 @@ def phase_kernels(ds, flush) -> dict:
                          torch.arange(BATCH, device="cuda") * 17, L)
     x2d = (X - X[..., :60].mean(-1, keepdim=True)).reshape(-1, L).contiguous()
     quant = quantile_checks(x2d, flush)
+    quantile_edges()
     emit({"phase": "kernels", "kernel": "robust_quantiles", **quant})
     return {"gather": cases, "quantiles": quant}
 
@@ -291,22 +327,25 @@ def quantile_check(x2d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
     return got, want, ulps
 
 
-def quantile_checks(x2d: torch.Tensor, flush) -> dict:
-    """robust_quantiles on the main path's (N, T) batch with its hard rows,
-    timed, and at shapes off the main path."""
-    N, L = x2d.shape
-    got, want, ulps = quantile_check(with_hard_rows(x2d))
-    # off the main path's shapes: a last CTA with fewer rows than warps;
-    # rows shorter than a warp; 31, 32, 33 keys (one key per lane and the
-    # step to two); the register path's limit of 1024 keys (32 per lane) and
-    # 1025 (the shared-memory bisection); rows whose keys need more than the
-    # default 48 KB of shared memory
+def quantile_edges() -> None:
+    """robust_quantiles off the main paths' shapes: a last CTA with fewer
+    rows than warps; rows shorter than a warp; 31, 32, 33 keys (one key per
+    lane and the step to two); the register path's limit of 1024 keys (32
+    per lane) and 1025 (the shared-memory bisection); rows whose keys need
+    more than the default 48 KB of shared memory."""
     g = torch.Generator(device="cuda").manual_seed(4)
     for n, t in ((45, 7), (13, 1), (9, 2), (45, 31), (45, 32), (45, 33),
                  (45, qk.REGISTER_MAX_T), (45, qk.REGISTER_MAX_T + 1),
                  (37, 20000)):
         xe = torch.randn(n, t, device="cuda", generator=g)
         quantile_check(with_hard_rows(xe) if t >= 8 else xe)
+
+
+def quantile_checks(x2d: torch.Tensor, flush) -> dict:
+    """robust_quantiles on a main path's (N, T) batch with its hard rows,
+    timed."""
+    N, L = x2d.shape
+    got, want, ulps = quantile_check(with_hard_rows(x2d))
     fin = torch.isfinite(got) & torch.isfinite(want)
     q_lib = torch.tensor([0.25, 0.5, 0.75], device="cuda")
     q_bytes = N * L * 4 + N * 3 * 4
@@ -428,84 +467,93 @@ def library_time(fn, flush) -> tuple[float | None, str | None]:
         return None, str(e).splitlines()[0][:200]
 
 
+def bn_inputs(gen, B, Cc, T, dtype, offset=0):
+    """(x, g) of shape (B, Cc, T) on the card, ``offset`` elements past an
+    allocation's start."""
+    n = B * Cc * T + offset
+    x = (torch.randn(n, device="cuda", generator=gen) * 3 + 1.5).to(dtype)
+    g = torch.randn(n, device="cuda", generator=gen).to(dtype)
+    return x[offset:].view(B, Cc, T), g[offset:].view(B, Cc, T)
+
+
+def bn_rows(x, g, flush, phase: str) -> dict:
+    """The BN kernels on a main path's (x, g) — checked (``bn_check``, with
+    and without the mean/var cotangents), timed and emitted: bn_stats,
+    bn_bwd (the layer's backward, the kernel of the train path) as the
+    ``bn_bwd_stats`` row, and its sums alone beside it (the one-to-one
+    counterpart of the Pallas kernel)."""
+    dtype = x.dtype
+    err = bn_check(x, g)
+    err.update({f"cot_{k}": v for k, v in bn_check(x, g, True).items()})
+    Cc = x.shape[1]
+    M = x.numel() // Cc
+    mean = torch.zeros(Cc, device="cuda")
+    invstd = torch.ones(Cc, device="cuda")
+    scale = torch.ones(Cc, device="cuda")
+    n, esize = x.numel(), x.element_size()
+    xs, gs = copies(x, n * esize), copies(g, n * esize)
+    fwd_bound = bound(n * esize + 2 * Cc * 4, 3 * n)
+    sums_bound = bound(2 * n * esize + 4 * Cc * 4, 5 * n)
+    bwd_bound = bound(3 * n * esize + 5 * Cc * 4, 12 * n)
+    lib_stats = library_time(lambda: torch.batch_norm_stats(x, 1e-5), flush)
+    lib_reduce = library_time(lambda: torch.batch_norm_backward_reduce(
+        g, x, mean, invstd, scale, False, True, True), flush)
+    lib_bwd = library_time(lambda: torch.ops.aten.native_batch_norm_backward(
+        g, x, scale, None, None, mean, invstd, True, 1e-5,
+        [True, True, True]), flush)
+    rows = {
+        "bn_stats": {
+            "max_abs_err": max(err["sum_x"], err["sum_x2"]),
+            "kernel_ms": time_ms(lambda: bk.bn_stats(x), flush),
+            "run_ms": run_ms([lambda x=x: bk.bn_stats(x) for x in xs]),
+            "plain_ms": time_ms(lambda: bk.bn_stats_plain(x), flush),
+            "library_ms": time_ms(lambda: torch.var_mean(
+                x, dim=(0, 2), correction=0), flush),
+            "library_batch_norm_stats_ms": lib_stats[0],
+            "library_batch_norm_stats_refused": lib_stats[1],
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]},
+        "bn_bwd_stats": {
+            "max_abs_err": max(v for k, v in err.items()
+                               if k.startswith(("bn_bwd_", "cot_bn_bwd_"))),
+            "kernel_ms": time_ms(lambda: bk.bn_bwd(g, x, scale, mean,
+                                                   invstd), flush),
+            "run_ms": run_ms([lambda g=g, x=x: bk.bn_bwd(
+                g, x, scale, mean, invstd) for g, x in zip(gs, xs)]),
+            "plain_ms": time_ms(lambda: bk.bn_bwd_plain(
+                g, x, scale, mean, invstd), flush),
+            "library_ms": lib_bwd[0],
+            "library": "torch.ops.aten.native_batch_norm_backward",
+            "library_refused": lib_bwd[1],
+            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+            "stats_only_max_abs_err": max(err["sum_g"], err["sum_gxhat"]),
+            "stats_only_ms": time_ms(lambda: bk.bn_bwd_stats(
+                g, x, mean, invstd), flush),
+            "stats_only_run_ms": run_ms([lambda g=g, x=x: bk.bn_bwd_stats(
+                g, x, mean, invstd) for g, x in zip(gs, xs)]),
+            "stats_only_plain_ms": time_ms(lambda: bk.bn_bwd_stats_plain(
+                g, x, mean, invstd), flush),
+            "stats_only_library_ms": lib_reduce[0],
+            "stats_only_library": "torch.batch_norm_backward_reduce",
+            "stats_only_library_refused": lib_reduce[1],
+            "stats_only_bound_ms": sums_bound[0]},
+    }
+    for name, row in rows.items():
+        emit({"phase": phase, "kernel": name, "shape": list(x.shape),
+              "dtype": str(dtype), "M": M,
+              "tolerance": "sums: 1e-5 of sum |term| per channel; dx: "
+                           "bn_bwd_check's bound; bit-identical across "
+                           "two launches", **row})
+    return rows
+
+
 def phase_bn_kernels(flush) -> dict:
-    """The BN kernels at the training step's shape (64, 320, 360) in f32 and
-    bf16, timed, and at shapes off the main path: bn_stats, bn_bwd (the
-    layer's backward, the kernel of the train path) and bn_bwd_stats (its
-    sums alone, the one-to-one counterpart of the Pallas kernel)."""
+    """The BN kernels at the speech training step's shape (64, 320, 360) in
+    f32 and bf16, timed (``bn_rows``), and at shapes off the main paths."""
     gen = torch.Generator(device="cuda").manual_seed(5)
-
-    def inputs(B, Cc, T, dtype, offset=0):
-        n = B * Cc * T + offset
-        x = (torch.randn(n, device="cuda", generator=gen) * 3 + 1.5).to(dtype)
-        g = torch.randn(n, device="cuda", generator=gen).to(dtype)
-        return x[offset:].view(B, Cc, T), g[offset:].view(B, Cc, T)
-
-    out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        x, g = inputs(BATCH, D2, 360, dtype)
-        err = bn_check(x, g)
-        err.update({f"cot_{k}": v for k, v in bn_check(x, g, True).items()})
-        M = x.numel() // D2
-        mean = torch.zeros(D2, device="cuda")
-        invstd = torch.ones(D2, device="cuda")
-        scale = torch.ones(D2, device="cuda")
-        n, esize = x.numel(), x.element_size()
-        xs, gs = copies(x, n * esize), copies(g, n * esize)
-        fwd_bound = bound(n * esize + 2 * D2 * 4, 3 * n)
-        sums_bound = bound(2 * n * esize + 4 * D2 * 4, 5 * n)
-        bwd_bound = bound(3 * n * esize + 5 * D2 * 4, 12 * n)
-        lib_stats = library_time(lambda: torch.batch_norm_stats(x, 1e-5), flush)
-        lib_reduce = library_time(lambda: torch.batch_norm_backward_reduce(
-            g, x, mean, invstd, scale, False, True, True), flush)
-        lib_bwd = library_time(lambda: torch.ops.aten.native_batch_norm_backward(
-            g, x, scale, None, None, mean, invstd, True, 1e-5,
-            [True, True, True]), flush)
-        rows = {
-            "bn_stats": {
-                "max_abs_err": max(err["sum_x"], err["sum_x2"]),
-                "kernel_ms": time_ms(lambda: bk.bn_stats(x), flush),
-                "run_ms": run_ms([lambda x=x: bk.bn_stats(x) for x in xs]),
-                "plain_ms": time_ms(lambda: bk.bn_stats_plain(x), flush),
-                "library_ms": time_ms(lambda: torch.var_mean(
-                    x, dim=(0, 2), correction=0), flush),
-                "library_batch_norm_stats_ms": lib_stats[0],
-                "library_batch_norm_stats_refused": lib_stats[1],
-                "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]},
-            "bn_bwd_stats": {
-                "max_abs_err": max(v for k, v in err.items()
-                                   if k.startswith(("bn_bwd_", "cot_bn_bwd_"))),
-                "kernel_ms": time_ms(lambda: bk.bn_bwd(g, x, scale, mean,
-                                                       invstd), flush),
-                "run_ms": run_ms([lambda g=g, x=x: bk.bn_bwd(
-                    g, x, scale, mean, invstd) for g, x in zip(gs, xs)]),
-                "plain_ms": time_ms(lambda: bk.bn_bwd_plain(
-                    g, x, scale, mean, invstd), flush),
-                "library_ms": lib_bwd[0],
-                "library": "torch.ops.aten.native_batch_norm_backward",
-                "library_refused": lib_bwd[1],
-                "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
-                "stats_only_max_abs_err": max(err["sum_g"], err["sum_gxhat"]),
-                "stats_only_ms": time_ms(lambda: bk.bn_bwd_stats(
-                    g, x, mean, invstd), flush),
-                "stats_only_run_ms": run_ms([lambda g=g, x=x: bk.bn_bwd_stats(
-                    g, x, mean, invstd) for g, x in zip(gs, xs)]),
-                "stats_only_plain_ms": time_ms(lambda: bk.bn_bwd_stats_plain(
-                    g, x, mean, invstd), flush),
-                "stats_only_library_ms": lib_reduce[0],
-                "stats_only_library": "torch.batch_norm_backward_reduce",
-                "stats_only_library_refused": lib_reduce[1],
-                "stats_only_bound_ms": sums_bound[0]},
-        }
-        for name, row in rows.items():
-            emit({"phase": "kernels", "kernel": name, "shape": list(x.shape),
-                  "dtype": str(dtype), "M": M,
-                  "tolerance": "sums: 1e-5 of sum |term| per channel; dx: "
-                               "bn_bwd_check's bound; bit-identical across "
-                               "two launches", **row})
-        out[str(dtype)] = rows
-        del xs, gs
-    # off the main path's shapes: C of 21, T = 37 (rows not 16-byte
+    out = {str(dtype): bn_rows(*bn_inputs(gen, BATCH, D2, 360, dtype), flush,
+                               "kernels")
+           for dtype in (torch.float32, torch.bfloat16)}
+    # off the main paths' shapes: C of 21, T = 37 (rows not 16-byte
     # aligned: the element-wise loop), B·T below one CTA's thread count, a
     # base address 4 bytes past a 16-byte boundary, one channel, B = 65 (not
     # a multiple of 4), rows longer than a CTA's threads, and B = 256 in f32
@@ -525,7 +573,7 @@ def phase_bn_kernels(flush) -> dict:
             (6, 3, 4096, torch.float32, 0, False),
             (6, 3, 1001, torch.float32, 0, False),
             (4 * BATCH, 24, 360, torch.float32, 0, True)):
-        bn_check(*inputs(B, Cc, T, dtype, offset), cotangents=cot)
+        bn_check(*bn_inputs(gen, B, Cc, T, dtype, offset), cotangents=cot)
     return out
 
 
@@ -708,6 +756,209 @@ def phase_training(cfg, ds, tr_idx, seed, work) -> dict:
     return {"launches": launches, "steady_step_ms": float(np.median(step_ms[1:]))}
 
 
+GOD_EVAL_KEYS = {"val_top1", "val_top10", "zeroshot_top1", "zeroshot_top10",
+                 "pairwise_correlation", "pairwise_cosine"}
+GOD_DATA_RTOL = 1e-5  # card vs CPU epochs: f32 FFTs of ~6e5 samples, two libraries
+
+
+def phase_god_data(work, seed):
+    """The GOD train split (filter, resample and epoch gather on the
+    device) built on the card and on the CPU, the same host arithmetic
+    before and after: max |card − CPU| ≤ GOD_DATA_RTOL·max|X|, the rest
+    exactly equal.  Returns the config and the card's dataset."""
+    t0 = time.perf_counter()
+    cfg = full_width_god(work, seed, [
+        f"save_root={os.path.join(work, 'god_out')}", f"batch_size={BATCH}",
+        "epochs=1", "run_name=smoke"])
+    write_s = time.perf_counter() - t0
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = build_god_dataset(cfg, "train", device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    if wg.launches != 1:
+        raise AssertionError(f"GOD train build: {wg.launches} gathers, expected 1")
+    t0 = time.perf_counter()
+    cpu = build_god_dataset(cfg, "train", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    err = float((ds.X.cpu() - cpu.X).abs().max())
+    peak = float(cpu.X.abs().max())
+    if not err <= GOD_DATA_RTOL * peak:
+        raise AssertionError(f"GOD data card vs CPU: max|ΔX| {err}, max|X| {peak}")
+    for k in ("Y", "subject_idxs", "labels"):
+        if not torch.equal(getattr(ds, k).cpu(), getattr(cpu, k)):
+            raise AssertionError(f"GOD data card vs CPU: {k} differs")
+    emit({"phase": "god_data", "X": list(ds.X.shape), "Y": list(ds.Y.shape),
+          "windows": len(ds), "roi_channels": int(ds.X.shape[1]),
+          "write_s": write_s, "card_build_s": card_s, "cpu_build_s": cpu_s,
+          "max_abs_err": err, "max_abs_X": peak,
+          "limit": f"{GOD_DATA_RTOL} * max|X|",
+          "reduced": "1 subject, 1 train session of 600 trials and 1 val "
+                     "session of 50 (the real dataset has several sessions "
+                     "per subject); synthetic MEG"})
+    return cfg, ds
+
+
+def phase_god_kernels(cfg, ds, flush) -> dict:
+    """The four kernels at the GOD path's shapes against their plain
+    versions, with the checks and times of the speech shapes: the epoch
+    gather of 600 windows of L = 24 out of one (22, Tp) recording (plus
+    ``epoch_slice``'s two clamps on onsets past T − L and past Tp), the
+    percentiles of a collated (64, 22, 24) batch, and the BN kernels at
+    (64, 320, 24) in f32 and bf16."""
+    fs = float(FULL_WIDTH_GOD["fs"])
+    rate = float(cfg.preprocs.brain_resample_rate)
+    T = resample_len(int(fs * (FULL_WIDTH_GOD["n_train"] + 4)), down=fs / rate)
+    L = int(ds.X.shape[2])
+    Cr = int(ds.X.shape[1])
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    src = torch.randn(1, Cr, wg.pad_time_for_gather(T, L), device="cuda",
+                      generator=gen)
+    gather = gather_case(src, len(ds), L, 7, None, flush)
+    x = src[0, :, :T].contiguous()
+    onsets = torch.tensor([0, 5, T - L, T - L + 7, T + 100, 10**6, -3])
+    got = epoch_slice(x, onsets.cuda(), L).cpu()
+    if not (torch.equal(got, epoch_slice(x.cpu(), onsets, L))
+            and torch.equal(got[3], x[:, T - L:].cpu())):
+        raise AssertionError("epoch_slice: card and CPU windows differ")
+    emit({"phase": "god_kernels", "kernel": "window_gather",
+          "recording_T": T, **gather})
+    # the collate's percentiles of one GOD batch (baseline_len_sec 0)
+    quant = quantile_checks(ds.X[:BATCH].reshape(-1, L).clone(), flush)
+    emit({"phase": "god_kernels", "kernel": "robust_quantiles", **quant})
+    bn = {str(dtype): bn_rows(*bn_inputs(gen, BATCH, D2, L, dtype), flush,
+                              "god_kernels")
+          for dtype in (torch.float32, torch.bfloat16)}
+    return {"gather": gather, "quantiles": quant, "bn": bn}
+
+
+def phase_god_training(cfg, ds, seed) -> dict:
+    """One GOD train step on the card against the same step on the CPU, the
+    per-step form's times, then the main path: ``cli/train_god.py`` for one
+    epoch.  Returns its launch counts."""
+    dev = torch.device("cuda")
+    cfg.num_subjects = ds.num_subjects
+    loc = ch_locations_2d(cfg, roi(cfg))
+    loss_cfg = dataclasses.replace(train_god._loss_config(cfg), grad_norms=True)
+    collate_cfg = evaluate_speech.collate_config(cfg)
+
+    def train_state(device):
+        model = get_model(cfg, loc, device=device, seed=seed)
+        opt = make_optimizer(cfg, int(cfg.updates))
+        return model, opt, create_train_state(model, opt,
+                                              float(cfg.init_temperature), seed)
+
+    model, opt, state = train_state(dev)
+    cpu_model, cpu_opt, cpu_state = train_state("cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    X, Y, subs, _ = ds.gather(np.arange(BATCH))
+    centre = int(torch.randint(len(loc), (), generator=torch.Generator().manual_seed(seed)))
+    step = make_train_step(model, opt, loss_cfg, collate_cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, X, Y, subs, centre=centre)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    cpu_step = make_train_step(cpu_model, cpu_opt, loss_cfg, collate_cfg)
+    _, mc = cpu_step(cpu_state, X.cpu(), Y.cpu(), subs.cpu(), centre=centre)
+    check = {"loss_rel_err": rel_err(m["loss"], mc["loss"]),
+             "grad_norm_rel_err": rel_err(m["grad_norm"], mc["grad_norm"]),
+             "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    if not (check["loss_rel_err"] <= 1e-4 and check["grad_norm_rel_err"] <= 1e-4):
+        raise AssertionError(f"card vs CPU GOD train step: {check}")
+
+    # the per-step form as fit runs it: gather from the packed set + step
+    rng = np.random.RandomState(seed)
+    step_ms, losses = [], []
+    for i in range(TIMED_STEPS):
+        idx = rng.randint(0, len(ds), BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, *ds.gather(idx)[:3])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        if float(m["skipped"]) != 0.0 or not math.isfinite(losses[-1]):
+            raise AssertionError(f"GOD step {i}: loss {losses[-1]}, "
+                                 f"skipped {float(m['skipped'])}")
+    del model, opt, state, cpu_model, cpu_opt, cpu_state
+
+    # the main path: the train CLI, one epoch over the cv split
+    tcfg = Config(to_dict(cfg))
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best = train_god.run(tcfg, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = all_launches()
+    if bk.sums_only_launches != 0:
+        raise AssertionError(f"GOD train CLI: {bk.sums_only_launches} launches "
+                             "of bn_bwd_stats's sums alone, expected 0")
+    with open(os.path.join(cfg.save_root, "runs", "smoke", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if len(rows) != 1 or rows[0]["train_skipped"] != 0.0 \
+            or not (math.isfinite(rows[0]["train_loss"])
+                    and math.isfinite(rows[0]["test_loss"])):
+        raise AssertionError(f"GOD train CLI: {rows}")
+    # the cv split: 5/6 of the 600 windows train (7 full batches of 64),
+    # the rest are the test pools; one gather builds the train split; per
+    # update 1 collate, 10 BN forward statistics and 10 BN backward
+    # kernels; per test pool 1 collate
+    n_train = int(round(len(ds) * 5 / 6))
+    updates = n_train // BATCH
+    pools = len(_test_pool_starts(len(ds) - n_train,
+                                  min(len(ds) - n_train, int(cfg.test_size)),
+                                  bool(cfg.get("test_sweep", True))))
+    model, _, fresh = train_state(dev)
+    restored = CheckpointManager(os.path.join(cfg.save_root, "ckpt")).restore(
+        "model_last", fresh)
+    if int(restored.step) != updates:
+        raise AssertionError(f"GOD model_last holds step {int(restored.step)}, "
+                             f"expected {updates}")
+    expected = {"window_gather": 1, "robust_quantiles": updates + pools,
+                "bn_stats": BN_PER_STEP * updates,
+                "bn_bwd_stats": BN_PER_STEP * updates}
+    if launches != expected:
+        raise AssertionError(f"GOD train CLI launches {launches}, expected {expected}")
+    emit({"phase": "god_training", "card_vs_cpu": check, "rel_err_limit": 1e-4,
+          "first_step_ms": first_ms, "step_ms": step_ms,
+          "steady_step_ms": float(np.median(step_ms[1:])), "losses": losses,
+          "train_cli_s": run_s, "updates": updates, "test_pools": pools,
+          "train_cli": {k: best[k] for k in (
+              "train_loss", "train_skipped", "train_top1", "train_top10",
+              "test_loss", "test_top1", "test_top10", "t_gather_ms",
+              "t_step_ms")},
+          "launches": launches,
+          "bn_bwd_sums_only_launches": bk.sums_only_launches})
+    return {"launches": launches, "steady_step_ms": float(np.median(step_ms[1:]))}
+
+
+def phase_god_eval(cfg) -> dict:
+    """The main path: ``cli/evaluate_god.py`` on the checkpoint the train
+    CLI wrote.  Returns its launch counts."""
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = evaluate_god.run(Config(to_dict(cfg)), device="cuda")
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = all_launches()
+    if set(results) != GOD_EVAL_KEYS or not all(map(math.isfinite, results.values())):
+        raise AssertionError(f"GOD eval CLI: {results}")
+    # the train and the val split, one gather each; the 50 val epochs (one
+    # per image) in one predict batch, one collate; eval-mode BN launches
+    # no BN kernel
+    expected = {"window_gather": 2, "robust_quantiles": 1, "bn_stats": 0,
+                "bn_bwd_stats": 0}
+    if launches != expected:
+        raise AssertionError(f"GOD eval CLI launches {launches}, expected {expected}")
+    emit({"phase": "god_eval", "eval": results, "eval_cli_s": eval_s,
+          "launches": launches})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke run of the port")
     ap.add_argument("--seed", type=int, default=0)
@@ -737,6 +988,14 @@ def main(argv=None) -> int:
         del flush
         serving = phase_serving(cfg, ds, tr_idx, args.seed)
         training = phase_training(cfg, ds, tr_idx, args.seed, work)
+        del ds
+
+        god_cfg, god_ds = phase_god_data(work, args.seed)
+        flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+        god = phase_god_kernels(god_cfg, god_ds, flush)
+        del flush
+        god_training = phase_god_training(god_cfg, god_ds, args.seed)
+        god_eval = phase_god_eval(god_cfg)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -744,9 +1003,14 @@ def main(argv=None) -> int:
         for name, n in launches.items():
             if n <= 0:
                 raise AssertionError(f"{name}: no launch on the {path} path")
-    launches = {k: serving.get(k, 0) + n for k, n in training["launches"].items()}
-    by_path = lambda k: {"serving": serving.get(k, 0),
-                         "training": training["launches"][k]}
+    paths = {"serving": serving, "training": training["launches"],
+             "god_training": god_training["launches"], "god_eval": god_eval}
+    for name in training["launches"]:
+        if paths["god_training"][name] + paths["god_eval"][name] <= 0:
+            raise AssertionError(f"{name}: no launch on the GOD paths")
+    launches = {k: sum(p.get(k, 0) for p in paths.values())
+                for k in training["launches"]}
+    by_path = lambda k: {p: n.get(k, 0) for p, n in paths.items()}
     g = measured["gather"][:2]  # one batch: the X and the f32 Y gather
     q = measured["quantiles"]
     # the kernels' device time in one f32 training step (bn_bwd: the whole
@@ -757,6 +1021,23 @@ def main(argv=None) -> int:
     emit({"phase": "step_share", "kernels_ms_per_step": per_step,
           "steady_step_ms": training["steady_step_ms"],
           "share": per_step / training["steady_step_ms"]})
+    gq, gbn = god["quantiles"], god["bn"][str(torch.float32)]
+    god_per_step = gq["kernel_ms"] + BN_PER_STEP * (
+        gbn["bn_stats"]["kernel_ms"] + gbn["bn_bwd_stats"]["kernel_ms"])
+    emit({"phase": "god_step_share", "kernels_ms_per_step": god_per_step,
+          "steady_step_ms": god_training["steady_step_ms"],
+          "share": god_per_step / god_training["steady_step_ms"]})
+    at_god = lambda r: {k: r[k] for k in ("max_abs_err", "kernel_ms", "run_ms",
+                                          "plain_ms", "library_ms")}
+    god_rows = {
+        "window_gather": dict(at_god(god["gather"]), shape=god["gather"]["shape"],
+                              bound_ms=god["gather"]["bound_us"] / 1e3),
+        "robust_quantiles": dict(at_god(gq), shape=gq["shape"],
+                                 bound_ms=gq["bound_us"] / 1e3),
+        **{name: {dt: dict(at_god(rows[name]), shape=[BATCH, D2, int(god_ds.X.shape[2])],
+                           bound_ms=rows[name]["bound_ms"])
+                  for dt, rows in god["bn"].items()}
+           for name in ("bn_stats", "bn_bwd_stats")}}
     emit({"kernels": [
         {"name": "window_gather", "route": "cuda",
          "source": "meg_decoding_tpu_torch/csrc/window_gather.cu",
@@ -768,7 +1049,8 @@ def main(argv=None) -> int:
          "run_ms": sum(c["run_ms"] for c in g),
          "plain_ms": sum(c["plain_ms"] for c in g),
          "bound_ms": sum(c["bound_us"] for c in g) / 1e3, "bound_by": "bytes",
-         "library_ms": sum(c["library_ms"] for c in g)},
+         "library_ms": sum(c["library_ms"] for c in g),
+         "god": god_rows["window_gather"]},
         {"name": "robust_quantiles", "route": "cuda",
          "source": "meg_decoding_tpu_torch/csrc/robust_quantiles.cu",
          "replaces": "meg_decoding_tpu/ops/pallas/quantile.py:120",
@@ -777,7 +1059,8 @@ def main(argv=None) -> int:
          "max_abs_err": q["max_abs_err"], "ms": q["kernel_ms"],
          "run_ms": q["run_ms"], "plain_ms": q["plain_ms"],
          "bound_ms": q["bound_us"] / 1e3,
-         "bound_by": "bytes", "library_ms": q["library_ms"]},
+         "bound_by": "bytes", "library_ms": q["library_ms"],
+         "god": god_rows["robust_quantiles"]},
         *({"name": name, "route": "cuda",
            "source": "meg_decoding_tpu_torch/csrc/batchnorm_stats.cu",
            "replaces": f"meg_decoding_tpu/ops/pallas/batchnorm.py:{line}",
@@ -787,6 +1070,7 @@ def main(argv=None) -> int:
            "plain_ms": bn[name]["plain_ms"], "bound_ms": bn[name]["bound_ms"],
            "bound_by": bn[name]["bound_by"],
            "library_ms": bn[name]["library_ms"],
+           "god": god_rows[name],
            **{k: bn[name][k] for k in extra}}
           for name, line, extra in (
               ("bn_stats", 69, ("library_batch_norm_stats_ms",)),

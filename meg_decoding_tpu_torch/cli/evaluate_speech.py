@@ -136,8 +136,9 @@ def load_model_state(path: str, device) -> dict:
 
 
 def collate_config(cfg) -> CollateConfig:
-    """The collate the trainer applied, from ``cfg.preprocs``."""
-    rate = float(cfg.preprocs.brain_resample_rate)
+    """The collate the trainer applied, from ``cfg.preprocs`` (no baseline
+    without a resample rate, as GOD's config allows)."""
+    rate = float(cfg.preprocs.get("brain_resample_rate") or 0)
     return CollateConfig(
         baseline_len_samp=int(rate * float(cfg.preprocs.get("baseline_len_sec", 0))),
         clamp_lim=float(cfg.preprocs.get("clamp_lim", 20)),

@@ -1,22 +1,26 @@
 """Where the time of one training step goes on the card.
 
-Builds the synthetic 27-subject Gwilliams cache that ``chip_smoke.py``
-also runs on (``data/synthetic.py:full_width_speech``), the full-width
-model of ``configs/config.yaml`` with random weights, and
+``--workload speech``: the synthetic 27-subject Gwilliams cache that
+``chip_smoke.py`` also runs on (``data/synthetic.py:full_width_speech``),
+the full-width model of ``configs/config.yaml`` with random weights, and
 the fused train step (session draw, window gather, collate, encoder in
-training mode, CLIP loss, gradients, Adam, BN running statistics).  After
-3 warm-up steps it times 10 steps with the host clock around work that
-ends in ``torch.cuda.synchronize()``, then traces as many more
-with ``torch.profiler`` and sums the device time of every kernel, by name
-and by group, and the share of the traced window in which the card ran
-no kernel.  Prints one JSON object per configuration; also writes it
-under ``--out``.
+training mode, CLIP loss, gradients, Adam, BN running statistics).
+``--workload god``: the full-width GOD set-up of ``chip_smoke.py``
+(``full_width_god``: ``configs/config_GOD.yaml``, T = 24), its train split
+built on the card, and the per-step form ``fit`` runs (a gather from the
+packed set, then ``make_train_step``'s step).  After 3 warm-up steps it
+times 10 steps with the host clock around work that ends in
+``torch.cuda.synchronize()``, then traces as many more with
+``torch.profiler`` and sums the device time of every kernel, by name and
+by group, and the share of the traced window in which the card ran no
+kernel.  Prints one JSON object per configuration; also writes them under
+``--out``.
 
 Needs a GPU; there is no CPU mode.
 
 Run from the repository root:
 ``python -m meg_decoding_tpu_torch.cli.profile_train_step [--out DIR]
-[--dtypes float32,bfloat16] [key=value …]``
+[--workload speech|god] [--dtypes float32,bfloat16] [key=value …]``
 """
 
 from __future__ import annotations
@@ -38,14 +42,18 @@ from meg_decoding_tpu_torch.cli.evaluate_speech import (
     SpeechPool,
     collate_config,
 )
+from meg_decoding_tpu_torch.cli.train_god import _loss_config as god_loss_config
 from meg_decoding_tpu_torch.cli.train_speech import loss_config
+from meg_decoding_tpu_torch.data.god import build_god_dataset
 from meg_decoding_tpu_torch.data.layout import ch_locations_2d
-from meg_decoding_tpu_torch.data.synthetic import full_width_speech
+from meg_decoding_tpu_torch.data.roi import roi
+from meg_decoding_tpu_torch.data.synthetic import full_width_god, full_width_speech
 from meg_decoding_tpu_torch.device import resolve_device
 from meg_decoding_tpu_torch.models.factory import get_model
 from meg_decoding_tpu_torch.train.scan_loop import make_fused_speech_step
 from meg_decoding_tpu_torch.train.schedules import make_optimizer
 from meg_decoding_tpu_torch.train.state import create_train_state
+from meg_decoding_tpu_torch.train.steps import make_train_step
 
 __all__ = ["kernel_group", "busy_us", "main"]
 
@@ -93,9 +101,11 @@ def _nvidia_smi() -> str:
         timeout=60).stdout.strip().splitlines()[0]
 
 
-def profile_config(cfg, ds, tr_idx, seed: int, warmup: int, steps: int) -> dict:
-    dev = torch.device("cuda")
-    model = get_model(cfg, ch_locations_2d(cfg), device=dev, seed=seed)
+def speech_step(work: str, seed: int, overrides):
+    """(cfg, one): the fused speech step on the full-width cache; ``one(i)``
+    runs step i and returns its metrics."""
+    cfg, ds, tr_idx = full_width_speech(work, seed, overrides)
+    model = get_model(cfg, ch_locations_2d(cfg), device="cuda", seed=seed)
     opt = make_optimizer(cfg, int(cfg.updates))
     state = create_train_state(model, opt, float(cfg.init_temperature), seed)
     fused = make_fused_speech_step(model, opt, loss_config(cfg),
@@ -107,6 +117,31 @@ def profile_config(cfg, ds, tr_idx, seed: int, warmup: int, steps: int) -> dict:
     def one(i):
         idx = pool.segment_ids(rng.randint(0, len(pool), B))
         return fused(state, idx, generator=torch.Generator().manual_seed(i))[1]
+
+    return cfg, one
+
+
+def god_step(work: str, seed: int, overrides):
+    """(cfg, one): the per-step GOD step over the full-width train split."""
+    cfg = full_width_god(work, seed, overrides)
+    ds = build_god_dataset(cfg, "train", device="cuda")
+    cfg.num_subjects = ds.num_subjects
+    model = get_model(cfg, ch_locations_2d(cfg, roi(cfg)), device="cuda",
+                      seed=seed)
+    opt = make_optimizer(cfg, int(cfg.updates))
+    state = create_train_state(model, opt, float(cfg.init_temperature), seed)
+    step = make_train_step(model, opt, god_loss_config(cfg), collate_config(cfg))
+    rng = np.random.RandomState(seed)
+    B = int(cfg.batch_size)
+
+    def one(i):
+        return step(state, *ds.gather(rng.randint(0, len(ds), B))[:3])[1]
+
+    return cfg, one
+
+
+def profile_config(cfg, one, warmup: int, steps: int) -> dict:
+    B = int(cfg.batch_size)
 
     for i in range(warmup):
         one(i)
@@ -166,6 +201,7 @@ def profile_config(cfg, ds, tr_idx, seed: int, warmup: int, steps: int) -> dict:
 
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", choices=("speech", "god"), default="speech")
     ap.add_argument("--dtypes", default="float32")
     ap.add_argument("--out", default=None, help="directory for the JSON result")
     ap.add_argument("overrides", nargs="*", help="key=value config overrides")
@@ -174,14 +210,15 @@ def main(argv=None) -> list[dict]:
     smi = _nvidia_smi()
     print(smi, flush=True)
     work = os.path.join(_ROOT, "runs_out", f"profile_train_step_{os.getpid()}")
+    make = {"speech": speech_step, "god": god_step}[args.workload]
     results = []
     try:
         for dtype in args.dtypes.split(","):
-            cfg, ds, tr_idx = full_width_speech(
-                work, SEED, [f"compute_dtype={dtype}", *args.overrides])
             torch.cuda.reset_peak_memory_stats()
+            cfg, one = make(work, SEED, [f"compute_dtype={dtype}", *args.overrides])
             res = {"device": smi, "torch": torch.__version__,
-                   **profile_config(cfg, ds, tr_idx, SEED, WARMUP, STEPS)}
+                   "workload": args.workload,
+                   **profile_config(cfg, one, WARMUP, STEPS)}
             print(json.dumps(res), flush=True)
             results.append(res)
     finally:

@@ -1,0 +1,161 @@
+"""GOD (MEG→image) contrastive / regression / classification trainer on one
+device.  Port of ``run`` from ``meg_decoding_tpu/cli/train_god.py``.
+
+Covers the reference entry points that share the GOD skeleton (SURVEY
+§2.9): ``train_wowandb.py`` (given train/val splits),
+``train_wowandb_cv.py`` (fixed-index CV split),
+``train_wowandb_cv_contrastive.py`` (+ SameLabelLoss),
+``train_wowandb_cv_regression.py`` (MSE), ``train_regression.py`` (+ L2)
+and ``train_my_classifier.py`` (gallery classification loss), selected by
+config: ``training_mode: cv|split``, ``loss.kind``,
+``loss.same_label_weight``, ``l2_weight``, ``criterion``.
+
+The dataset is built on the device (``data/god.py``) and ``fit`` drives
+the per-step form: gather → collate → encoder → loss → gradients → Adam.
+Writes ``{save_root}/runs/<run>/metrics.jsonl`` and ``config.yaml``, and
+``{save_root}/ckpt/model_last.pt`` / ``model_best.pt`` (``resume=true``
+continues from model_last).
+
+Not ported yet, and refused: the host-resident spill path, whole-epoch
+scans, wandb, data parallelism over several GPUs (pass
+``data_parallel=false`` to train on one of them), and models other than
+``brain_encoder``.
+
+Run: ``python -m meg_decoding_tpu_torch.cli.train_god
+[--config-path configs] [--config-name config_GOD] [--device cuda]
+key=value …``
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from meg_decoding_tpu_torch.cli.evaluate_speech import collate_config
+from meg_decoding_tpu_torch.core.config import Config, compose
+from meg_decoding_tpu_torch.data.god import build_god_dataset
+from meg_decoding_tpu_torch.data.layout import ch_locations_2d
+from meg_decoding_tpu_torch.data.roi import roi
+from meg_decoding_tpu_torch.data.sampling import god_cv_split
+from meg_decoding_tpu_torch.device import resolve_device
+from meg_decoding_tpu_torch.models.factory import get_model
+from meg_decoding_tpu_torch.objectives.retrieval import cosine_similarity_matrix
+from meg_decoding_tpu_torch.train.checkpoint import CheckpointManager
+from meg_decoding_tpu_torch.train.loop import (
+    fit,
+    resume_if_requested,
+    steps_per_epoch,
+)
+from meg_decoding_tpu_torch.train.schedules import make_optimizer
+from meg_decoding_tpu_torch.train.state import create_train_state
+from meg_decoding_tpu_torch.train.steps import (
+    LossConfig,
+    make_eval_step,
+    make_train_step,
+)
+from meg_decoding_tpu_torch.utils.logging import RunLogger
+
+__all__ = ["run"]
+
+
+def _refuse_unported(cfg, dev: torch.device) -> None:
+    for key, what in (("host_resident", "the host-resident spill path"),
+                      ("use_scan_epochs", "whole-epoch scans"),
+                      ("use_wandb", "wandb logging"),
+                      ("distributed", "multi-host training")):
+        if cfg.get(key, False):
+            raise NotImplementedError(f"{key}: {what} is not ported yet")
+    if cfg.model != "brain_encoder":
+        raise NotImplementedError(
+            f"model {cfg.model!r} is not ported yet (brain_encoder only)")
+    if (dev.type == "cuda" and torch.cuda.device_count() > 1
+            and cfg.get("data_parallel", True)):
+        raise NotImplementedError(
+            "data parallelism over several GPUs is not ported yet; pass "
+            "data_parallel=false to train on one")
+
+
+def _loss_config(cfg) -> LossConfig:
+    return LossConfig(
+        kind=cfg.select("loss.kind", "clip"),
+        reduction=cfg.get("reduction", "mean"),
+        same_label_weight=float(cfg.select("loss.same_label_weight", 0.0)),
+        l2_weight=float(cfg.get("l2_weight", 0.0)),
+        criterion=cfg.get("criterion", "crossentropy"),
+        smooth_value=float(cfg.get("smooth_value", 0.1)),
+        label_offset=1,  # GOD vec_index is 1-indexed (loss.py:191)
+        temp_trainable=bool(cfg.get("temp_trainable", True)),
+        clip_impl=str(cfg.select("loss.clip_impl", "factored")))
+
+
+def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
+    """Train per ``cfg``; returns the epoch row with the best test top-10."""
+    dev = resolve_device(device)
+    _refuse_unported(cfg, dev)
+    seed = int(cfg.get("seed", 0))
+    save_root = cfg.get("save_root", "runs_out")
+    os.makedirs(save_root, exist_ok=True)
+
+    source = build_god_dataset(cfg, "train", device=dev)
+    if cfg.get("training_mode", "cv") == "cv":
+        # fixed-index CV split over the packed epochs (train_wowandb_cv.py:145-148)
+        n_per = int(cfg.get("epochs_per_subject",
+                            len(source) // max(source.num_subjects, 1)))
+        frac = cfg.get("cv_train_per_subject")
+        start = int(frac) if frac is not None else int(round(n_per * 5 / 6))
+        ind_tr, ind_te = god_cv_split(n_per, source.num_subjects, start)
+        train_set, test_set = source.subset(ind_tr), source.subset(ind_te)
+    else:  # 'split': the separate val sessions (train_wowandb.py)
+        train_set = source
+        test_set = build_god_dataset(
+            cfg, "val", mean_X=source.mean_X, std_X=source.std_X,
+            mean_Y=source.mean_Y, std_Y=source.std_Y, device=dev)
+    cfg.num_subjects = source.num_subjects
+
+    model = get_model(cfg, ch_locations_2d(cfg, roi(cfg)), device=dev, seed=seed)
+    loss_cfg = _loss_config(cfg)
+    collate_cfg = collate_config(cfg)
+    gallery = gallery_self_sim = None
+    with_labels = loss_cfg.kind == "classification" or loss_cfg.same_label_weight > 0
+    if loss_cfg.kind == "classification":
+        gallery = torch.from_numpy(
+            np.load(cfg.image_features_train_path).astype(np.float32)).to(dev)
+        if loss_cfg.criterion == "similarity_crossentropy":
+            gallery_self_sim = cosine_similarity_matrix(gallery, gallery)
+
+    optimizer = make_optimizer(cfg, int(cfg.get("updates", 1200)))
+    state = create_train_state(
+        model, optimizer,
+        init_temperature=float(cfg.get("init_temperature", 5.1)), seed=seed)
+    train_step = make_train_step(model, optimizer, loss_cfg, collate_cfg,
+                                 gallery=gallery, gallery_self_sim=gallery_self_sim)
+    eval_step = make_eval_step(model, loss_cfg, collate_cfg, gallery=gallery,
+                               gallery_self_sim=gallery_self_sim)
+
+    logger = RunLogger(save_root, run_name=cfg.get("run_name"))
+    logger.dump_config(cfg)
+    ckpt = CheckpointManager(os.path.join(save_root, "ckpt"))
+    state, start_epoch = resume_if_requested(
+        cfg, ckpt, state, save_root, steps_per_epoch(cfg, len(train_set)))
+    _, best = fit(cfg, train_set, test_set, state, train_step, eval_step,
+                  logger, ckpt, seed=seed, start_epoch=start_epoch,
+                  with_labels=with_labels)
+    return best
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config-path", default="configs")
+    ap.add_argument("--config-name", default="config_GOD")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("overrides", nargs="*", help="key=value config overrides")
+    args = ap.parse_args(argv)
+    cfg = compose(args.config_path, args.config_name, args.overrides)
+    return run(cfg, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

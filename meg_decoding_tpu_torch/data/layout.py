@@ -1,13 +1,18 @@
 """Sensor geometry: 2-D channel locations for spatial attention.
 
-Port of ``meg_decoding_tpu/data/layout.py`` for the Gwilliams2022 path
-(the GOD and Brennan branches come with their slices).  Resolution order:
+Port of ``meg_decoding_tpu/data/layout.py`` for the Gwilliams2022 and GOD
+paths (the Brennan branch comes with its slice).  Resolution order:
 
-1. ``cfg.layout_csv`` — explicit CSV of per-channel coordinates (2 or 3 cols).
-2. Gwilliams — the cache-resident ``layout.npy`` the cache builder extracts
-   from the first BIDS recording (``cfg.cache_dir``).
-3. Otherwise a deterministic synthetic cap layout (Vogel spiral over the
-   scalp disc), structure-preserving only.
+1. ``cfg.layout_csv`` — explicit CSV of per-channel coordinates (2 or 3
+   cols), filtered to ``roi_channels`` when given.
+2. GOD — ``cfg.montage_path`` CSV (the reference's ``montage.csv``: first
+   two of three coordinates, reference ``layout.py:34-36``) filtered to the
+   ROI channels; falls back to the port's packaged copy of the Ricoh
+   montage (``data/layouts/god_montage.csv``).
+3. Gwilliams — the cache-resident ``layout.npy`` the cache builder extracts
+   from the first BIDS recording (``cfg.cache_dir``); otherwise a
+   deterministic synthetic cap layout (Vogel spiral over the scalp disc),
+   structure-preserving only.
 
 Locations are min-max normalized into ``[0.1, 0.9]`` (reference
 ``layout.py:42-45``).  Numpy only.
@@ -20,6 +25,8 @@ import os
 import warnings
 
 import numpy as np
+
+from meg_decoding_tpu_torch.data.roi import LAYOUTS_DIR, roi
 
 __all__ = ["ch_locations_2d", "normalize_locations", "synthetic_cap_locations"]
 
@@ -52,16 +59,30 @@ def _read_csv_coords(path: str) -> np.ndarray:
     return np.asarray(rows, dtype=np.float32)
 
 
-def ch_locations_2d(cfg) -> np.ndarray:
-    """Resolve normalized (C, 2) sensor coordinates for ``cfg.dataset``."""
+def ch_locations_2d(cfg, roi_channels: list[int] | None = None) -> np.ndarray:
+    """Resolve normalized (C, 2) sensor coordinates for ``cfg.dataset``;
+    ``roi_channels`` selects rows of an explicit CSV or of the GOD montage
+    (GOD defaults to ``roi(cfg)``)."""
     explicit = cfg.get("layout_csv")
     if explicit:
-        return normalize_locations(_read_csv_coords(explicit)[:, :2])
+        loc = _read_csv_coords(explicit)[:, :2]
+        if roi_channels is not None:
+            loc = loc[np.asarray(roi_channels)]
+        return normalize_locations(loc)
+
+    if cfg.dataset == "GOD":
+        montage_path = cfg.get("montage_path")
+        if not (montage_path and os.path.exists(montage_path)):
+            montage_path = os.path.join(LAYOUTS_DIR, "god_montage.csv")
+        if roi_channels is None:
+            roi_channels = roi(cfg)
+        montage = _read_csv_coords(montage_path)  # (C, 3)
+        return normalize_locations(montage[np.asarray(roi_channels), :2])
 
     if cfg.dataset != "Gwilliams2022":
         raise NotImplementedError(
             f"layout for dataset {cfg.dataset!r} is not ported yet "
-            "(Gwilliams2022 or an explicit layout_csv)")
+            "(Gwilliams2022, GOD or an explicit layout_csv)")
     num = int(cfg.get("num_channels", 208) or 208)
     cache_dir = cfg.get("cache_dir")
     layout_path = cache_dir and os.path.join(cache_dir, "layout.npy")

@@ -1,9 +1,11 @@
 """Retrieval / identification metrics.
-Port of ``meg_decoding_tpu/objectives/retrieval.py`` (speech metrics).
+Port of ``meg_decoding_tpu/objectives/retrieval.py``.
 
 Reference: ``meg_decoding/models.py:386-460`` (``Classifier`` cosine
-retrieval) and ``evaluate.py:191-249`` (pairwise identification via
-correlation / cosine, matching ``assets/evaluate.m``).  One matmul + top-k.
+retrieval), ``evaluate.py:32-82`` (``zero_shot_classification`` against
+the 50-image gallery) and ``evaluate.py:191-249`` (pairwise identification
+via correlation / cosine, matching ``assets/evaluate.m``).  One matmul +
+top-k.
 """
 
 from __future__ import annotations
@@ -14,7 +16,9 @@ __all__ = [
     "cosine_similarity_matrix",
     "retrieval_accuracy_from_sim",
     "retrieval_accuracy",
+    "zero_shot_classification",
     "pairwise_identification",
+    "pairwise_identification_gallery",
 ]
 
 EPS = 1e-8
@@ -62,6 +66,21 @@ def retrieval_accuracy(Z, Y, top_ks=(1, 10)) -> dict:
     return retrieval_accuracy_from_sim(sim, top_ks)
 
 
+def zero_shot_classification(Z, gallery, labels, top_ks=(1, 10)) -> dict:
+    """Classify each prediction against a fixed gallery by cosine similarity
+    (reference ``evaluate.py:32-82``); ``labels`` are 0-indexed gallery
+    rows.  Returns {f'top{k}': 0-dim tensor}."""
+    sim = cosine_similarity_matrix(Z, gallery)  # (B, G)
+    out = {}
+    for k in top_ks:
+        if k == 1:
+            hit = torch.argmax(sim, dim=1) == labels
+        else:
+            hit = _topk_contains(sim, labels, k)
+        out[f"top{k}"] = hit.to(torch.float32).mean()
+    return out
+
+
 def _rowwise_corr(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """corr[i, j] = Pearson correlation of a_i with b_j."""
     a = _unit_rows(a - a.mean(dim=1, keepdim=True))
@@ -69,16 +88,30 @@ def _rowwise_corr(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b.T
 
 
+def _similarity(Z, Y, metric: str) -> torch.Tensor:
+    if metric == "correlation":
+        return _rowwise_corr(Z.reshape(Z.shape[0], -1).to(torch.float32),
+                             Y.reshape(Y.shape[0], -1).to(torch.float32))
+    if metric == "cosine":
+        return cosine_similarity_matrix(Z, Y)
+    raise ValueError(metric)
+
+
+def pairwise_identification_gallery(Z, gallery, target_idx,
+                                    metric: str = "correlation") -> torch.Tensor:
+    """Pairwise identification against an explicit candidate gallery (the
+    reference's headline GOD number, ``evaluate.py:191-249``: each
+    prediction against the 50-image gallery, denominator G − 1).  Returns
+    per-query accuracies (B,)."""
+    sim = _similarity(Z, gallery, metric)
+    true_sim = sim.gather(1, target_idx[:, None])
+    return (true_sim > sim).to(torch.float32).sum(dim=1) / (sim.shape[1] - 1)
+
+
 def pairwise_identification(Z, Y, metric: str = "correlation") -> torch.Tensor:
     """For each true pair (Z_i, Y_i), the fraction of distractors Y_j (j≠i)
     with sim(Z_i, Y_i) > sim(Z_i, Y_j).  Returns per-query accuracies (B,)."""
-    if metric == "correlation":
-        sim = _rowwise_corr(Z.reshape(Z.shape[0], -1).to(torch.float32),
-                            Y.reshape(Y.shape[0], -1).to(torch.float32))
-    elif metric == "cosine":
-        sim = cosine_similarity_matrix(Z, Y)
-    else:
-        raise ValueError(metric)
+    sim = _similarity(Z, Y, metric)
     B = sim.shape[0]
     true_sim = torch.diagonal(sim)[:, None]
     wins = (true_sim > sim).to(torch.float32)

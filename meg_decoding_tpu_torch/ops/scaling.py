@@ -1,5 +1,6 @@
 """Robust scaling, clamping and baseline correction — the batch-time collate
-chain.  Port of ``meg_decoding_tpu/ops/scaling.py``.
+chain — and the GOD epoching gather.  Port of
+``meg_decoding_tpu/ops/scaling.py``.
 
 Reference semantics:
 * ``scaleAndClamp`` (``preproc_utils.py:69-105``): sklearn ``RobustScaler``
@@ -19,8 +20,13 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as Fnn
 
 from meg_decoding_tpu_torch.ops.kernels.quantile import robust_quantiles
+from meg_decoding_tpu_torch.ops.kernels.window_gather import (
+    pad_time_for_gather,
+    window_gather,
+)
 
 __all__ = [
     "robust_scale",
@@ -28,6 +34,7 @@ __all__ = [
     "apply_robust_stats",
     "scale_and_clamp",
     "baseline_correct",
+    "epoch_slice",
     "collate_preprocess",
     "collate_preprocess_cached",
 ]
@@ -89,6 +96,24 @@ def baseline_correct(X: torch.Tensor, baseline_len_samp: int) -> torch.Tensor:
     """Subtract the mean of the first ``baseline_len_samp`` samples, per
     channel per chunk.  X: (..., C, T)."""
     return X - X[..., :baseline_len_samp].mean(dim=-1, keepdim=True)
+
+
+def epoch_slice(x: torch.Tensor, onsets, length: int) -> torch.Tensor:
+    """Fixed-length windows of one recording: x (C, T) f32, onsets (N,) →
+    (N, C, length), as the JAX package's TPU branch cuts them
+    (``ops/scaling.py:150-162``): onsets clamped to [0, max(T − length, 0)]
+    (a window overhanging the end shifts left into range), the time axis
+    padded to ``pad_time_for_gather(T, length)``, then one ``window_gather``
+    call — the CUDA kernel on the card, its plain version on the CPU.  The
+    pre-clamp keeps every onset under the gather's own clamp bound,
+    Tp − padded_window(length) ≥ T, so both clamps give the windows the
+    JAX package's CPU branch takes."""
+    T = x.shape[-1]
+    onsets = torch.as_tensor(onsets, device=x.device).to(torch.int32)
+    onsets = onsets.clamp(0, max(T - length, 0))
+    xp = Fnn.pad(x, (0, pad_time_for_gather(T, length) - T))[None]
+    rec_ids = torch.zeros_like(onsets)
+    return window_gather(xp, rec_ids, onsets, length)
 
 
 def collate_preprocess(X: torch.Tensor, baseline_len_samp: int,

@@ -1,7 +1,10 @@
-"""Epoch loop: sampler → fused train steps → test pools → metrics →
-checkpoint.  Port of ``fit``, ``steps_per_epoch`` and
-``resume_if_requested`` from ``meg_decoding_tpu/train/loop.py`` (single
-device; the whole-epoch scan is not ported).
+"""Epoch loop: sampler → train steps → test pools → metrics → checkpoint.
+Port of ``fit``, ``steps_per_epoch`` and ``resume_if_requested`` from
+``meg_decoding_tpu/train/loop.py`` (single device; the whole-epoch scan and
+the host prefetch are not ported).  Two forms of step: the fused Gwilliams
+step, which draws its sessions and gathers its batch itself, and the
+per-step form over a ``PackedDataset`` (GOD), whose batches ``fit``
+gathers.
 
 Reference skeleton: ``train.py:178-274`` (epoch loop with per-batch
 updates, a test pass, epoch metric means, model_last each epoch) and
@@ -24,6 +27,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from meg_decoding_tpu_torch.data.packed import PackedDataset
 from meg_decoding_tpu_torch.data.sampling import (
     sample_with_replacement,
     shuffle_batches,
@@ -79,19 +83,24 @@ def _test_pool_starts(n: int, pool: int, sweep: bool) -> list[int]:
 
 
 def _eval_test_pools(cfg, test_set, eval_step, state, test_size: int,
-                     seed: int, epoch: int) -> dict:
+                     seed: int, epoch: int, with_labels: bool) -> dict:
     """Epoch test pass: every pool of ``test_size`` segments of the shuffled
     test split is scored and the metrics averaged (``test_sweep: false``
-    scores one pool, as the reference does)."""
+    scores one pool, as the reference does).  A ``PackedDataset`` pool is a
+    plain gather; any other draws its sessions from a derived generator."""
     n = len(test_set)
     perm = torch.randperm(n, generator=derived_generator(seed, epoch, _TEST)).numpy()
     sweep = bool(cfg.get("test_sweep", True))
     hist = []
     for j, s in enumerate(_test_pool_starts(n, test_size, sweep)):
-        X, Y, subs = test_set.gather(
-            perm[s:s + test_size],
-            generator=derived_generator(seed, epoch, _TEST, j + 1))
-        m, _ = eval_step(X, Y, subs, state.temp.detach())
+        idx = perm[s:s + test_size]
+        if isinstance(test_set, PackedDataset):
+            batch = test_set.gather(idx)
+        else:
+            batch = test_set.gather(
+                idx, generator=derived_generator(seed, epoch, _TEST, j + 1))
+        labels = batch[3] if with_labels else None
+        m, _ = eval_step(*batch[:3], state.temp.detach(), labels)
         hist.append(m)
     return _mean_metrics(hist)
 
@@ -99,16 +108,19 @@ def _eval_test_pools(cfg, test_set, eval_step, state, test_size: int,
 def fit(cfg, train_set, test_set, state, train_step: Callable,
         eval_step: Callable, logger: RunLogger,
         ckpt: CheckpointManager | None = None, seed: int = 0,
-        start_epoch: int = 0):
+        start_epoch: int = 0, with_labels: bool = False):
     """Run the training loop; returns ``(state, best_metrics)``.
 
-    ``train_step(state, segment_ids, generator=…)`` is the fused step
-    (``train/scan_loop.py``): it draws the sessions from ``generator`` and
-    gathers the batch itself, so ``train_set`` only maps pool positions to
-    segment ids (``segment_ids(idx)``).  ``test_set.gather(idx, generator)``
-    returns ``(X, Y, subject_idxs)`` for ``eval_step(X, Y, subject_idxs,
-    temp)``.  ``start_epoch`` continues the epoch numbering after a
-    resume."""
+    With a ``PackedDataset`` ``train_set`` (GOD), each batch is
+    ``train_set.gather(idx)`` and the step is ``train_step(state, X, Y,
+    subject_idxs[, labels])`` (``train/steps.py``), with the labels when
+    ``with_labels`` (classification and same-label losses).  Otherwise
+    ``train_step(state, segment_ids, generator=…)`` is the fused Gwilliams
+    step (``train/scan_loop.py``): it draws the sessions from ``generator``
+    and gathers the batch itself, so ``train_set`` only maps pool positions
+    to segment ids (``segment_ids(idx)``).  The test pools call
+    ``eval_step(X, Y, subject_idxs, temp, labels)``.  ``start_epoch``
+    continues the epoch numbering after a resume."""
     epochs = int(cfg.epochs)
     batch_size = min(int(cfg.batch_size), len(train_set))
     use_sampler = bool(cfg.get("use_sampler", True))
@@ -116,6 +128,7 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
     test_size = min(len(test_set), int(cfg.get("test_size", batch_size)))
     best_top10, best_metrics = -1.0, {}
     timer = StepTimer()
+    packed = isinstance(train_set, PackedDataset)
 
     for epoch in range(start_epoch, epochs):
         egen = derived_generator(seed, epoch, _SAMPLE)
@@ -127,14 +140,21 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
 
         train_hist = []
         for step_i, idx in enumerate(idx_epoch):
-            with timer.phase("step"):
-                state, metrics = train_step(
-                    state, train_set.segment_ids(idx),
-                    generator=derived_generator(seed, epoch, _GATHER, step_i))
+            if packed:
+                with timer.phase("gather"):
+                    batch = train_set.gather(idx)
+                with timer.phase("step"):
+                    state, metrics = train_step(
+                        state, *batch[:4 if with_labels else 3])
+            else:
+                with timer.phase("step"):
+                    state, metrics = train_step(
+                        state, train_set.segment_ids(idx),
+                        generator=derived_generator(seed, epoch, _GATHER, step_i))
             train_hist.append(metrics)
 
         test_metrics = _eval_test_pools(cfg, test_set, eval_step, state,
-                                        test_size, seed, epoch)
+                                        test_size, seed, epoch, with_labels)
         tm = _mean_metrics(train_hist)
         em = {f"test_{k}": float(v) for k, v in test_metrics.items()}
         row = {"epoch": epoch, **{f"train_{k}": v for k, v in tm.items()},

@@ -1,13 +1,22 @@
-"""Train and eval steps.  Port of ``CollateConfig``, ``LossConfig`` (CLIP
-only), ``make_train_step`` and ``make_eval_step`` from
+"""Train and eval steps.  Port of ``CollateConfig``, ``LossConfig``,
+``make_train_step`` and ``make_eval_step`` from
 ``meg_decoding_tpu/train/steps.py``.
 
 One train step = collate (baseline + robust scale + clamp, outside
-autograd) → encoder in training mode → CLIP loss → gradients → Adam →
-BN running statistics → top-1/top-10 from the loss's own logits.  A step
-whose loss or global gradient norm is not finite is skipped on the device:
-parameters, Adam state and BN statistics keep their old values, and the
-step counts as ``skipped``.  Nothing in the step waits for the device.
+autograd) → encoder in training mode → loss → gradients → Adam → BN
+running statistics → top-1/top-10.  A step whose loss or global gradient
+norm is not finite is skipped on the device: parameters, Adam state and BN
+statistics keep their old values, and the step counts as ``skipped``.
+Nothing in the step waits for the device.
+
+Loss kinds, as the reference entry points (SURVEY §2.9):
+* ``clip``            — train.py / train_wowandb_cv.py;
+* ``clip`` + ``same_label_weight`` — train_wowandb_cv_contrastive.py;
+* ``mse``             — train_wowandb_cv_regression.py, with the optional
+                        L2 penalty on the encoder's parameters
+                        (``l2_weight``, train_regression.py:250-253);
+* ``classification``  — train_my_classifier.py, against a gallery, with
+                        three criteria.
 """
 
 from __future__ import annotations
@@ -18,7 +27,13 @@ import torch
 
 from meg_decoding_tpu_torch.models.layers import commit_running_stats
 from meg_decoding_tpu_torch.objectives.clip import clip_loss
+from meg_decoding_tpu_torch.objectives.losses import (
+    clip_like_classification_loss,
+    mse_loss,
+    same_label_loss,
+)
 from meg_decoding_tpu_torch.objectives.retrieval import (
+    retrieval_accuracy,
     retrieval_accuracy_from_sim,
 )
 from meg_decoding_tpu_torch.ops.scaling import collate_preprocess
@@ -41,35 +56,83 @@ class CollateConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
-    kind: str = "clip"
+    kind: str = "clip"              # clip | mse | classification
     reduction: str = "mean"
-    # 'factored' (raw dot, norms folded into the (B, B) logits) or
-    # 'normalized' (normalize-then-dot, the reference's op order)
-    clip_impl: str = "factored"
+    same_label_weight: float = 0.0  # > 0 adds same_label_loss (clip kind)
+    l2_weight: float = 0.0          # > 0 adds l2·Σ p² over the encoder
+    criterion: str = "crossentropy"  # classification kind
+    smooth_value: float = 0.1
+    label_offset: int = 0           # GOD vec_index is 1-indexed → offset 1
+    grad_norms: bool = False        # add the global gradient norm to the metrics
     # false freezes the CLIP temperature at init_temperature (reference
     # loss.py:140-143: a requires_grad=False tensor, not a parameter)
     temp_trainable: bool = True
-    grad_norms: bool = False  # add the global gradient norm to the metrics
+    # 'factored' (raw dot, norms folded into the (B, B) logits) or
+    # 'normalized' (normalize-then-dot, the reference's op order)
+    clip_impl: str = "factored"
 
     def __post_init__(self):
-        if self.kind != "clip":
-            raise NotImplementedError(
-                f"loss kind {self.kind!r} is not ported yet (clip only)")
+        if self.kind not in ("clip", "mse", "classification"):
+            raise ValueError(f"unknown loss kind {self.kind!r} "
+                             "(clip, mse, classification)")
+
+
+def _l2_penalty(model) -> torch.Tensor:
+    """Σ p² over the encoder's parameters (never the CLIP temperature)."""
+    return sum((p * p).sum() for p in model.parameters())
+
+
+def _compute_loss(loss_cfg: LossConfig, Z, Y, labels, temp, model,
+                  gallery=None, gallery_self_sim=None, train=True):
+    """Returns ``(loss, sim)``: ``sim`` is the CLIP logits (rows = Y,
+    columns = Z) when the loss computed them, else None — the step then
+    ranks with them (any positive scale ranks alike)."""
+    sim = None
+    if loss_cfg.kind == "clip":
+        # rows = Y, columns = Z, as the JAX step calls clip_loss(Y, Z)
+        sim, loss = clip_loss(Y, Z, temp, reduction=loss_cfg.reduction,
+                              return_logits=True, impl=loss_cfg.clip_impl)
+        if loss_cfg.same_label_weight > 0.0 and labels is not None:
+            loss = loss + loss_cfg.same_label_weight * same_label_loss(Z, labels)
+    elif loss_cfg.kind == "mse":
+        loss = mse_loss(Y, Z)
+    else:  # classification
+        if gallery is None or labels is None:
+            raise ValueError("the classification loss needs a gallery and labels")
+        loss = clip_like_classification_loss(
+            Z, labels - loss_cfg.label_offset, gallery, temp,
+            criterion=loss_cfg.criterion, train=train,
+            smooth_value=loss_cfg.smooth_value,
+            gallery_self_similarity=gallery_self_sim)
+    if loss_cfg.l2_weight > 0.0:
+        loss = loss + loss_cfg.l2_weight * _l2_penalty(model)
+    return loss, sim
+
+
+def _accuracy(sim, Z, Y, top_ks) -> dict:
+    """Top-k retrieval: from the CLIP logits when the loss made them, else
+    from the cosine similarity of Z and Y."""
+    if sim is not None:
+        return retrieval_accuracy_from_sim(sim.detach(), top_ks=top_ks)
+    return retrieval_accuracy(Z.detach(), Y, top_ks=top_ks)
 
 
 def make_train_step(model, optimizer: Adam, loss_cfg: LossConfig,
-                    collate_cfg: CollateConfig):
+                    collate_cfg: CollateConfig, gallery=None,
+                    gallery_self_sim=None):
     """Build the train step.
 
-    Returns ``step(state, X, Y, subject_idxs, centre=None) → (state,
-    metrics)``: ``state`` is updated in place and returned; ``centre`` is
+    Returns ``step(state, X, Y, subject_idxs, labels=None, centre=None) →
+    (state, metrics)``: ``state`` is updated in place and returned;
+    ``labels`` feed the classification and same-label losses; ``centre`` is
     the spatial-dropout centre, drawn from ``state.generator`` when None.
-    Metrics are 0-dim tensors on the device: ``loss``, ``temp`` (after the
-    update), ``skipped``, ``top1``, ``top10`` (and ``grad_norm`` with
-    ``loss_cfg.grad_norms``); loss and accuracies read 0 on a skipped
-    step."""
+    ``gallery`` (G, F) and its cosine self-similarity are the
+    classification loss's.  Metrics are 0-dim tensors on the device:
+    ``loss``, ``temp`` (after the update), ``skipped``, ``top1``, ``top10``
+    (and ``grad_norm`` with ``loss_cfg.grad_norms``); loss and accuracies
+    read 0 on a skipped step."""
 
-    def step(state: TrainState, X, Y, subject_idxs, centre=None):
+    def step(state: TrainState, X, Y, subject_idxs, labels=None, centre=None):
         model.train()
         if collate_cfg.enabled:
             with torch.no_grad():
@@ -77,9 +140,8 @@ def make_train_step(model, optimizer: Adam, loss_cfg: LossConfig,
                                        collate_cfg.clamp_lim, collate_cfg.clamp)
         Z = model(X, subject_idxs, centre=centre, generator=state.generator)
         temp = state.temp if loss_cfg.temp_trainable else state.temp.detach()
-        # rows = Y, columns = Z, as the JAX step calls clip_loss(Y, Z)
-        sim, loss = clip_loss(Y, Z, temp, reduction=loss_cfg.reduction,
-                              return_logits=True, impl=loss_cfg.clip_impl)
+        loss, sim = _compute_loss(loss_cfg, Z, Y, labels, temp, model,
+                                  gallery, gallery_self_sim, train=True)
         params = state.params()
         names = [k for k, p in params.items() if p.requires_grad]
         grads = dict(zip(names, torch.autograd.grad(
@@ -97,7 +159,7 @@ def make_train_step(model, optimizer: Adam, loss_cfg: LossConfig,
                    "skipped": 1.0 - ok.to(torch.float32)}
         if loss_cfg.grad_norms:
             metrics["grad_norm"] = torch.where(ok, gnorm, zero)
-        acc = retrieval_accuracy_from_sim(sim.detach(), top_ks=(1, 10))
+        acc = _accuracy(sim, Z, Y, (1, 10))
         metrics.update({k: torch.where(ok, v, zero) for k, v in acc.items()})
         return state, metrics
 
@@ -105,27 +167,26 @@ def make_train_step(model, optimizer: Adam, loss_cfg: LossConfig,
 
 
 def make_eval_step(model, loss_cfg: LossConfig, collate_cfg: CollateConfig,
-                   top_ks=(1, 10)):
+                   gallery=None, gallery_self_sim=None, top_ks=(1, 10)):
     """Build the eval step: collate → forward (running BN stats, no dropout)
-    → CLIP loss and retrieval metrics from the loss's own logits.
+    → loss and retrieval metrics.
 
-    Returns ``step(X, Y, subject_idxs, temp) → (metrics, Z)``; ``temp`` is
-    the CLIP temperature (the JAX step reads it from ``params['loss']``),
-    metrics are 0-dim tensors on the model's device."""
+    Returns ``step(X, Y, subject_idxs, temp, labels=None) → (metrics, Z)``;
+    ``temp`` is the CLIP temperature (the JAX step reads it from
+    ``params['loss']``), metrics are 0-dim tensors on the model's device."""
 
     @torch.no_grad()
-    def step(X, Y, subject_idxs, temp):
+    def step(X, Y, subject_idxs, temp, labels=None):
         model.eval()
         if collate_cfg.enabled:
             X = collate_preprocess(X, collate_cfg.baseline_len_samp,
                                    collate_cfg.clamp_lim, collate_cfg.clamp)
         Z = model(X, subject_idxs)
         temp = torch.as_tensor(temp, dtype=torch.float32, device=Z.device)
-        # rows = Y, columns = Z, as the JAX step calls clip_loss(Y, Z)
-        sim, loss = clip_loss(Y, Z, temp, reduction=loss_cfg.reduction,
-                              return_logits=True, impl=loss_cfg.clip_impl)
+        loss, sim = _compute_loss(loss_cfg, Z, Y, labels, temp, model,
+                                  gallery, gallery_self_sim, train=False)
         metrics = {"loss": loss, "temp": temp}
-        metrics.update(retrieval_accuracy_from_sim(sim, top_ks=top_ks))
+        metrics.update(_accuracy(sim, Z, Y, top_ks))
         return metrics, Z
 
     return step

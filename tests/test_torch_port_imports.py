@@ -68,9 +68,10 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_entry_points_refuse_cuda_without_a_gpu(monkeypatch, tmp_path):
-    from meg_decoding_tpu_torch.cli import train_speech
+    from meg_decoding_tpu_torch.cli import evaluate_god, train_god, train_speech
     from meg_decoding_tpu_torch.cli.evaluate_speech import run
     from meg_decoding_tpu_torch.core.config import compose
+    from meg_decoding_tpu_torch.data.god import build_god_dataset
     from meg_decoding_tpu_torch.data.gwilliams import build_gwilliams_dataset
     from meg_decoding_tpu_torch.device import resolve_device
     from meg_decoding_tpu_torch.models.factory import get_model
@@ -78,12 +79,19 @@ def test_entry_points_refuse_cuda_without_a_gpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = compose(os.path.join(ROOT, "configs"), "config",
                   [f"cache_dir={tmp_path}", "num_subjects=2"])
+    god_cfg = compose(os.path.join(ROOT, "configs"), "config_GOD",
+                      [f"data_root={tmp_path}"])
     calls = [
         lambda: resolve_device(),
         lambda: get_model(cfg, np.full((208, 2), 0.5, np.float32)),
         lambda: build_gwilliams_dataset(cfg, {}, {}, {}, {}, {}),
         lambda: run(cfg),
         lambda: train_speech.run(cfg),
+        lambda: build_god_dataset(god_cfg, "train"),
+        lambda: train_god.run(god_cfg),
+        lambda: evaluate_god.run(god_cfg),
+        lambda: train_god.main(["--config-path", os.path.join(ROOT, "configs"),
+                                f"data_root={tmp_path}"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -158,7 +158,7 @@ def _with_run_row(x: np.ndarray) -> np.ndarray:
     return x
 
 
-@pytest.mark.parametrize("T", [1, 2, 7, 31, 32, 33, 360, 512, 1024])
+@pytest.mark.parametrize("T", [1, 2, 7, 24, 31, 32, 33, 360, 512, 1024])
 def test_register_bitonic_sort_matches_plain_and_pallas(T):
     assert T <= tq.REGISTER_MAX_T
     x = _with_run_row(_hard_rows(T, np.random.RandomState(1000 + T)))
@@ -303,6 +303,8 @@ def test_bn_bwd_slot_choices_match_the_source():
     (3, 37, "float32", True, True, ("two_walk", 0)),      # rows unaligned
     (2, 64, "float32", False, True, ("two_walk", 0)),     # base unaligned
     (64, 360, "float32", True, False, ("two_walk", 0)),   # the sums alone
+    (64, 24, "float32", True, True, ("registers", 12)),   # GOD: one slot used
+    (64, 24, "bfloat16", True, True, ("two_walk", 0)),    # GOD
 ])
 def test_bn_bwd_launcher_picks_the_kernel_by_shape(B, T, dtype, aligned,
                                                    with_dx, want):
@@ -445,6 +447,81 @@ def test_bn_bwd_sums_and_dx_in_kernel_order_match_plain_and_pallas(dtype, V,
     # dx from the mirrored sums, rounded once to the inputs' type
     dx = torch.from_numpy(_mirror_dx(gn, xn, scale.numpy(), mean.numpy(),
                                      invstd.numpy(), got[0], got[1])).to(tdt)
+    want = tbnk.bn_bwd_plain(g, x, scale, mean, invstd)[0]
+    tol = (dict(rtol=1e-5, atol=1e-6) if dtype == "float32"
+           else dict(rtol=2e-2, atol=2e-2))
+    np.testing.assert_allclose(dx.float().numpy(), want.float().numpy(), **tol)
+
+
+# --- the GOD training shape (64, 320, 24) -----------------------------------
+
+@pytest.mark.parametrize("dtype,V", [("float32", 4), ("bfloat16", 8)])
+def test_god_shape_walks_cover_every_vector_once(dtype, V):
+    """Rows of 24: 6 (f32) or 3 (bf16) 16-byte vectors, 384 / 192 of a
+    channel — fewer than a CTA's threads, so most threads load nothing.
+    bn_stats' walk and the chosen bn_bwd kernel's walk each cover every
+    vector once; the f32 register kernel uses one of its slots."""
+    B, tv = 64, 24 // V
+    n = B * tv
+    seen = np.zeros(n, np.int64)
+    for t in range(_threads()):
+        for i in _thread_walk(n, t, _threads()):
+            seen[i] += 1
+    assert (seen == 1).all()
+    threads = _bwd_threads()
+    kernel, nv = _bwd_pick(B, 24, dtype)
+    loaded = np.zeros(n, np.int64)
+    if kernel == "registers":
+        assert n <= threads < nv * threads  # one slot of twelve
+        for t in range(threads):
+            for m in range(nv):
+                if t + m * threads < n:
+                    loaded[t + m * threads] += 1
+    else:
+        drow, dcol = divmod(threads, tv)
+        for t in range(threads):
+            row, col = divmod(t, tv)
+            for i in range(t, n, threads):
+                assert (row, col) == divmod(i, tv)
+                loaded[i] += 1
+                row, col = _step(row, col, drow, dcol, tv)
+    assert (loaded == 1).all()
+
+
+@pytest.mark.parametrize("dtype,V", [("float32", 4), ("bfloat16", 8)])
+def test_god_shape_sums_and_dx_in_kernel_order_match_plain_and_pallas(dtype, V):
+    """bn_stats' sums and bn_bwd's sums and dx at B = 64, T = 24 (two of the
+    320 channels), in the kernels' order, against the plain versions and the
+    Pallas kernels (interpret mode), at the tolerances of the module
+    docstring."""
+    B, C, T = 64, 2, 24
+    rng = np.random.RandomState(24)
+    tdt = getattr(torch, dtype)
+    x = torch.from_numpy((rng.randn(B, C, T) * 3 + 1.5).astype(np.float32)).to(tdt)
+    g = torch.from_numpy(rng.randn(B, C, T).astype(np.float32)).to(tdt)
+    xn, gn = x.float().numpy(), g.float().numpy()
+    x2d = lambda a: jnp.asarray(np.swapaxes(a, 1, 2).reshape(-1, C), jnp.dtype(dtype))
+    stats = _mirror_bn_stats(xn, V)
+    plain = tbnk.bn_stats_plain(x)
+    pallas = jbn.bn_stats(x2d(xn), block_rows=256, interpret=True)
+    for k in range(2):
+        np.testing.assert_allclose(stats[k], plain[k].numpy(), rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(stats[k], np.asarray(pallas[k]), rtol=1e-5,
+                                   atol=1e-4)
+    mean = torch.from_numpy(stats[0] / (B * T))
+    invstd = torch.rsqrt(torch.from_numpy(stats[1] / (B * T)) - mean * mean + 1e-5)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32))
+    sums = _mirror_bn_bwd_sums(gn, xn, mean.numpy(), invstd.numpy(), V)
+    plain = tbnk.bn_bwd_stats_plain(g, x, mean, invstd)
+    pallas = jbn.bn_bwd_stats(x2d(gn), x2d(xn), jnp.asarray(mean.numpy()),
+                              jnp.asarray(invstd.numpy()), block_rows=256,
+                              interpret=True)
+    for k in range(2):
+        np.testing.assert_allclose(sums[k], plain[k].numpy(), rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(sums[k], np.asarray(pallas[k]), rtol=1e-5,
+                                   atol=1e-4)
+    dx = torch.from_numpy(_mirror_dx(gn, xn, scale.numpy(), mean.numpy(),
+                                     invstd.numpy(), sums[0], sums[1])).to(tdt)
     want = tbnk.bn_bwd_plain(g, x, scale, mean, invstd)[0]
     tol = (dict(rtol=1e-5, atol=1e-6) if dtype == "float32"
            else dict(rtol=2e-2, atol=2e-2))
