@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (meg_decoding_tpu_torch).
 
-Drives the port's Gwilliams2022 serving and eval path and its training
-path on one NVIDIA GPU at the full width of the speech model in
+Drives the port's Gwilliams2022 serving and eval path, its training
+path, the speed presets and the whole-epoch forms on one NVIDIA GPU at the
+full width of the speech model in
 ``configs/config.yaml`` (C = 208, D1 = 270, D2 = 320, F = 1024, K = 32,
 5 ConvBlocks, seq2seq, T = 360, 27 subjects, batch 64, f32), then the GOD
 image workload's data build, train and eval path at the full width of
 ``configs/config_GOD.yaml`` (22 ROI channels, D1 = 270, D2 = 320, F = 512,
-mean-pooled, T = 24, batch 64, f32), with random weights from ``--seed``.
+mean-pooled, T = 24, batch 64, f32) with the brain encoder, EEGNet and
+Seq2Static, with random weights from ``--seed``.
 Phases, each printed as one JSON line:
 
 1. build    — compile the three CUDA sources of
@@ -56,13 +58,43 @@ Phases, each printed as one JSON line:
               exact launch count of every kernel;
 9. god_eval — ``cli/evaluate_god.py`` on that checkpoint: the JAX
               package's metric keys, finite, exact launch counts;
-10. ``step_share`` and ``god_step_share``, the ``kernels`` line (each
-              kernel's launches by path and its times at the GOD shapes
-              under ``god``), then the ``ok`` line.
+10. presets — ``configs/throughput.yaml`` and ``throughput_exact.yaml``
+              as published (bf16, B = 256, the cached collate statistics,
+              tanh / erf_poly GELU) on the speech cache: the sweep of every
+              window's RobustScaler fit (seconds, table bytes, launches),
+              its table against the CPU's on the first, a middle and the
+              last chunk (within 2 ulp of the window channel's max |x|;
+              raw ulps printed), the sweep chunk's gather (512 × 208 × 360)
+              and quantiles (106,496 rows) and the B = 256 gathers and BN
+              timed, one batch's cached vs inline collate (≤ 2 ulp), the
+              first step's loss cached vs inline (≤ 1e-5), a few fused
+              steps, then the train CLI for one epoch of 4 updates with
+              each preset (exact launch counts);
+    scan_epochs — in the speech and in the GOD part: one epoch of 4
+              updates of the whole-epoch form against the per-step path on
+              the same draws, in turns, cuDNN deterministic (mean loss and
+              every state entry within 1e-5 relative; the times of all four
+              runs printed), then the
+              train CLI with ``use_scan_epochs`` (speech on the sentence
+              split), exact launch counts;
+    model_zoo — ``cli/train_god.py`` with ``model=eegnet`` (config_GOD's
+              EEGNet hyper-parameters) and with
+              ``model=brain_endcoder_seq2static window.end=0.6`` (T = 48,
+              D1 = 270, D2 = 320, F = 512), each after its first step on
+              the card against the CPU (loss and global gradient norm
+              within 1e-4), exact launch counts; the BN kernels at EEGNet's
+              shapes (64, 16, 528), (64, 32, 24), (64, 32, 12) and
+              Seq2Static's (64, 320, 48) timed, and at (64, 320, 23 / 11 /
+              5 / 2) checked;
+11. ``step_share`` and ``god_step_share``, the ``kernels`` line (each
+              kernel's launches by path, its times at the GOD shapes under
+              ``god`` and at this slice's shapes under ``more_shapes``),
+              then the ``ok`` line.
 
-The serving, training, GOD training and GOD eval paths each run with every
-launch count set to 0 just before and read just after; the run fails
-unless each kernel launched on the speech paths and on the GOD paths.
+The serving, training, GOD training, GOD eval, preset, scan and model-zoo
+paths each run with every launch count set to 0 just before and read just
+after; the run fails unless each kernel launched on the speech paths and on
+the GOD paths, and every kernel on each preset, scan and model-zoo path.
 
 Any failure raises and exits non-zero.  Without CUDA, or without the rest
 of the repository beside it, it exits non-zero and prints no result.
@@ -109,11 +141,27 @@ from meg_decoding_tpu_torch.ops.kernels import build
 from meg_decoding_tpu_torch.ops.kernels import quantile as qk
 from meg_decoding_tpu_torch.ops.kernels import window_gather as wg
 from meg_decoding_tpu_torch.ops.resample import resample_len
-from meg_decoding_tpu_torch.ops.scaling import epoch_slice
+from meg_decoding_tpu_torch.data.gwilliams import (
+    SWEEP_CHUNK,
+    collate_stats_chunk,
+    collate_stats_rows,
+    compute_collate_stats,
+    gather_speech_batch,
+)
+from meg_decoding_tpu_torch.ops.scaling import (
+    collate_preprocess,
+    collate_preprocess_cached,
+    epoch_slice,
+)
 from meg_decoding_tpu_torch.serving.forward import make_serving_forward
 from meg_decoding_tpu_torch.train.checkpoint import CheckpointManager
 from meg_decoding_tpu_torch.train.loop import _test_pool_starts
-from meg_decoding_tpu_torch.train.scan_loop import make_fused_speech_step
+from meg_decoding_tpu_torch.train.scan_loop import (
+    epoch_means,
+    make_fused_speech_step,
+    make_gwilliams_scan_epoch,
+    make_scan_epoch,
+)
 from meg_decoding_tpu_torch.train.schedules import make_optimizer
 from meg_decoding_tpu_torch.train.state import create_train_state
 from meg_decoding_tpu_torch.train.steps import make_train_step
@@ -127,6 +175,10 @@ BATCH, N_REQUESTS = 64, 4
 D2 = 320                   # BN width of every ConvBlock in configs/config.yaml
 TRAIN_UPDATES, TIMED_STEPS = 6, 10
 BN_PER_STEP = 10           # 5 ConvBlocks × (bn0, bn1)
+PRESETS = ("throughput", "throughput_exact")  # configs/*.yaml, as published
+PRESET_UPDATES, PRESET_STEPS = 4, 6
+SCAN_UPDATES = 4
+EEGNET_BN = 3              # bn1, bn2, bn3
 
 
 def emit(obj) -> None:
@@ -241,7 +293,13 @@ def gather_case(src, B, L, seed, out_dtype, flush):
     i_c = torch.arange(Cs, device=src.device)[None, :, None]
     i_t = (on_c[:, None] + torch.arange(L, device=src.device))[:, None, :]
     out_bytes = 2 if out_dtype == torch.bfloat16 else 4
-    nbytes = B * Cs * L * (4 + out_bytes) + 2 * B * 4
+    # the bytes the data needs: every source sample some window covers,
+    # read once (overlapping windows, as the 4 task streams' Y windows
+    # are, share their reads), each output written once, the indices
+    covered = torch.zeros(R * T, dtype=torch.bool, device=src.device)
+    covered[(rec.long()[:, None] * T + i_t[:, 0, :]).reshape(-1)] = True
+    nbytes = (int(covered.sum()) * Cs * 4 + B * Cs * L * out_bytes
+              + 2 * B * 4)
     return {
         "shape": [B, Cs, L], "src": list(src.shape),
         "out_dtype": str(out_dtype or torch.float32),
@@ -959,6 +1017,483 @@ def phase_god_eval(cfg) -> dict:
     return launches
 
 
+def max_abs_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One f32 ulp of |t|."""
+    a = t.abs().float()
+    return torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+
+
+def params_rel_err(a: torch.nn.Module, b: torch.nn.Module) -> float:
+    """Largest max|Δp| / max|p| over the two models' state entries."""
+    sb = b.state_dict()
+    worst = 0.0
+    for k, v in a.state_dict().items():
+        ref = sb[k].float()
+        d = float((v.float() - ref).abs().max())
+        worst = max(worst, d / max(float(ref.abs().max()), 1e-30))
+    return worst
+
+
+def phase_presets(cfg, ds, tr_idx, seed, work, flush) -> dict:
+    """The published speed presets (``configs/throughput.yaml``,
+    ``configs/throughput_exact.yaml``: bf16, B = 256, the cached collate
+    statistics, tanh / erf_poly GELU) on the speech cache: the sweep timed
+    and held against the CPU on a sample of chunks, the sweep chunk's
+    kernels timed, one batch's cached vs inline collate, the first step's
+    loss cached vs inline, a few fused steps, then the main path: the train
+    CLI for one epoch of each preset.  Returns the CLIs' launch counts."""
+    dev = torch.device("cuda")
+    collate = evaluate_speech.collate_config(cfg)
+    bl = collate.baseline_len_samp
+    S, NT, Cx, T = ds.recordings.shape
+    W = int(ds.meg_onsets.shape[2])
+    L = int(ds.seq_len)
+    total = S * NT * W
+    n_chunks = math.ceil(total / SWEEP_CHUNK)
+
+    # the sweep, timed, with its launches
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = compute_collate_stats(ds, bl, chunk=SWEEP_CHUNK)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    sweep_launches = all_launches()
+    want = {"window_gather": n_chunks, "robust_quantiles": n_chunks,
+            "bn_stats": 0, "bn_bwd_stats": 0}
+    if sweep_launches != want:
+        raise AssertionError(f"sweep launches {sweep_launches}, expected {want}")
+    # against the CPU's sweep of the first, a middle and the last chunk:
+    # raw ulps, and the error in ulps of the window channel's max |x| (the
+    # baseline mean is summed in another order on the two devices)
+    rec_cpu = ds.recordings.cpu()
+    rec_ids = torch.arange(S * NT, dtype=torch.int32).repeat_interleave(W)
+    onsets = ds.meg_onsets.reshape(total).cpu()
+    raw_ulps, window_ulps, chunks = 0, 0.0, sorted({0, n_chunks // 2, n_chunks - 1})
+    for c in chunks:
+        a, b = c * SWEEP_CHUNK, min(total, (c + 1) * SWEEP_CHUNK)
+        want_rows = collate_stats_chunk(rec_cpu, rec_ids[a:b], onsets[a:b], L, bl)
+        got_rows = table[a:b].cpu()
+        raw_ulps = max(raw_ulps, ulp_distance(got_rows, want_rows))
+        windows = wg.window_gather_plain(rec_cpu.reshape(S * NT, Cx, T),
+                                         rec_ids[a:b], onsets[a:b], L)
+        scale = max_abs_ulp(windows.abs().amax(dim=-1)).repeat(1, 2)
+        window_ulps = max(window_ulps,
+                          float(((got_rows - want_rows).abs() / scale).max()))
+    if not window_ulps <= 2.0:
+        raise AssertionError(f"sweep card vs CPU: {window_ulps} ulps of the "
+                             "window's max |x|")
+
+    # the sweep chunk's two kernels at their shapes, timed
+    chunk_gather = gather_case(ds.recordings.reshape(S * NT, Cx, T),
+                               SWEEP_CHUNK, L, 8, None, flush)
+    Xc = wg.window_gather(ds.recordings.reshape(S * NT, Cx, T),
+                          rec_ids[:SWEEP_CHUNK].cuda(), onsets[:SWEEP_CHUNK].cuda(), L)
+    Xc = Xc - Xc[..., :bl].mean(-1, keepdim=True)
+    chunk_quant = quantile_checks(Xc.reshape(-1, L).contiguous(), flush)
+    del Xc
+    emit({"phase": "presets", "kernel": "window_gather", "at": "sweep chunk",
+          **chunk_gather})
+    emit({"phase": "presets", "kernel": "robust_quantiles", "at": "sweep chunk",
+          **chunk_quant})
+    # the preset step's kernels at B = 256: the X and the bf16 Y gathers, BN
+    # in bf16 (its collate launches no quantile kernel)
+    B256 = 4 * BATCH
+    b256 = {"X": gather_case(ds.recordings.reshape(S * NT, Cx, T), B256, L, 9,
+                             None, flush),
+            "Y bf16": gather_case(ds.y_stream, B256, L, 10, torch.bfloat16, flush)}
+    for k, c in b256.items():
+        emit({"phase": "presets", "kernel": "window_gather", "at": f"B=256 {k}", **c})
+    bn256 = bn_rows(*bn_inputs(torch.Generator(device="cuda").manual_seed(11),
+                               B256, D2, L, torch.bfloat16), flush, "presets")
+
+    pool = evaluate_speech.SpeechPool(ds, tr_idx, seed=seed)
+    rng = np.random.RandomState(seed + 3)
+    loc = ch_locations_2d(cfg)
+    out = {"sweep_s": sweep_s, "chunk_gather": chunk_gather,
+           "chunk_quantiles": chunk_quant, "b256_gather": b256,
+           "b256_bn": bn256, "launches": {}}
+    for preset in PRESETS:
+        pcfg = compose(CONFIGS_DIR, preset, [
+            f"cache_dir={cfg.cache_dir}", f"seed={seed}", "epochs=1",
+            f"updates={PRESET_UPDATES}", f"run_name={preset}",
+            f"save_root={os.path.join(work, preset)}"])
+        pcfg.num_subjects = ds.num_subjects
+        B = int(pcfg.batch_size)
+        loss_cfg = dataclasses.replace(train_speech.loss_config(pcfg),
+                                       grad_norms=True)
+        pcollate = evaluate_speech.collate_config(pcfg)
+
+        def fresh():
+            model = get_model(pcfg, loc, device=dev, seed=seed, num_channels=Cx)
+            opt = make_optimizer(pcfg, PRESET_UPDATES)
+            return model, opt, create_train_state(
+                model, opt, float(pcfg.init_temperature), seed)
+
+        # one batch's collate, cached vs inline
+        idx = pool.segment_ids(rng.randint(0, len(pool), B))
+        sess = torch.randint(0, S, (B,), generator=torch.Generator().manual_seed(seed))
+        X = gather_speech_batch(ds, idx, sess_ids=sess)[0]
+        seg = torch.as_tensor(ds.segment_table()[idx], device=dev)
+        rows = collate_stats_rows(ds, table, seg[:, 0], seg[:, 1], sess.to(dev))
+        inline = collate_preprocess(X, bl, pcollate.clamp_lim, pcollate.clamp)
+        cached = collate_preprocess_cached(X, rows[:, :Cx], rows[:, Cx:], bl,
+                                           pcollate.clamp_lim, pcollate.clamp)
+        collate_ulps = ulp_distance(cached, inline)
+        if collate_ulps > 2:
+            raise AssertionError(f"{preset}: cached vs inline collate "
+                                 f"{collate_ulps} ulp apart")
+        del X, inline, cached
+        # the first step from one state and batch, cached vs inline
+        centre = int(torch.randint(Cx, (), generator=torch.Generator().manual_seed(seed)))
+        first = []
+        for stats in (table, None):
+            model, opt, state = fresh()
+            fused = make_fused_speech_step(model, opt, loss_cfg, pcollate, ds,
+                                           collate_stats=stats)
+            _, m = fused(state, idx, sess_ids=sess, centre=centre)
+            first.append(float(m["loss"]))
+            del model, opt, state, fused
+        loss_rel = abs(first[0] - first[1]) / abs(first[1])
+        if not loss_rel <= 1e-5:
+            raise AssertionError(f"{preset}: first loss cached {first[0]} vs "
+                                 f"inline {first[1]}")
+        # a few fused steps with the cached statistics, timed
+        model, opt, state = fresh()
+        fused = make_fused_speech_step(model, opt, loss_cfg, pcollate, ds,
+                                       collate_stats=table)
+        step_ms, losses = [], []
+        for i in range(PRESET_STEPS):
+            sidx = pool.segment_ids(rng.randint(0, len(pool), B))
+            gen = torch.Generator().manual_seed(seed * 1000 + i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = fused(state, sidx, generator=gen)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            if float(m["skipped"]) != 0.0 or not math.isfinite(losses[-1]):
+                raise AssertionError(f"{preset} step {i}: loss {losses[-1]}, "
+                                     f"skipped {float(m['skipped'])}")
+        del model, opt, state, fused
+
+        # the main path: the train CLI with the preset, one epoch
+        reset_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best = train_speech.run(Config(to_dict(pcfg)), device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = all_launches()
+        n_test = len(ds) - len(tr_idx)
+        pools = len(_test_pool_starts(
+            n_test, min(n_test, int(pcfg.get("test_size", B))),
+            bool(pcfg.get("test_sweep", True))))
+        # the sweep; per update 2 gathers and 20 BN kernels, no quantile
+        # launch; per test pool 2 gathers and the inline collate's quantiles
+        expected = {"window_gather": n_chunks + 2 * (PRESET_UPDATES + pools),
+                    "robust_quantiles": n_chunks + pools,
+                    "bn_stats": BN_PER_STEP * PRESET_UPDATES,
+                    "bn_bwd_stats": BN_PER_STEP * PRESET_UPDATES}
+        if launches != expected:
+            raise AssertionError(f"{preset} CLI launches {launches}, "
+                                 f"expected {expected}")
+        if best.get("train_skipped") != 0.0 or not math.isfinite(best["train_loss"]):
+            raise AssertionError(f"{preset} CLI: {best}")
+        out["launches"][preset] = launches
+        out[preset] = {"steady_step_ms": float(np.median(step_ms[1:]))}
+        emit({"phase": "presets", "preset": preset,
+              "compute_dtype": str(pcfg.compute_dtype), "batch_size": B,
+              "gelu": str(pcfg.get("gelu_impl") or
+                          ("tanh" if pcfg.get("gelu_approximate") else "erf")),
+              "sweep_s": sweep_s, "sweep_windows": total,
+              "sweep_chunks": n_chunks, "sweep_launches": sweep_launches,
+              "table_shape": list(table.shape),
+              "table_bytes": table.numel() * table.element_size(),
+              "table_vs_cpu_chunks": chunks, "table_vs_cpu_max_ulp": raw_ulps,
+              "table_vs_cpu_window_ulps": window_ulps,
+              "table_limit": "2 ulp of the window channel's max |x|",
+              "collate_cached_vs_inline_ulp": collate_ulps,
+              "collate_bit_identical": collate_ulps == 0,
+              "first_loss_cached": first[0], "first_loss_inline": first[1],
+              "first_loss_rel_err": loss_rel, "first_loss_limit": 1e-5,
+              "first_step_ms": step_ms[0], "step_ms": step_ms,
+              "steady_step_ms": float(np.median(step_ms[1:])), "losses": losses,
+              "train_cli_s": run_s, "test_pools": pools, "launches": launches,
+              "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
+                                                 "test_loss", "test_top10")}})
+    return out
+
+
+def compare_epochs(run_epoch, run_steps) -> dict:
+    """The epoch form against the per-step path, both from one init and
+    draws, cuDNN deterministic (the same kernels on the same inputs), run
+    in turns (epoch, per-step, per-step, epoch; the first run pays the
+    deterministic algorithms' set-up): mean loss within 1e-5 relative,
+    every state entry within 1e-5 of its tensor's max |p|, for every run
+    against the first epoch."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        times = {"epoch": [], "per_step": []}
+        results = []
+        for kind, run in (("epoch", run_epoch), ("per_step", run_steps),
+                          ("per_step", run_steps), ("epoch", run_epoch)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, means = run()
+            means = {k: float(v) for k, v in means.items()}
+            torch.cuda.synchronize()
+            times[kind].append(time.perf_counter() - t0)
+            results.append((model, means))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    m_a, a = results[0]
+    loss_rel = p_rel = 0.0
+    for m_b, b in results[1:]:
+        loss_rel = max(loss_rel, abs(a["loss"] - b["loss"]) / abs(b["loss"]))
+        p_rel = max(p_rel, params_rel_err(m_a, m_b))
+        if b["skipped"] != 0.0:
+            raise AssertionError(f"a step was skipped: {b}")
+    if not (loss_rel <= 1e-5 and p_rel <= 1e-5 and a["skipped"] == 0.0
+            and math.isfinite(a["loss"])):
+        raise AssertionError(f"epoch vs per-step: {[r[1] for r in results]}, "
+                             f"params {p_rel}")
+    return {"epoch_s": times["epoch"], "per_step_s": times["per_step"],
+            "epoch_means": a, "per_step_means": results[1][1],
+            "loss_rel_err": loss_rel, "params_rel_err": p_rel, "limit": 1e-5}
+
+
+def phase_scan_speech(cfg, ds, tr_idx, seed, work) -> dict:
+    """One speech epoch of SCAN_UPDATES updates, the epoch form
+    (``make_gwilliams_scan_epoch``) against the fused step one update at a
+    time, on the same segment ids and sessions; then the main path: the
+    train CLI with ``use_scan_epochs`` on the sentence split.  Returns its
+    launch counts."""
+    dev = torch.device("cuda")
+    loc = ch_locations_2d(cfg)
+    loss_cfg = train_speech.loss_config(cfg)
+    collate = evaluate_speech.collate_config(cfg)
+    pool = evaluate_speech.SpeechPool(ds, tr_idx, seed=seed)
+    rng = np.random.RandomState(seed + 5)
+    idx = np.stack([pool.segment_ids(rng.randint(0, len(pool), BATCH))
+                    for _ in range(SCAN_UPDATES)])
+    sess = torch.randint(0, ds.num_sessions, (SCAN_UPDATES, BATCH),
+                         generator=torch.Generator().manual_seed(seed + 6))
+
+    def fresh():
+        model = get_model(cfg, loc, device=dev, seed=seed,
+                          num_channels=int(ds.recordings.shape[2]))
+        opt = make_optimizer(cfg, SCAN_UPDATES)
+        return model, opt, create_train_state(model, opt,
+                                              float(cfg.init_temperature), seed)
+
+    def run_epoch():
+        model, opt, state = fresh()
+        epoch = make_gwilliams_scan_epoch(model, opt, loss_cfg, collate, ds,
+                                          SCAN_UPDATES, BATCH)
+        return model, epoch(state, idx=torch.as_tensor(idx, device=dev),
+                            sess_ids=sess.to(dev))[1]
+
+    def run_steps():
+        model, opt, state = fresh()
+        fused = make_fused_speech_step(model, opt, loss_cfg, collate, ds)
+        hist = [fused(state, idx[u], sess_ids=sess[u])[1]
+                for u in range(SCAN_UPDATES)]
+        return model, epoch_means(hist, SCAN_UPDATES)
+
+    check = compare_epochs(run_epoch, run_steps)
+
+    # the main path: the train CLI, one scan epoch on the sentence split
+    out = os.path.join(work, "scan_out")
+    tcfg = compose(CONFIGS_DIR, "config", [
+        f"cache_dir={cfg.cache_dir}", f"save_root={out}", f"seed={seed}",
+        f"batch_size={BATCH}", "epochs=1", f"updates={SCAN_UPDATES}",
+        "split_mode=sentence", "use_scan_epochs=true", "run_name=scan"])
+    n_test = len(evaluate_speech.load_gwilliams_splits(
+        Config(to_dict(tcfg)), seed, "cpu")[1])
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best = train_speech.run(tcfg, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = all_launches()
+    pools = len(_test_pool_starts(n_test, min(n_test, BATCH),
+                                  bool(tcfg.get("test_sweep", True))))
+    expected = {"window_gather": 2 * (SCAN_UPDATES + pools),
+                "robust_quantiles": SCAN_UPDATES + pools,
+                "bn_stats": BN_PER_STEP * SCAN_UPDATES,
+                "bn_bwd_stats": BN_PER_STEP * SCAN_UPDATES}
+    if launches != expected:
+        raise AssertionError(f"scan CLI launches {launches}, expected {expected}")
+    if best.get("train_skipped") != 0.0 or "t_step_ms" in best:
+        raise AssertionError(f"scan CLI: {best}")
+    emit({"phase": "scan_epochs", "workload": "speech", "updates": SCAN_UPDATES,
+          "batch_size": BATCH, **check, "train_cli_s": run_s,
+          "test_pools": pools, "launches": launches,
+          "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
+                                             "test_loss", "test_top10")}})
+    return launches
+
+
+def phase_scan_god(cfg, ds, seed) -> dict:
+    """One GOD epoch of SCAN_UPDATES updates, ``make_scan_epoch`` against
+    the per-step form on the same indices; then the main path:
+    ``cli/train_god.py`` with ``use_scan_epochs``.  Returns its launch
+    counts."""
+    dev = torch.device("cuda")
+    loc = ch_locations_2d(cfg, roi(cfg))
+    loss_cfg = train_god._loss_config(cfg)
+    collate = evaluate_speech.collate_config(cfg)
+    idx = torch.randint(0, len(ds), (SCAN_UPDATES, BATCH),
+                        generator=torch.Generator().manual_seed(seed + 8))
+
+    def fresh():
+        model = get_model(cfg, loc, device=dev, seed=seed, num_channels=len(loc))
+        opt = make_optimizer(cfg, SCAN_UPDATES)
+        return model, opt, create_train_state(model, opt,
+                                              float(cfg.init_temperature), seed)
+
+    def run_epoch():
+        model, opt, state = fresh()
+        epoch = make_scan_epoch(model, opt, loss_cfg, collate, ds,
+                                SCAN_UPDATES, BATCH)
+        return model, epoch(state, idx=idx.to(dev))[1]
+
+    def run_steps():
+        model, opt, state = fresh()
+        step = make_train_step(model, opt, loss_cfg, collate)
+        hist = [step(state, *ds.gather(idx[u])[:3])[1]
+                for u in range(SCAN_UPDATES)]
+        return model, epoch_means(hist, SCAN_UPDATES)
+
+    check = compare_epochs(run_epoch, run_steps)
+
+    tcfg = Config(to_dict(cfg))
+    tcfg.use_scan_epochs = True
+    tcfg.updates = SCAN_UPDATES
+    tcfg.save_root = os.path.join(cfg.save_root, "scan")
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best = train_god.run(tcfg, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = all_launches()
+    n_train = int(round(len(ds) * 5 / 6))
+    pools = len(_test_pool_starts(len(ds) - n_train,
+                                  min(len(ds) - n_train, int(cfg.test_size)),
+                                  bool(cfg.get("test_sweep", True))))
+    expected = {"window_gather": 1, "robust_quantiles": SCAN_UPDATES + pools,
+                "bn_stats": BN_PER_STEP * SCAN_UPDATES,
+                "bn_bwd_stats": BN_PER_STEP * SCAN_UPDATES}
+    if launches != expected:
+        raise AssertionError(f"GOD scan CLI launches {launches}, expected {expected}")
+    if best.get("train_skipped") != 0.0 or "t_step_ms" in best:
+        raise AssertionError(f"GOD scan CLI: {best}")
+    emit({"phase": "scan_epochs", "workload": "god", "updates": SCAN_UPDATES,
+          "batch_size": BATCH, **check, "train_cli_s": run_s,
+          "test_pools": pools, "launches": launches,
+          "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
+                                             "test_loss", "test_top10")}})
+    return launches
+
+
+def phase_model_zoo(god_cfg, god_ds, seed, flush) -> dict:
+    """The GOD train CLI with ``model=eegnet`` at config_GOD.yaml's EEGNet
+    hyper-parameters, then ``model=brain_endcoder_seq2static`` with
+    ``window.end=0.6`` (T = 48) at D1 = 270, D2 = 320, F = 512; for each,
+    the first step on the card against the CPU (loss and global gradient
+    norm within 1e-4; EEGNet's dropout masks come from the state's CPU
+    generator, the same on both); then the BN kernels at EEGNet's three
+    shapes and Seq2Static's five.  Returns each CLI's launch counts."""
+    dev = torch.device("cuda")
+    launches_by_model, rows = {}, {}
+    for name, window_end, n_bn in (("eegnet", None, EEGNET_BN),
+                                   ("brain_endcoder_seq2static", 0.6, BN_PER_STEP)):
+        zcfg = Config(to_dict(god_cfg))
+        zcfg.model = name
+        zcfg.save_root = os.path.join(god_cfg.save_root, name)
+        if window_end is not None:
+            zcfg.window.end = window_end
+        ds = god_ds if window_end is None else build_god_dataset(
+            zcfg, "train", device="cuda")
+        zcfg.num_subjects = ds.num_subjects
+        loc = ch_locations_2d(zcfg, roi(zcfg))
+        loss_cfg = dataclasses.replace(train_god._loss_config(zcfg), grad_norms=True)
+        collate = evaluate_speech.collate_config(zcfg)
+
+        def state_on(device):
+            model = get_model(zcfg, loc, device=device, seed=seed,
+                              num_channels=len(loc))
+            opt = make_optimizer(zcfg, int(zcfg.updates))
+            return model, opt, create_train_state(
+                model, opt, float(zcfg.init_temperature), seed)
+
+        model, opt, state = state_on(dev)
+        cpu_model, cpu_opt, cpu_state = state_on("cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        X, Y, subs, _ = ds.gather(np.arange(BATCH))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = make_train_step(model, opt, loss_cfg, collate)(
+            state, X, Y, subs, centre=0)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        _, mc = make_train_step(cpu_model, cpu_opt, loss_cfg, collate)(
+            cpu_state, X.cpu(), Y.cpu(), subs.cpu(), centre=0)
+        check = {"loss_rel_err": rel_err(m["loss"], mc["loss"]),
+                 "grad_norm_rel_err": rel_err(m["grad_norm"], mc["grad_norm"]),
+                 "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        if not (check["loss_rel_err"] <= 1e-4 and check["grad_norm_rel_err"] <= 1e-4):
+            raise AssertionError(f"{name}: card vs CPU train step: {check}")
+        del model, opt, state, cpu_model, cpu_opt, cpu_state
+
+        # the main path: the GOD train CLI, one epoch of the cv split
+        reset_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best = train_god.run(Config(to_dict(zcfg)), device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = all_launches()
+        n_train = int(round(len(ds) * 5 / 6))
+        updates = n_train // BATCH
+        pools = len(_test_pool_starts(len(ds) - n_train,
+                                      min(len(ds) - n_train, int(zcfg.test_size)),
+                                      bool(zcfg.get("test_sweep", True))))
+        expected = {"window_gather": 1, "robust_quantiles": updates + pools,
+                    "bn_stats": n_bn * updates, "bn_bwd_stats": n_bn * updates}
+        if launches != expected:
+            raise AssertionError(f"{name} CLI launches {launches}, expected {expected}")
+        if best.get("train_skipped") != 0.0 or not (
+                math.isfinite(best["train_loss"]) and math.isfinite(best["test_loss"])):
+            raise AssertionError(f"{name} CLI: {best}")
+        launches_by_model[name] = launches
+        emit({"phase": "model_zoo", "model": name, "T": int(ds.X.shape[2]),
+              "card_vs_cpu": check, "rel_err_limit": 1e-4,
+              "first_step_ms": first_ms, "train_cli_s": run_s,
+              "updates": updates, "test_pools": pools, "launches": launches,
+              "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
+                                                 "test_loss", "test_top10",
+                                                 "t_step_ms")}})
+        if window_end is not None:
+            del ds
+
+    # the BN kernels at the new shapes: EEGNet's three (timed) and
+    # Seq2Static's five (T = 48 → 23 → 11 → 5 → 2; the first timed)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    Cr = int(god_ds.X.shape[1])
+    T = int(god_ds.X.shape[2])
+    for Cc, Tt in ((16, Cr * T), (32, T), (32, T // 2), (D2, 48)):
+        rows[f"{BATCH}x{Cc}x{Tt}"] = bn_rows(*bn_inputs(gen, BATCH, Cc, Tt, torch.float32),
+                                     flush, "model_zoo")
+    for Tt in (23, 11, 5, 2):
+        bn_check(*bn_inputs(gen, BATCH, D2, Tt, torch.float32), cotangents=True)
+    return {"launches": launches_by_model, "bn": rows}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke run of the port")
     ap.add_argument("--seed", type=int, default=0)
@@ -988,6 +1523,10 @@ def main(argv=None) -> int:
         del flush
         serving = phase_serving(cfg, ds, tr_idx, args.seed)
         training = phase_training(cfg, ds, tr_idx, args.seed, work)
+        flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+        presets = phase_presets(cfg, ds, tr_idx, args.seed, work, flush)
+        del flush
+        scan_speech = phase_scan_speech(cfg, ds, tr_idx, args.seed, work)
         del ds
 
         god_cfg, god_ds = phase_god_data(work, args.seed)
@@ -996,15 +1535,24 @@ def main(argv=None) -> int:
         del flush
         god_training = phase_god_training(god_cfg, god_ds, args.seed)
         god_eval = phase_god_eval(god_cfg)
+        scan_god = phase_scan_god(god_cfg, god_ds, args.seed)
+        flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+        zoo = phase_model_zoo(god_cfg, god_ds, args.seed, flush)
+        del flush
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    for path, launches in (("serving", serving), ("training", training["launches"])):
+    new_paths = {**{f"preset_{k}": v for k, v in presets["launches"].items()},
+                 "scan_speech": scan_speech, "scan_god": scan_god,
+                 **{f"zoo_{k}": v for k, v in zoo["launches"].items()}}
+    for path, launches in (("serving", serving), ("training", training["launches"]),
+                           *new_paths.items()):
         for name, n in launches.items():
             if n <= 0:
                 raise AssertionError(f"{name}: no launch on the {path} path")
     paths = {"serving": serving, "training": training["launches"],
-             "god_training": god_training["launches"], "god_eval": god_eval}
+             "god_training": god_training["launches"], "god_eval": god_eval,
+             **new_paths}
     for name in training["launches"]:
         if paths["god_training"][name] + paths["god_eval"][name] <= 0:
             raise AssertionError(f"{name}: no launch on the GOD paths")
@@ -1038,6 +1586,19 @@ def main(argv=None) -> int:
                            bound_ms=rows[name]["bound_ms"])
                   for dt, rows in god["bn"].items()}
            for name in ("bn_stats", "bn_bwd_stats")}}
+    def at(r, shape):
+        return {"shape": shape, "ms": r["kernel_ms"], "run_ms": r["run_ms"],
+                "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                "bound_ms": r["bound_ms"] if "bound_ms" in r else r["bound_us"] / 1e3}
+    cg, cq = presets["chunk_gather"], presets["chunk_quantiles"]
+    more = {
+        "window_gather": {"sweep chunk": at(cg, cg["shape"]),
+                          **{f"B=256 {k}": at(c, c["shape"])
+                             for k, c in presets["b256_gather"].items()}},
+        "robust_quantiles": {"sweep chunk": at(cq, cq["shape"])},
+        **{name: {"B=256 bf16": at(presets["b256_bn"][name], [4 * BATCH, D2, 360]),
+                  **{shape: at(rows[name], shape) for shape, rows in zoo["bn"].items()}}
+           for name in ("bn_stats", "bn_bwd_stats")}}
     emit({"kernels": [
         {"name": "window_gather", "route": "cuda",
          "source": "meg_decoding_tpu_torch/csrc/window_gather.cu",
@@ -1050,7 +1611,7 @@ def main(argv=None) -> int:
          "plain_ms": sum(c["plain_ms"] for c in g),
          "bound_ms": sum(c["bound_us"] for c in g) / 1e3, "bound_by": "bytes",
          "library_ms": sum(c["library_ms"] for c in g),
-         "god": god_rows["window_gather"]},
+         "god": god_rows["window_gather"], "more_shapes": more["window_gather"]},
         {"name": "robust_quantiles", "route": "cuda",
          "source": "meg_decoding_tpu_torch/csrc/robust_quantiles.cu",
          "replaces": "meg_decoding_tpu/ops/pallas/quantile.py:120",
@@ -1060,7 +1621,8 @@ def main(argv=None) -> int:
          "run_ms": q["run_ms"], "plain_ms": q["plain_ms"],
          "bound_ms": q["bound_us"] / 1e3,
          "bound_by": "bytes", "library_ms": q["library_ms"],
-         "god": god_rows["robust_quantiles"]},
+         "god": god_rows["robust_quantiles"],
+         "more_shapes": more["robust_quantiles"]},
         *({"name": name, "route": "cuda",
            "source": "meg_decoding_tpu_torch/csrc/batchnorm_stats.cu",
            "replaces": f"meg_decoding_tpu/ops/pallas/batchnorm.py:{line}",
@@ -1070,7 +1632,7 @@ def main(argv=None) -> int:
            "plain_ms": bn[name]["plain_ms"], "bound_ms": bn[name]["bound_ms"],
            "bound_by": bn[name]["bound_by"],
            "library_ms": bn[name]["library_ms"],
-           "god": god_rows[name],
+           "god": god_rows[name], "more_shapes": more[name],
            **{k: bn[name][k] for k in extra}}
           for name, line, extra in (
               ("bn_stats", 69, ("library_batch_norm_stats_ms",)),

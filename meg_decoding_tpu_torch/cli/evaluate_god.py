@@ -59,8 +59,10 @@ def _build(cfg, dev: torch.device):
     val = build_god_dataset(cfg, "val", mean_X=source.mean_X, std_X=source.std_X,
                             mean_Y=source.mean_Y, std_Y=source.std_Y, device=dev)
     cfg.num_subjects = source.num_subjects
-    model = get_model(cfg, ch_locations_2d(cfg, roi(cfg)), device=dev,
-                      seed=int(cfg.get("seed", 0)))
+    roi_channels = roi(cfg)
+    model = get_model(cfg, ch_locations_2d(cfg, roi_channels), device=dev,
+                      seed=int(cfg.get("seed", 0)),
+                      num_channels=len(roi_channels))
     return source, val, model
 
 

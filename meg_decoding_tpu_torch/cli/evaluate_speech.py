@@ -155,7 +155,8 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
     test_set = load_gwilliams_splits(cfg, seed, dev)[1]
     cfg.num_subjects = test_set.num_subjects
     cfg.num_channels = int(test_set.ds.recordings.shape[2])
-    model = get_model(cfg, ch_locations_2d(cfg), device=dev, seed=seed)
+    model = get_model(cfg, ch_locations_2d(cfg), device=dev, seed=seed,
+                      num_channels=cfg.num_channels)
 
     path = checkpoint_path(cfg)
     model.load_state_dict(load_model_state(path, dev))

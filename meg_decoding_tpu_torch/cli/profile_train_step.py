@@ -2,11 +2,15 @@
 
 ``--workload speech``: the synthetic 27-subject Gwilliams cache that
 ``chip_smoke.py`` also runs on (``data/synthetic.py:full_width_speech``),
-the full-width model of ``configs/config.yaml`` with random weights, and
-the fused train step (session draw, window gather, collate, encoder in
-training mode, CLIP loss, gradients, Adam, BN running statistics).
+the full-width model of ``configs/config.yaml`` (or of a speed preset,
+``--config-name throughput`` / ``throughput_exact``: bf16, B = 256, the
+cached collate statistics) with random weights, and the fused train step
+(session draw, window gather, collate, encoder in training mode, CLIP
+loss, gradients, Adam, BN running statistics); the sweep of the cached
+statistics runs before the timed steps.
 ``--workload god``: the full-width GOD set-up of ``chip_smoke.py``
-(``full_width_god``: ``configs/config_GOD.yaml``, T = 24), its train split
+(``full_width_god``: ``configs/config_GOD.yaml``, T = 24; any model of
+the zoo with ``model=…``), its train split
 built on the card, and the per-step form ``fit`` runs (a gather from the
 packed set, then ``make_train_step``'s step).  After 3 warm-up steps it
 times 10 steps with the host clock around work that ends in
@@ -20,7 +24,8 @@ Needs a GPU; there is no CPU mode.
 
 Run from the repository root:
 ``python -m meg_decoding_tpu_torch.cli.profile_train_step [--out DIR]
-[--workload speech|god] [--dtypes float32,bfloat16] [key=value …]``
+[--workload speech|god] [--config-name NAME] [--dtypes float32,bfloat16]
+[key=value …]``
 """
 
 from __future__ import annotations
@@ -101,15 +106,17 @@ def _nvidia_smi() -> str:
         timeout=60).stdout.strip().splitlines()[0]
 
 
-def speech_step(work: str, seed: int, overrides):
+def speech_step(work: str, seed: int, overrides, config_name: str = "config"):
     """(cfg, one): the fused speech step on the full-width cache; ``one(i)``
     runs step i and returns its metrics."""
-    cfg, ds, tr_idx = full_width_speech(work, seed, overrides)
+    cfg, ds, tr_idx = full_width_speech(work, seed, overrides,
+                                        config_name=config_name)
     model = get_model(cfg, ch_locations_2d(cfg), device="cuda", seed=seed)
     opt = make_optimizer(cfg, int(cfg.updates))
     state = create_train_state(model, opt, float(cfg.init_temperature), seed)
-    fused = make_fused_speech_step(model, opt, loss_config(cfg),
-                                   collate_config(cfg), ds)
+    fused = make_fused_speech_step(
+        model, opt, loss_config(cfg), collate_config(cfg), ds,
+        cache_collate_stats=bool(cfg.get("cache_collate_stats", False)))
     pool = SpeechPool(ds, tr_idx, seed=seed)
     rng = np.random.RandomState(seed)
     B = int(cfg.batch_size)
@@ -121,13 +128,14 @@ def speech_step(work: str, seed: int, overrides):
     return cfg, one
 
 
-def god_step(work: str, seed: int, overrides):
+def god_step(work: str, seed: int, overrides, config_name: str = "config_GOD"):
     """(cfg, one): the per-step GOD step over the full-width train split."""
-    cfg = full_width_god(work, seed, overrides)
+    cfg = full_width_god(work, seed, overrides, config_name=config_name)
     ds = build_god_dataset(cfg, "train", device="cuda")
     cfg.num_subjects = ds.num_subjects
-    model = get_model(cfg, ch_locations_2d(cfg, roi(cfg)), device="cuda",
-                      seed=seed)
+    roi_channels = roi(cfg)
+    model = get_model(cfg, ch_locations_2d(cfg, roi_channels), device="cuda",
+                      seed=seed, num_channels=len(roi_channels))
     opt = make_optimizer(cfg, int(cfg.updates))
     state = create_train_state(model, opt, float(cfg.init_temperature), seed)
     step = make_train_step(model, opt, god_loss_config(cfg), collate_config(cfg))
@@ -202,7 +210,12 @@ def profile_config(cfg, one, warmup: int, steps: int) -> dict:
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", choices=("speech", "god"), default="speech")
-    ap.add_argument("--dtypes", default="float32")
+    ap.add_argument("--config-name", default=None,
+                    help="configs/<name>.yaml (default: config for speech, "
+                         "config_GOD for god)")
+    ap.add_argument("--dtypes", default=None,
+                    help="compute dtypes to profile, comma-separated "
+                         "(default: the config's own)")
     ap.add_argument("--out", default=None, help="directory for the JSON result")
     ap.add_argument("overrides", nargs="*", help="key=value config overrides")
     args = ap.parse_args(argv)
@@ -213,9 +226,13 @@ def main(argv=None) -> list[dict]:
     make = {"speech": speech_step, "god": god_step}[args.workload]
     results = []
     try:
-        for dtype in args.dtypes.split(","):
+        for dtype in (args.dtypes.split(",") if args.dtypes else [None]):
             torch.cuda.reset_peak_memory_stats()
-            cfg, one = make(work, SEED, [f"compute_dtype={dtype}", *args.overrides])
+            names = {} if args.config_name is None else \
+                {"config_name": args.config_name}
+            dtype_override = [f"compute_dtype={dtype}"] if dtype else []
+            cfg, one = make(work, SEED, [*dtype_override, *args.overrides],
+                            **names)
             res = {"device": smi, "torch": torch.__version__,
                    "workload": args.workload,
                    **profile_config(cfg, one, WARMUP, STEPS)}

@@ -11,15 +11,19 @@ config: ``training_mode: cv|split``, ``loss.kind``,
 ``loss.same_label_weight``, ``l2_weight``, ``criterion``.
 
 The dataset is built on the device (``data/god.py``) and ``fit`` drives
-the per-step form: gather → collate → encoder → loss → gradients → Adam.
+the per-step form: gather → collate → encoder → loss → gradients → Adam;
+with ``use_scan_epochs`` and a loss without labels, ``fit_scan`` drives
+the whole-epoch form (``train/scan_loop.py:make_scan_epoch``).  Every model
+of the zoo trains here: ``brain_encoder``, ``brain_endcoder_seq2static``
+(with a window of T ≥ 31 samples), ``eegnet``, ``eegnet_sub`` and
+``linear``.
 Writes ``{save_root}/runs/<run>/metrics.jsonl`` and ``config.yaml``, and
 ``{save_root}/ckpt/model_last.pt`` / ``model_best.pt`` (``resume=true``
 continues from model_last).
 
-Not ported yet, and refused: the host-resident spill path, whole-epoch
-scans, wandb, data parallelism over several GPUs (pass
-``data_parallel=false`` to train on one of them), and models other than
-``brain_encoder``.
+Not ported yet, and refused: the host-resident spill path, wandb, and
+data parallelism over several GPUs (pass ``data_parallel=false`` to train
+on one of them).
 
 Run: ``python -m meg_decoding_tpu_torch.cli.train_god
 [--config-path configs] [--config-name config_GOD] [--device cuda]
@@ -46,9 +50,11 @@ from meg_decoding_tpu_torch.objectives.retrieval import cosine_similarity_matrix
 from meg_decoding_tpu_torch.train.checkpoint import CheckpointManager
 from meg_decoding_tpu_torch.train.loop import (
     fit,
+    fit_scan,
     resume_if_requested,
     steps_per_epoch,
 )
+from meg_decoding_tpu_torch.train.scan_loop import make_scan_epoch
 from meg_decoding_tpu_torch.train.schedules import make_optimizer
 from meg_decoding_tpu_torch.train.state import create_train_state
 from meg_decoding_tpu_torch.train.steps import (
@@ -63,14 +69,10 @@ __all__ = ["run"]
 
 def _refuse_unported(cfg, dev: torch.device) -> None:
     for key, what in (("host_resident", "the host-resident spill path"),
-                      ("use_scan_epochs", "whole-epoch scans"),
                       ("use_wandb", "wandb logging"),
                       ("distributed", "multi-host training")):
         if cfg.get(key, False):
             raise NotImplementedError(f"{key}: {what} is not ported yet")
-    if cfg.model != "brain_encoder":
-        raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet (brain_encoder only)")
     if (dev.type == "cuda" and torch.cuda.device_count() > 1
             and cfg.get("data_parallel", True)):
         raise NotImplementedError(
@@ -115,7 +117,9 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
             mean_Y=source.mean_Y, std_Y=source.std_Y, device=dev)
     cfg.num_subjects = source.num_subjects
 
-    model = get_model(cfg, ch_locations_2d(cfg, roi(cfg)), device=dev, seed=seed)
+    roi_channels = roi(cfg)
+    model = get_model(cfg, ch_locations_2d(cfg, roi_channels), device=dev,
+                      seed=seed, num_channels=len(roi_channels))
     loss_cfg = _loss_config(cfg)
     collate_cfg = collate_config(cfg)
     gallery = gallery_self_sim = None
@@ -126,7 +130,10 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
         if loss_cfg.criterion == "similarity_crossentropy":
             gallery_self_sim = cosine_similarity_matrix(gallery, gallery)
 
-    optimizer = make_optimizer(cfg, int(cfg.get("updates", 1200)))
+    updates = int(cfg.get("updates", 1200))
+    # the schedule counts `updates` steps as an epoch, also with
+    # use_sampler: false, as the JAX trainer does (cli/train_god.py:114-115)
+    optimizer = make_optimizer(cfg, updates)
     state = create_train_state(
         model, optimizer,
         init_temperature=float(cfg.get("init_temperature", 5.1)), seed=seed)
@@ -140,6 +147,15 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
     ckpt = CheckpointManager(os.path.join(save_root, "ckpt"))
     state, start_epoch = resume_if_requested(
         cfg, ckpt, state, save_root, steps_per_epoch(cfg, len(train_set)))
+    if cfg.get("use_scan_epochs", False) and not with_labels:
+        # the whole-epoch form; the label losses take the per-step driver
+        scan_epoch = make_scan_epoch(model, optimizer, loss_cfg, collate_cfg,
+                                     train_set, updates=updates,
+                                     batch_size=int(cfg.batch_size))
+        _, best = fit_scan(cfg, train_set, test_set, state, scan_epoch,
+                           eval_step, logger, ckpt, seed=seed,
+                           start_epoch=start_epoch)
+        return best
     _, best = fit(cfg, train_set, test_set, state, train_step, eval_step,
                   logger, ckpt, seed=seed, start_epoch=start_epoch,
                   with_labels=with_labels)

@@ -1,6 +1,10 @@
 """Speech-decoding trainer, Gwilliams2022 on one device.  Port of ``run``
-from ``meg_decoding_tpu/cli/train_speech.py`` along its default path: the
-fused gather + train step (``train/scan_loop.py``) driven by ``fit``.
+from ``meg_decoding_tpu/cli/train_speech.py``: the fused gather + train
+step (``train/scan_loop.py``) driven by ``fit``, or, with
+``use_scan_epochs`` on a sentence/deep split, the whole-epoch form driven by
+``fit_scan``; either with the cached collate statistics
+(``cache_collate_stats``, as the speed presets ``configs/throughput*.yaml``
+set it).
 
 Reference: ``train.py`` — builds the dataset per ``split_mode``
 (sentence/shallow/deep, :57-90), per-batch Adam updates, a test pass and
@@ -13,9 +17,8 @@ Writes ``{save_root}/runs/<run>/metrics.jsonl`` and ``config.yaml``, and
 state; ``resume=true`` continues from model_last).
 
 Not ported yet, and refused: Brennan2018, the host-resident spill path,
-whole-epoch scans, the cached collate statistics, the unfused step, wandb,
-and data parallelism over several GPUs (pass ``data_parallel=false`` to
-train on one of them).
+the unfused step, wandb, and data parallelism over several GPUs (pass
+``data_parallel=false`` to train on one of them).
 
 Run: ``python -m meg_decoding_tpu_torch.cli.train_speech
 [--config-path configs] [--config-name config] [--device cuda] key=value …``
@@ -39,10 +42,14 @@ from meg_decoding_tpu_torch.models.factory import get_model
 from meg_decoding_tpu_torch.train.checkpoint import CheckpointManager
 from meg_decoding_tpu_torch.train.loop import (
     fit,
+    fit_scan,
     resume_if_requested,
     steps_per_epoch,
 )
-from meg_decoding_tpu_torch.train.scan_loop import make_fused_speech_step
+from meg_decoding_tpu_torch.train.scan_loop import (
+    make_fused_speech_step,
+    make_gwilliams_scan_epoch,
+)
 from meg_decoding_tpu_torch.train.schedules import make_optimizer
 from meg_decoding_tpu_torch.train.state import create_train_state
 from meg_decoding_tpu_torch.train.steps import LossConfig, make_eval_step
@@ -56,8 +63,6 @@ def _refuse_unported(cfg, dev: torch.device) -> None:
         raise NotImplementedError(
             f"dataset {cfg.dataset!r} is not ported yet (Gwilliams2022 only)")
     for key, what in (("host_resident", "the host-resident spill path"),
-                      ("use_scan_epochs", "whole-epoch scans"),
-                      ("cache_collate_stats", "the cached collate statistics"),
                       ("use_wandb", "wandb logging"),
                       ("distributed", "multi-host training")):
         if cfg.get(key, False):
@@ -89,15 +94,18 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
     train_set, test_set = load_gwilliams_splits(cfg, seed, dev)
     cfg.num_subjects = train_set.num_subjects
     cfg.num_channels = int(train_set.ds.recordings.shape[2])
-    model = get_model(cfg, ch_locations_2d(cfg), device=dev, seed=seed)
+    model = get_model(cfg, ch_locations_2d(cfg), device=dev, seed=seed,
+                      num_channels=cfg.num_channels)
     collate_cfg = collate_config(cfg)
     loss_cfg = loss_config(cfg)
-    optimizer = make_optimizer(cfg, int(cfg.get("updates", 1200)))
+    updates = int(cfg.get("updates", 1200))
+    # the schedule counts `updates` steps as an epoch, also with
+    # use_sampler: false, as the JAX trainer does (cli/train_speech.py:323)
+    optimizer = make_optimizer(cfg, updates)
     state = create_train_state(
         model, optimizer,
         init_temperature=float(cfg.get("init_temperature", 5.1)), seed=seed)
-    fused = make_fused_speech_step(model, optimizer, loss_cfg, collate_cfg,
-                                   train_set.ds)
+    cache_stats = bool(cfg.get("cache_collate_stats", False))
     eval_step = make_eval_step(model, loss_cfg, collate_cfg)
 
     logger = RunLogger(save_root, run_name=cfg.get("run_name"))
@@ -105,6 +113,19 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
     ckpt = CheckpointManager(os.path.join(save_root, "ckpt"))
     state, start_epoch = resume_if_requested(
         cfg, ckpt, state, save_root, steps_per_epoch(cfg, len(train_set)))
+    if cfg.get("use_scan_epochs", False) and train_set.indices is None:
+        # the whole-epoch form, on a sentence/deep split (the packed set is
+        # the training split; a shallow subset takes the per-step driver)
+        scan_epoch = make_gwilliams_scan_epoch(
+            model, optimizer, loss_cfg, collate_cfg, train_set.ds,
+            updates=updates, batch_size=int(cfg.batch_size),
+            cache_collate_stats=cache_stats)
+        _, best = fit_scan(cfg, train_set, test_set, state, scan_epoch,
+                           eval_step, logger, ckpt, seed=seed,
+                           start_epoch=start_epoch)
+        return best
+    fused = make_fused_speech_step(model, optimizer, loss_cfg, collate_cfg,
+                                   train_set.ds, cache_collate_stats=cache_stats)
     _, best = fit(cfg, train_set, test_set, state, fused, eval_step, logger,
                   ckpt, seed=seed, start_epoch=start_epoch)
     return best

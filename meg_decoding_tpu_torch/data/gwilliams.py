@@ -11,6 +11,11 @@ task (:130-143).
 Both X and Y stay continuous on the device ((sessions, 4, C, T) padded
 recordings, (4, F, T) embedding streams) and a batch is two window gathers
 (``ops/kernels/window_gather.py``), one for X and one for Y.
+
+``compute_collate_stats`` sweeps every (session, task, word) window once
+and keeps its RobustScaler fit, so the cached collate
+(``ops/scaling.py:collate_preprocess_cached``) needs no percentiles per
+step.
 """
 
 from __future__ import annotations
@@ -26,12 +31,16 @@ from meg_decoding_tpu_torch.ops.kernels.window_gather import (
     pad_time_for_gather,
     window_gather,
 )
+from meg_decoding_tpu_torch.ops.scaling import baseline_correct, robust_stats
 
 __all__ = ["GwilliamsPacked", "load_gwilliams_cache", "parse_sessions",
            "build_gwilliams_dataset", "sentence_split", "deep_split",
-           "drop_overlapping_words", "gather_speech_batch"]
+           "drop_overlapping_words", "gather_speech_batch",
+           "draw_sessions", "compute_collate_stats", "collate_stats_chunk",
+           "collate_stats_rows"]
 
 NUM_TASKS = 4
+SWEEP_CHUNK = 512  # windows per chunk of the collate-stats sweep, as JAX
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +184,15 @@ def _gather_batch(recordings, y_stream, meg_onsets, speech_onsets,
     return X, Y, session_subject[sess_ids]
 
 
+def draw_sessions(ds: GwilliamsPacked, n: int,
+                  generator: torch.Generator | None) -> torch.Tensor:
+    """``n`` sessions drawn uniformly with ``generator`` (a CPU
+    ``torch.Generator``): the reference's random subject-session pairing."""
+    if generator is None:
+        raise ValueError("pass sess_ids or a torch.Generator to draw them")
+    return torch.randint(0, ds.num_sessions, (n,), generator=generator)
+
+
 def gather_speech_batch(ds: GwilliamsPacked, segment_ids: np.ndarray,
                         sess_ids=None, generator: torch.Generator | None = None,
                         y_dtype: torch.dtype | None = None):
@@ -182,15 +200,12 @@ def gather_speech_batch(ds: GwilliamsPacked, segment_ids: np.ndarray,
     random subject-session pairing, ``__getitem__`` :130-143).
 
     Sessions come from ``sess_ids`` when given, else are drawn uniformly
-    with ``generator`` (a CPU ``torch.Generator``).  ``y_dtype`` casts Y
-    inside the gather (see ``_gather_batch``).  Returns
+    with ``generator`` (``draw_sessions``).  ``y_dtype`` casts Y inside the
+    gather (see ``_gather_batch``).  Returns
     ``(X, Y, subject_idxs, segment_ids)``."""
     seg = ds.segment_table()[np.asarray(segment_ids)]
     if sess_ids is None:
-        if generator is None:
-            raise ValueError("pass sess_ids or a torch.Generator to draw them")
-        sess_ids = torch.randint(0, ds.num_sessions, (len(seg),),
-                                 generator=generator)
+        sess_ids = draw_sessions(ds, len(seg), generator)
     dev = ds.recordings.device
     sess_ids = torch.as_tensor(np.asarray(sess_ids), dtype=torch.int64,
                                device=dev)
@@ -201,6 +216,64 @@ def gather_speech_batch(ds: GwilliamsPacked, segment_ids: np.ndarray,
         ds.session_subject, task_ids, i_in_task, sess_ids, ds.seq_len,
         y_dtype=y_dtype)
     return X, Y, subs, np.asarray(segment_ids)
+
+
+def collate_stats_chunk(recordings: torch.Tensor, rec_ids: torch.Tensor,
+                        onsets: torch.Tensor, seq_len: int,
+                        baseline_len_samp: int) -> torch.Tensor:
+    """The RobustScaler fits of a chunk of windows: one ``window_gather``
+    of windows ``rec_ids``/``onsets`` out of the (S, NT, C, T) recordings,
+    ``baseline_correct``, then ``robust_stats`` — the inline collate's own
+    ops (``ops/scaling.py:collate_preprocess``).  Returns (n, 2C) f32:
+    [:, :C] median, [:, C:] IQR."""
+    S, NT, C, T = recordings.shape
+    X = window_gather(recordings.reshape(S * NT, C, T), rec_ids, onsets,
+                      seq_len)
+    if baseline_len_samp > 0:
+        X = baseline_correct(X, baseline_len_samp)
+    med, iqr = robust_stats(X, axis=-1)
+    return torch.cat([med, iqr], dim=1)
+
+
+def compute_collate_stats(ds: GwilliamsPacked, baseline_len_samp: int,
+                          chunk: int = SWEEP_CHUNK) -> torch.Tensor:
+    """The epoch-invariant RobustScaler fit of every window a batch can
+    hold, as a flat (S·NT·W, 2C) table on the dataset's device: row
+    ``(s·NT + t)·W + w`` is session s, task t, word w; [:, :C] median,
+    [:, C:] IQR of the baseline-corrected window.  Port of
+    ``compute_collate_stats`` (``data/gwilliams.py:292-358``), single
+    device.
+
+    One sweep in chunks of ``chunk`` windows (``collate_stats_chunk``),
+    each chunk's gathered windows freed before the next; the last chunk is
+    as short as the rest of the grid.  Rows of words past a task's
+    ``n_words`` fit the zero onset's window and are never read.  The JAX
+    package pads each half to 128 lanes for the TPU's tiling
+    (``stats_lane_pad``); the card needs no padding, so the table is
+    ~0.6 of JAX's."""
+    S, NT, C, _ = ds.recordings.shape
+    W = int(ds.meg_onsets.shape[2])
+    total = S * NT * W
+    dev = ds.recordings.device
+    onsets = ds.meg_onsets.reshape(total)
+    rec_ids = torch.arange(S * NT, dtype=torch.int32,
+                           device=dev).repeat_interleave(W)
+    table = torch.empty((total, 2 * C), dtype=torch.float32, device=dev)
+    for start in range(0, total, chunk):
+        stop = min(start + chunk, total)
+        table[start:stop] = collate_stats_chunk(
+            ds.recordings, rec_ids[start:stop], onsets[start:stop],
+            int(ds.seq_len), baseline_len_samp)
+    return table
+
+
+def collate_stats_rows(ds: GwilliamsPacked, table: torch.Tensor,
+                       task_ids: torch.Tensor, i_in_task: torch.Tensor,
+                       sess_ids: torch.Tensor) -> torch.Tensor:
+    """The (B, 2C) rows of ``compute_collate_stats``'s table for a batch's
+    (session, task, word) windows, gathered on the device."""
+    NT, W = int(ds.meg_onsets.shape[1]), int(ds.meg_onsets.shape[2])
+    return table[(sess_ids * NT + task_ids) * W + i_in_task]
 
 
 def build_gwilliams_dataset(cfg, x_dict: dict, y_dict: dict, meg_onsets: dict,

@@ -203,7 +203,8 @@ def make_synthetic_god_dataset(root, num_channels=12, num_roi=8, fs=200.0,
     })
 
 
-def full_width_god(work: str, seed: int, overrides=()) -> Config:
+def full_width_god(work: str, seed: int, overrides=(),
+                   config_name: str = "config_GOD") -> Config:
     """The full-width GOD set-up of the on-card smoke run:
     ``configs/config_GOD.yaml`` (brain_encoder, D1 = 270, D2 = 320, F = 512,
     mean-pooled, B = 64, rest z-scoring, 2–5 Hz bandpass, 120 Hz, window
@@ -219,7 +220,7 @@ def full_width_god(work: str, seed: int, overrides=()) -> Config:
     gallery = os.path.join(root, "image_features.npy")
     np.save(gallery, np.random.RandomState(seed + 1).randn(
         FULL_WIDTH_GOD["n_test"], FULL_WIDTH_GOD["feat_dim"]).astype(np.float32))
-    cfg = compose(CONFIGS_DIR, "config_GOD",
+    cfg = compose(CONFIGS_DIR, config_name,
                   [f"data_root={root}", f"seed={seed}",
                    f"image_features_path={gallery}",
                    f"num_meg_channels={FULL_WIDTH_GOD['num_channels']}",
@@ -231,17 +232,19 @@ def full_width_god(work: str, seed: int, overrides=()) -> Config:
     return cfg
 
 
-def full_width_speech(work: str, seed: int, overrides=(), device="cuda"
+def full_width_speech(work: str, seed: int, overrides=(), device="cuda",
+                      config_name: str = "config"
                       ) -> tuple[Config, GwilliamsPacked, np.ndarray]:
     """The full-width synthetic run set-up of the on-card smoke run and the
     step profiler: the ``FULL_WIDTH_CACHE`` cache under ``{work}/cache``
-    (written once), ``configs/config.yaml`` over it with ``overrides``, the
-    dataset packed on ``device``, and the shallow split's training segment
-    ids.  Returns ``(cfg, ds, train_idx)``."""
+    (written once), ``configs/{config_name}.yaml`` (``config``, or a speed
+    preset that composes it) over it with ``overrides``, the dataset packed
+    on ``device``, and the shallow split's training segment ids.  Returns
+    ``(cfg, ds, train_idx)``."""
     cache = os.path.join(work, "cache")
     if not os.path.exists(os.path.join(cache, "x_dict.npy")):
         make_synthetic_gwilliams_cache(cache, seed=seed, **FULL_WIDTH_CACHE)
-    cfg = compose(CONFIGS_DIR, "config",
+    cfg = compose(CONFIGS_DIR, config_name,
                   [f"cache_dir={cache}", f"seed={seed}", *overrides])
     ds = build_gwilliams_dataset(cfg, *load_gwilliams_cache(cache),
                                  split_mode=cfg.split_mode, seed=seed,

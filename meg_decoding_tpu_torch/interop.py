@@ -5,6 +5,11 @@ The port keeps the flax parameter names wherever a name maps 1:1 (see
 
 * Dense kernel ``(in, out)`` → ``weight (out, in)``;
 * Conv kernel ``(ks, in, out)`` → ``weight (out, in, ks)``;
+* 2-D conv kernel, HWIO ``(kh, kw, in, out)`` → OIHW ``weight`` (EEGNet's
+  convs keep their flax names, ``conv1`` … ``conv3_pw``, without a
+  ``.weight`` suffix);
+* EEGNetSub's bank ``conv1_sub`` ``(S, 1, k1, 1, F1)`` → ``(S, F1, 1, 1,
+  k1)``, one OIHW kernel per subject;
 * everything else (``z_re``/``z_im``, ``subject_layer.weight``, biases,
   BN ``scale``/``bias``) keeps its name and layout;
 * ``batch_stats`` ``mean``/``var`` land in the BN buffers of the same name;
@@ -52,8 +57,13 @@ def _params_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     out = {}
     for key, a in _flatten(params):
         if key.endswith(".kernel"):
-            key = key[: -len("kernel")] + "weight"
-            a = a.T if a.ndim == 2 else np.transpose(a, (2, 1, 0))
+            if a.ndim == 4:  # HWIO → OIHW, a bare parameter in the port
+                key, a = key[: -len(".kernel")], np.transpose(a, (3, 2, 0, 1))
+            else:
+                key = key[: -len("kernel")] + "weight"
+                a = a.T if a.ndim == 2 else np.transpose(a, (2, 1, 0))
+        elif key == "conv1_sub":
+            a = np.transpose(a, (0, 4, 3, 1, 2))
         out[key] = _tensor(a)
     for key, a in _flatten(loss, "loss."):
         out[key] = _tensor(a)

@@ -1,7 +1,7 @@
 """Brain encoder.  Port of ``meg_decoding_tpu/models/brain_encoder.py``.
 
 Reference: ``meg_decoding/models.py`` — ``SubjectBlock`` (244-273),
-``BrainEncoder`` (341-383).  Called as ``model(X, subject_idxs)`` with
+``BrainEncoder`` (341-383), ``BrainEncoderSeq2Static`` (465-512).  Called as ``model(X, subject_idxs)`` with
 ``X: (B, C, T)``; activations stay NCW throughout.  ``model.train()``
 turns on spatial dropout (a training forward takes the dropout ``centre``
 or a ``generator`` to draw it) and batch-statistics BatchNorm.
@@ -9,9 +9,12 @@ or a ``generator`` to draw it) and batch-statistics BatchNorm.
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as Fnn
 
 from meg_decoding_tpu_torch.models.layers import (
     Conv1x1,
@@ -21,7 +24,7 @@ from meg_decoding_tpu_torch.models.layers import (
 )
 from meg_decoding_tpu_torch.ops.gelu import gelu, resolve_impl
 
-__all__ = ["SubjectBlock", "BrainEncoder"]
+__all__ = ["SubjectBlock", "BrainEncoder", "BrainEncoderSeq2Static"]
 
 
 class SubjectBlock(nn.Module):
@@ -104,3 +107,52 @@ class BrainEncoder(nn.Module):
         if X.dtype == torch.bfloat16:
             return X.to(torch.float32).mean(dim=2).to(X.dtype)
         return X.mean(dim=2)  # (B, F)
+
+
+class BrainEncoderSeq2Static(nn.Module):
+    """BrainEncoder with per-block kernel sizes ``ks_list`` and an
+    ``AvgPool1d(3, 2)`` (VALID) after blocks 0–3, then the time mean (in
+    f32 for bf16) after block 4 and the two 1×1 convs with GELU → (B, F)
+    (``brain_encoder.py:133-201``).  The pools need T ≥ 31."""
+
+    def __init__(self, loc: np.ndarray, num_subjects: int,
+                 ks_list: Sequence[int], D1: int = 270, D2: int = 320,
+                 F: int = 512, K: int = 32, d_drop: float = 0.1,
+                 dtype: torch.dtype | None = None,
+                 gelu_approximate: bool = False, gelu_impl: str | None = None,
+                 emit_f32: bool = True, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dtype = dtype
+        self.emit_f32 = emit_f32
+        self.gelu_impl = resolve_impl(gelu_impl, gelu_approximate)
+        self.subject_block = SubjectBlock(loc, num_subjects, D1=D1, K=K,
+                                          d_drop=d_drop, dtype=dtype,
+                                          device=device, generator=generator)
+        for k in range(5):
+            self.add_module(f"conv{k}", ConvBlock(
+                k, D1 if k == 0 else D2, D2, ks=int(ks_list[k]), dtype=dtype,
+                gelu_impl=self.gelu_impl, device=device, generator=generator))
+        self.conv_final1 = Conv1x1(D2, 2 * D2, dtype=dtype, device=device,
+                                   generator=generator)
+        self.conv_final2 = Conv1x1(2 * D2, F, dtype=dtype, device=device,
+                                   generator=generator)
+
+    def forward(self, X: torch.Tensor, subject_idxs: torch.Tensor,
+                centre: int | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        X = self.subject_block(X, subject_idxs, centre=centre,
+                               generator=generator)
+        for k in range(5):
+            X = getattr(self, f"conv{k}")(X)
+            if k < 4:
+                X = Fnn.avg_pool1d(X, 3, 2)
+            elif X.dtype == torch.bfloat16:
+                X = X.to(torch.float32).mean(dim=2, keepdim=True).to(X.dtype)
+            else:
+                X = X.mean(dim=2, keepdim=True)
+        X = gelu(self.conv_final1(X), self.gelu_impl)
+        X = gelu(self.conv_final2(X), self.gelu_impl)
+        if self.emit_f32:
+            X = X.to(torch.float32)
+        return X[:, :, 0]  # (B, F)

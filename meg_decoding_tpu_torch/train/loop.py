@@ -1,10 +1,11 @@
 """Epoch loop: sampler → train steps → test pools → metrics → checkpoint.
-Port of ``fit``, ``steps_per_epoch`` and ``resume_if_requested`` from
-``meg_decoding_tpu/train/loop.py`` (single device; the whole-epoch scan and
-the host prefetch are not ported).  Two forms of step: the fused Gwilliams
-step, which draws its sessions and gathers its batch itself, and the
-per-step form over a ``PackedDataset`` (GOD), whose batches ``fit``
-gathers.
+Port of ``fit``, ``fit_scan``, ``steps_per_epoch`` and
+``resume_if_requested`` from ``meg_decoding_tpu/train/loop.py`` (single
+device; the host prefetch is not ported).  Two forms of step: the fused
+Gwilliams step, which draws its sessions and gathers its batch itself, and
+the per-step form over a ``PackedDataset`` (GOD), whose batches ``fit``
+gathers.  ``fit_scan`` drives the whole-epoch forms of
+``train/scan_loop.py`` instead: one call an epoch.
 
 Reference skeleton: ``train.py:178-274`` (epoch loop with per-batch
 updates, a test pass, epoch metric means, model_last each epoch) and
@@ -36,16 +37,17 @@ from meg_decoding_tpu_torch.train.checkpoint import CheckpointManager
 from meg_decoding_tpu_torch.utils.logging import RunLogger
 from meg_decoding_tpu_torch.utils.profiling import StepTimer
 
-__all__ = ["fit", "steps_per_epoch", "resume_if_requested", "derived_generator"]
+__all__ = ["fit", "fit_scan", "steps_per_epoch", "resume_if_requested",
+           "derived_generator"]
 
 _SAMPLE, _TEST, _GATHER = 0, 1, 2  # streams of an epoch's generators
 
 
-def derived_generator(*path: int) -> torch.Generator:
-    """A CPU generator seeded from a path of ints, e.g. (seed, epoch,
-    stream, step) — the counterpart of ``jax.random.fold_in``."""
+def derived_generator(*path: int, device="cpu") -> torch.Generator:
+    """A generator on ``device`` seeded from a path of ints, e.g. (seed,
+    epoch, stream, step) — the counterpart of ``jax.random.fold_in``."""
     seed = int(np.random.SeedSequence([int(p) for p in path]).generate_state(1)[0])
-    return torch.Generator().manual_seed(seed)
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def _mean_metrics(history: list[dict]) -> dict:
@@ -153,38 +155,77 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
                         generator=derived_generator(seed, epoch, _GATHER, step_i))
             train_hist.append(metrics)
 
-        test_metrics = _eval_test_pools(cfg, test_set, eval_step, state,
-                                        test_size, seed, epoch, with_labels)
         tm = _mean_metrics(train_hist)
-        em = {f"test_{k}": float(v) for k, v in test_metrics.items()}
-        row = {"epoch": epoch, **{f"train_{k}": v for k, v in tm.items()},
-               **em, **timer.means_ms()}
+        best_top10, best_metrics = _end_epoch(
+            cfg, test_set, eval_step, state, test_size, seed, epoch,
+            with_labels, tm, timer.means_ms(), logger, ckpt, best_top10,
+            best_metrics)
         timer.reset()
-        # the step already skips a batch with a non-finite loss or gradient;
-        # abort when the whole epoch produced nothing, or a non-finite value
-        # got through anyway — before it overwrites the last good checkpoint
-        if row.get("train_skipped", 0.0) >= 1.0:
-            raise FloatingPointError(
-                f"every step of epoch {epoch} was skipped (non-finite "
-                "loss/grads) — state NOT checkpointed; restore model_last "
-                "and lower the learning rate")
-        if not np.isfinite(row.get("train_loss", 0.0)):
-            raise FloatingPointError(
-                f"non-finite training loss at epoch {epoch}: "
-                f"{row.get('train_loss')} — state NOT checkpointed; restore "
-                "model_last and lower the learning rate")
-        logger.log(row)
-        logger.summary(epoch, epochs, row)
 
-        improved = em.get("test_top10", -1.0) > best_top10
+    return state, best_metrics
+
+
+def _end_epoch(cfg, test_set, eval_step, state, test_size: int, seed: int,
+               epoch: int, with_labels: bool, tm: dict, extra: dict,
+               logger: RunLogger, ckpt: CheckpointManager | None,
+               best_top10: float, best_metrics: dict):
+    """An epoch's end, in ``fit`` and ``fit_scan``: abort before the
+    checkpoint when every step was skipped or the loss is not finite, else
+    the test pools, the log row, model_last and (on a better test top-10)
+    model_best.  Returns the new ``(best_top10, best_metrics)``."""
+    epochs = int(cfg.epochs)
+    # the step already skips a batch with a non-finite loss or gradient;
+    # abort when the whole epoch produced nothing, or a non-finite value
+    # got through anyway — before it overwrites the last good checkpoint
+    if tm.get("skipped", 0.0) >= 1.0:
+        raise FloatingPointError(
+            f"every step of epoch {epoch} was skipped (non-finite "
+            "loss/grads) — state NOT checkpointed; restore model_last "
+            "and lower the learning rate")
+    if not np.isfinite(tm.get("loss", 0.0)):
+        raise FloatingPointError(
+            f"non-finite training loss at epoch {epoch}: "
+            f"{tm.get('loss')} — state NOT checkpointed; restore "
+            "model_last and lower the learning rate")
+    test_metrics = _eval_test_pools(cfg, test_set, eval_step, state,
+                                    test_size, seed, epoch, with_labels)
+    em = {f"test_{k}": float(v) for k, v in test_metrics.items()}
+    row = {"epoch": epoch, **{f"train_{k}": v for k, v in tm.items()},
+           **em, **extra}
+    logger.log(row)
+    logger.summary(epoch, epochs, row)
+
+    improved = em.get("test_top10", -1.0) > best_top10
+    if improved:
+        best_top10 = em.get("test_top10", -1.0)
+        best_metrics = row
+    if ckpt is not None:
+        ckpt.save("model_last", state)
         if improved:
-            best_top10 = em.get("test_top10", -1.0)
-            best_metrics = row
-        if ckpt is not None:
-            ckpt.save("model_last", state)
-            if improved:
-                ckpt.save("model_best", state)
+            ckpt.save("model_best", state)
+    return best_top10, best_metrics
 
+
+def fit_scan(cfg, train_set, test_set, state, scan_epoch: Callable,
+             eval_step: Callable, logger: RunLogger,
+             ckpt: CheckpointManager | None = None, seed: int = 0,
+             start_epoch: int = 0):
+    """Epoch driver over a whole-epoch form (``train/scan_loop.py``): one
+    ``scan_epoch(state, generator)`` call an epoch, its generator on the
+    state's device seeded from (seed, epoch), the metrics read once, then
+    the test pools, the log and the checkpoints as in ``fit`` (and its
+    aborts).  Returns ``(state, best_metrics)``."""
+    epochs = int(cfg.epochs)
+    test_size = min(len(test_set), int(cfg.get("test_size", cfg.batch_size)))
+    dev = state.step.device
+    best_top10, best_metrics = -1.0, {}
+    for epoch in range(start_epoch, epochs):
+        state, means = scan_epoch(
+            state, derived_generator(seed, epoch, _SAMPLE, device=dev))
+        tm = {k: float(v) for k, v in means.items()}
+        best_top10, best_metrics = _end_epoch(
+            cfg, test_set, eval_step, state, test_size, seed, epoch, False,
+            tm, {}, logger, ckpt, best_top10, best_metrics)
     return state, best_metrics
 
 

@@ -36,7 +36,10 @@ from meg_decoding_tpu_torch.objectives.retrieval import (
     retrieval_accuracy,
     retrieval_accuracy_from_sim,
 )
-from meg_decoding_tpu_torch.ops.scaling import collate_preprocess
+from meg_decoding_tpu_torch.ops.scaling import (
+    collate_preprocess,
+    collate_preprocess_cached,
+)
 from meg_decoding_tpu_torch.train.optim import Adam, global_norm
 from meg_decoding_tpu_torch.train.state import TrainState
 
@@ -122,22 +125,35 @@ def make_train_step(model, optimizer: Adam, loss_cfg: LossConfig,
                     gallery_self_sim=None):
     """Build the train step.
 
-    Returns ``step(state, X, Y, subject_idxs, labels=None, centre=None) →
-    (state, metrics)``: ``state`` is updated in place and returned;
-    ``labels`` feed the classification and same-label losses; ``centre`` is
-    the spatial-dropout centre, drawn from ``state.generator`` when None.
+    Returns ``step(state, X, Y, subject_idxs, labels=None, centre=None,
+    collate_stats=None) → (state, metrics)``: ``state`` is updated in place
+    and returned; ``labels`` feed the classification and same-label losses;
+    ``centre`` is the spatial-dropout centre, drawn from ``state.generator``
+    when None; ``collate_stats`` (B, 2C), the batch's rows of
+    ``data/gwilliams.py:compute_collate_stats`` ([:, :C] median, [:, C:]
+    IQR), makes the collate apply those fits instead of computing the
+    percentiles (``collate_preprocess_cached``).
     ``gallery`` (G, F) and its cosine self-similarity are the
     classification loss's.  Metrics are 0-dim tensors on the device:
     ``loss``, ``temp`` (after the update), ``skipped``, ``top1``, ``top10``
     (and ``grad_norm`` with ``loss_cfg.grad_norms``); loss and accuracies
     read 0 on a skipped step."""
 
-    def step(state: TrainState, X, Y, subject_idxs, labels=None, centre=None):
+    def step(state: TrainState, X, Y, subject_idxs, labels=None, centre=None,
+             collate_stats=None):
         model.train()
         if collate_cfg.enabled:
             with torch.no_grad():
-                X = collate_preprocess(X, collate_cfg.baseline_len_samp,
-                                       collate_cfg.clamp_lim, collate_cfg.clamp)
+                if collate_stats is not None:
+                    C = X.shape[1]
+                    X = collate_preprocess_cached(
+                        X, collate_stats[:, :C], collate_stats[:, C:],
+                        collate_cfg.baseline_len_samp, collate_cfg.clamp_lim,
+                        collate_cfg.clamp)
+                else:
+                    X = collate_preprocess(X, collate_cfg.baseline_len_samp,
+                                           collate_cfg.clamp_lim,
+                                           collate_cfg.clamp)
         Z = model(X, subject_idxs, centre=centre, generator=state.generator)
         temp = state.temp if loss_cfg.temp_trainable else state.temp.detach()
         loss, sim = _compute_loss(loss_cfg, Z, Y, labels, temp, model,

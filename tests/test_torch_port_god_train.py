@@ -379,9 +379,8 @@ def test_god_clis_refuse_unported_paths(god_setup, tmp_path):
     from meg_decoding_tpu_torch.cli import evaluate_god, train_god
 
     for kw, what in (({"host_resident": True}, "host"),
-                     ({"use_scan_epochs": True}, "scan"),
                      ({"use_wandb": True}, "wandb"),
-                     ({"model": "eegnet"}, "eegnet")):
+                     ({"distributed": True}, "multi-host")):
         with pytest.raises(NotImplementedError, match=what):
             train_god.run(_cli_cfg(god_setup, tmp_path, epochs=1, **kw),
                           device="cpu")

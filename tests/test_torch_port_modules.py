@@ -236,8 +236,11 @@ def test_get_model_reads_the_speech_config():
     assert m.seq2seq and m.conv_final2.weight.shape == (1024, 16)  # last4layers
     m2 = get_model(cfg, _loc(), device="cpu", seed=3)
     torch.testing.assert_close(m.state_dict(), m2.state_dict())  # seeded init
-    cfg.model = "eegnet"
-    with pytest.raises(NotImplementedError):
+    cfg.model = "eegnet"  # needs the channel count
+    with pytest.raises(ValueError, match="num_channels"):
+        get_model(cfg, _loc(), device="cpu")
+    cfg.model = "no_such_model"
+    with pytest.raises(ValueError, match="no model named"):
         get_model(cfg, _loc(), device="cpu")
 
 

@@ -316,9 +316,9 @@ def test_train_cli_refuses_unported_paths(train_setup, tmp_path):
     from meg_decoding_tpu_torch.cli.train_speech import run
 
     for kw, what in (({"dataset": "Brennan2018"}, "Brennan2018"),
-                     ({"use_scan_epochs": True}, "scan"),
-                     ({"cache_collate_stats": True}, "collate"),
                      ({"host_resident": True}, "host"),
+                     ({"use_wandb": True}, "wandb"),
+                     ({"distributed": True}, "multi-host"),
                      ({"fuse_gather": False}, "fused")):
         with pytest.raises(NotImplementedError, match=what):
             run(_cli_cfg(train_setup, tmp_path, epochs=1, **kw), device="cpu")
