@@ -44,6 +44,17 @@ from tests.test_torch_port_train_slice import (
 D1, D2, K, NB, BATCH, LR, TEMP0, CHUNK = 16, 24, 4, 2, 16, 1e-3, 5.1, 48
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The suite runs one test file per worker process, several at once: a
+    single intra-op thread keeps this file's torch work from competing
+    with the other workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def stats_setup(tmp_path_factory):
     from meg_decoding_tpu.data import gwilliams as jg

@@ -46,12 +46,23 @@ import jax.numpy as jnp
 from meg_decoding_tpu.core.config import Config as JConfig
 from meg_decoding_tpu_torch.core.config import Config, to_dict
 from meg_decoding_tpu_torch.interop import adam_state_from_jax, params_from_jax
-from tests.test_torch_port_god_train import _cli_cfg, _rows, god_setup  # noqa: F401
+from tests.test_torch_port_god_train import _cli_cfg, god_setup  # noqa: F401
 from tests.test_torch_port_train_slice import LR, _assert_close_after_training
 
 B, C, S, F, TEMP0 = 12, 8, 2, 16, 5.1
 MODELS = ("eegnet", "eegnet_sub", "linear", "brain_endcoder_seq2static")
 EEGNET_KW = dict(F1=4, D=2, F2=8, k1=10, k2=4, p1=2, p2=4, dr1=0.25, dr2=0.38)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The suite runs one test file per worker process, several at once: a
+    single intra-op thread keeps this file's torch work from competing
+    with the other workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _T(name):

@@ -48,6 +48,17 @@ D1, D2, K, NB, BATCH, LR, TEMP0, UPDATES = 16, 24, 4, 2, 16, 1e-3, 5.1, 3
 SCHED = {"lr": LR, "epochs": 4, "lr_scheduler": "cosine"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The suite runs one test file per worker process, several at once: a
+    single intra-op thread keeps this file's torch work from competing
+    with the other workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_draws(key, n: int, n_sessions: int | None):
     """The draws of one JAX scan epoch (``_build_epoch`` and the
     Gwilliams gather)."""
