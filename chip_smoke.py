@@ -9,7 +9,10 @@ full width of the speech model in
 image workload's data build, train and eval path at the full width of
 ``configs/config_GOD.yaml`` (22 ROI channels, D1 = 270, D2 = 320, F = 512,
 mean-pooled, T = 24, batch 64, f32) with the brain encoder, EEGNet and
-Seq2Static, with random weights from ``--seed``.
+Seq2Static, then Brennan2018 (EEG ↔ audiobook) at the scale of the real
+dataset and the full width of ``configs/config.yaml`` (60 channels on the
+easycap layout, S = 33, F = 1024, T = 360, batch 64, f32, no batch-time
+collate), with random weights from ``--seed``.
 Phases, each printed as one JSON line:
 
 1. build    — compile the three CUDA sources of
@@ -40,6 +43,11 @@ Phases, each printed as one JSON line:
               (``cli/train_speech.py``) for one epoch of 6 updates with its
               test-pool evaluation and checkpoints: finite losses, no
               skipped step, and the exact launch count of every kernel;
+    unfused_step — ``fuse_gather: false``: the pool's gather then
+              ``make_train_step`` against the fused step on the same
+              segments and sessions (loss and global gradient norm within
+              1e-5), then the train CLI for one epoch of 6 updates with it
+              (the fused CLI's exact launch counts);
 6. god_data — synthetic GOD sessions (203 channels at 1000 Hz, one train
               session of 600 trials, one val session of 50; the one cut
               against the real dataset is the number of sessions), the
@@ -86,15 +94,39 @@ Phases, each printed as one JSON line:
               shapes (64, 16, 528), (64, 32, 24), (64, 32, 12) and
               Seq2Static's (64, 320, 48) timed, and at (64, 320, 23 / 11 /
               5 / 2) checked;
-11. ``step_share`` and ``god_step_share``, the ``kernels`` line (each
+    brennan_data — 33 subjects × 60 channels × 742 s at 500 Hz and a
+              1024-wide stream at 120 Hz made on the card from the seed
+              (no .mat files: ~3 GB), built on the card subject-wise and
+              pooled (bandpass, resample, shift, robust scale of rows of
+              88,920 and 2,934,360 keys, chunking, baseline), each also
+              built from the first 3 subjects on the card and on the CPU:
+              max |card − CPU| ≤ 1e-5·max|X|; seconds, packed bytes,
+              launches (one long-row call a build);
+    brennan_kernels — the quantile kernel's global-memory path against
+              its plain version (≤ 1 ulp, hard rows included) at
+              64 × 58,113, the subject-wise 1,980 × 88,920 and the pooled
+              60 × 2,934,360 rows, timed against one read of the rows;
+    brennan_training — the unfused step at the full width on the built
+              dataset: its first step against the CPU (loss and global
+              gradient norm within 1e-4), then the steady step and the
+              device operations a step (``torch.profiler``);
+    brennan_cli — the train CLI for one epoch of 4 updates on
+              ``make_synthetic_brennan_raw``'s files (6 subjects × 60
+              channels × 120 s, subjects pooled: rows of 84,240 keys), then
+              the eval CLI on its checkpoint; exact launch counts;
+11. ``seconds`` (each phase group's wall time), ``step_share`` and
+              ``god_step_share``, the ``kernels`` line (each
               kernel's launches by path, its times at the GOD shapes under
-              ``god`` and at this slice's shapes under ``more_shapes``),
-              then the ``ok`` line.
+              ``god`` and at this slice's shapes under ``more_shapes``; the
+              long-row path as ``robust_quantiles_long``), then the ``ok``
+              line.
 
-The serving, training, GOD training, GOD eval, preset, scan and model-zoo
-paths each run with every launch count set to 0 just before and read just
-after; the run fails unless each kernel launched on the speech paths and on
-the GOD paths, and every kernel on each preset, scan and model-zoo path.
+The serving, training, unfused, GOD training, GOD eval, preset, scan,
+model-zoo and Brennan paths each run with every launch count set to 0 just
+before and read just after; the run fails unless each kernel launched on
+the speech paths and on the GOD paths, every kernel on each preset, scan,
+model-zoo and unfused path, the long-row path on each Brennan build and
+CLI, and the BN kernels in Brennan training.
 
 Any failure raises and exits non-zero.  Without CUDA, or without the rest
 of the repository beside it, it exits non-zero and prints no result.
@@ -123,7 +155,9 @@ from meg_decoding_tpu_torch.cli import (
     train_god,
     train_speech,
 )
+from meg_decoding_tpu_torch.cli.profile_train_step import profile_config
 from meg_decoding_tpu_torch.core.config import Config, compose, to_dict
+from meg_decoding_tpu_torch.data.brennan import build_brennan_dataset
 from meg_decoding_tpu_torch.data.god import build_god_dataset
 from meg_decoding_tpu_torch.data.layout import ch_locations_2d
 from meg_decoding_tpu_torch.data.roi import roi
@@ -133,6 +167,7 @@ from meg_decoding_tpu_torch.data.synthetic import (
     FULL_WIDTH_GOD,
     full_width_god,
     full_width_speech,
+    make_synthetic_brennan_raw,
 )
 from meg_decoding_tpu_torch.device import resolve_device
 from meg_decoding_tpu_torch.models.factory import get_model
@@ -140,7 +175,7 @@ from meg_decoding_tpu_torch.ops.kernels import batchnorm as bk
 from meg_decoding_tpu_torch.ops.kernels import build
 from meg_decoding_tpu_torch.ops.kernels import quantile as qk
 from meg_decoding_tpu_torch.ops.kernels import window_gather as wg
-from meg_decoding_tpu_torch.ops.resample import resample_len
+from meg_decoding_tpu_torch.ops.resample import resample_fft, resample_len
 from meg_decoding_tpu_torch.data.gwilliams import (
     SWEEP_CHUNK,
     collate_stats_chunk,
@@ -1494,6 +1529,347 @@ def phase_model_zoo(god_cfg, god_ds, seed, flush) -> dict:
     return {"launches": launches_by_model, "bn": rows}
 
 
+# Brennan2018 at the scale of the real dataset: 33 usable subjects × 60
+# EEG channels × a 742 s (12.4 min) audiobook recording at 500 Hz, a
+# 1024-wide embedding stream at 120 Hz (89,040 samples): rows of 88,920
+# keys a subject's channel after the shift and the trim, 33 times that
+# pooled
+BRENNAN = dict(S=33, C=60, fs=500.0, rec_sec=742.0, F=1024, rate=120.0)
+BRENNAN_DATA_RTOL = 1e-5   # card vs CPU: f32 FFTs of 371,000 samples, two libraries
+BRENNAN_CHECK_SUBJECTS = 3
+BRENNAN_CLI = dict(n_subjects=6, C=60, rec_sec=120.0, F=1024)
+BRENNAN_UPDATES = 4
+
+
+def brennan_launches() -> dict:
+    return {**all_launches(), "robust_quantiles_long": qk.long_launches}
+
+
+def brennan_raw_on_card(seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(X_raw (S, C, T) f32 at 500 Hz, Y (F, T_y) f32 at 120 Hz) on the
+    card from ``seed``, as ``make_synthetic_brennan_raw`` composes them
+    (each subject's EEG a random channel mix of the stream brought to the
+    EEG rate, plus noise) without writing ~3 GB of .mat files."""
+    b = BRENNAN
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    T, Ty = int(b["fs"] * b["rec_sec"]), int(b["rate"] * b["rec_sec"])
+    Y = torch.randn(b["F"], Ty, device="cuda", generator=g)
+    Y_up = resample_fft(Y, up=T / Ty)
+    mix = torch.randn(b["S"], b["C"], b["F"], device="cuda", generator=g) * 0.5
+    X = torch.einsum("scf,ft->sct", mix, Y_up)
+    del Y_up
+    X += 0.1 * torch.randn(X.shape, device="cuda", generator=g)
+    return X, Y
+
+
+def brennan_cfg(seed: int, overrides=()) -> Config:
+    """``configs/config.yaml`` with ``dataset=Brennan2018``: 60 channels on
+    the easycap layout, D1 = 270, D2 = 320, K = 32, 5 blocks, seq2seq,
+    F = 1024 (``last4layers``), 3 s segments at 120 Hz, B = 64."""
+    return compose(CONFIGS_DIR, "config", [
+        "dataset=Brennan2018", f"seed={seed}", f"batch_size={BATCH}",
+        *overrides])
+
+
+def long_quantile_case(x2d: torch.Tensor, flush, what: str) -> dict:
+    """The long-row path on (N, T) rows with the hard rows: against the
+    plain version (≤ 1 ulp), timed as the other kernels are.  The bound is
+    one read of the rows (the function's least traffic); the radix select
+    reads them once a pass, 4 times (``design_floor_ms``)."""
+    N, T = x2d.shape
+    if qk.kernel_route(T) != "global":
+        raise AssertionError(f"{what}: rows of {T} keys do not take the "
+                             "global-memory path")
+    x2d = with_hard_rows(x2d)
+    before = qk.long_launches
+    got, want, ulps = quantile_check(x2d)
+    if qk.long_launches != before + 1:
+        raise AssertionError(f"{what}: the long-row kernel did not launch")
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    q_lib = torch.tensor([0.25, 0.5, 0.75], device="cuda")
+    lib_ms, lib_note = library_time(
+        lambda: torch.quantile(x2d, q_lib, dim=1), flush)
+    nbytes = N * T * 4 + N * 3 * 4
+    row = {"at": what, "shape": [N, T], "tolerance": "<= 1 ulp",
+           "max_ulp": ulps,
+           "max_abs_err": float((got[fin] - want[fin]).abs().max()),
+           "kernel_ms": time_ms(lambda: qk.robust_quantiles(x2d), flush,
+                                reps=10),
+           "run_ms": run_ms([lambda x=x: qk.robust_quantiles(x)
+                             for x in copies(x2d, nbytes)], n=16, reps=3),
+           "plain_ms": time_ms(lambda: qk.robust_quantiles_plain(x2d), flush,
+                               reps=5),
+           "library_ms": lib_ms, "library_refused": lib_note,
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes",
+           "design_floor_ms": 4 * N * T * 4 / HBM_BYTES_PER_S * 1e3}
+    emit({"phase": "brennan_kernels", "kernel": "robust_quantiles_long", **row})
+    return row
+
+
+def phase_brennan_kernels(row_len: int, flush) -> dict:
+    """The quantile kernel's global-memory path against its plain version
+    on the card: hard rows at T = 58,113 (just past the shared-memory
+    path), Brennan's subject-wise rows (S·C rows of ``row_len``) and its
+    pooled rows (C rows of S·``row_len``)."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    S, Cb = BRENNAN["S"], BRENNAN["C"]
+    out = {}
+    for what, shape in (("T=58113", (BATCH, qk.SHARED_MAX_T + 1)),
+                        ("subject-wise", (S * Cb, row_len)),
+                        ("pooled", (Cb, S * row_len))):
+        out[what] = long_quantile_case(
+            torch.randn(shape, device="cuda", generator=g), flush, what)
+    return out
+
+
+def phase_brennan_data(seed: int):
+    """The Brennan build on the card at the real scale, subject-wise and
+    pooled (the quantile kernel's long rows), each against the CPU on a
+    3-subject subset.  Returns (the subject-wise dataset, its row length,
+    the build's launches)."""
+    t0 = time.perf_counter()
+    X_raw, Y = brennan_raw_on_card(seed)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    fs = BRENNAN["fs"]
+    out, launches = {}, {}
+    ds = None
+    for sw in (True, False):
+        cfg = brennan_cfg(seed, [f"preprocs.subject_wise={str(sw).lower()}"])
+        reset_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built = build_brennan_dataset(cfg, Y, X_raw, fs, device="cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        mode = "subject_wise" if sw else "pooled"
+        launches[mode] = brennan_launches()
+        want = {"window_gather": 0, "robust_quantiles": 0, "bn_stats": 0,
+                "bn_bwd_stats": 0, "robust_quantiles_long": 1}
+        if launches[mode] != want:
+            raise AssertionError(f"Brennan build ({mode}) launches "
+                                 f"{launches[mode]}, expected {want}")
+        if not bool(torch.isfinite(built.X).all()):
+            raise AssertionError(f"Brennan build ({mode}): X not finite")
+        # card against CPU on the first subjects (the same host arithmetic)
+        n = BRENNAN_CHECK_SUBJECTS
+        sub_card = build_brennan_dataset(cfg, Y, X_raw[:n], fs, device="cuda")
+        t0 = time.perf_counter()
+        sub_cpu = build_brennan_dataset(cfg, Y.cpu(), X_raw[:n].cpu(), fs,
+                                        device="cpu")
+        cpu_s = time.perf_counter() - t0
+        err = float((sub_card.X.cpu() - sub_cpu.X).abs().max())
+        peak = float(sub_cpu.X.abs().max())
+        if not (err <= BRENNAN_DATA_RTOL * peak
+                and torch.equal(sub_card.Y.cpu(), sub_cpu.Y)):
+            raise AssertionError(f"Brennan build ({mode}) card vs CPU: "
+                                 f"max|ΔX| {err}, max|X| {peak}")
+        out[mode] = {"card_build_s": card_s, "X": list(built.X.shape),
+                     "Y": list(built.Y.shape),
+                     "X_bytes": built.X.numel() * 4,
+                     "Y_bytes": built.Y.numel() * 4,
+                     "cpu_check": {"subjects": n, "cpu_build_s": cpu_s,
+                                   "max_abs_err": err, "max_abs_X": peak,
+                                   "limit": f"{BRENNAN_DATA_RTOL} * max|X|"},
+                     "launches": launches[mode]}
+        del sub_card, sub_cpu
+        if sw:
+            ds = built
+        else:
+            del built
+    row_len = int(ds.X.shape[0] * ds.X.shape[3])
+    del X_raw, Y
+    emit({"phase": "brennan_data", "raw": [BRENNAN["S"], BRENNAN["C"],
+                                          int(fs * BRENNAN["rec_sec"])],
+          "fs": fs, "rec_sec": BRENNAN["rec_sec"], "make_on_card_s": make_s,
+          "row_keys": row_len, "pooled_row_keys": BRENNAN["S"] * row_len,
+          **out, "reduced": "none: 33 subjects as the real dataset keeps "
+                            "after its exclusions; synthetic EEG"})
+    return ds, row_len, launches
+
+
+def phase_brennan_training(ds, seed: int) -> dict:
+    """The unfused step at the full width (``brennan_cfg``) on the built
+    dataset: the first step on the card against the CPU (loss and global
+    gradient norm within 1e-4), then the steady step time and device
+    operations a step (``profile_train_step.profile_config``).  Returns
+    the launch counts of the timed steps."""
+    dev = torch.device("cuda")
+    cfg = brennan_cfg(seed)
+    cfg.num_subjects, cfg.num_channels = ds.num_subjects, int(ds.X.shape[2])
+    loc = ch_locations_2d(cfg)
+    loss_cfg = dataclasses.replace(train_speech.loss_config(cfg), grad_norms=True)
+    collate = evaluate_speech.collate_config(cfg)
+    if collate.enabled:
+        raise AssertionError("Brennan's step must run without the collate")
+
+    def train_state(device):
+        model = get_model(cfg, loc, device=device, seed=seed,
+                          num_channels=cfg.num_channels)
+        opt = make_optimizer(cfg, int(cfg.updates))
+        return model, opt, create_train_state(model, opt,
+                                              float(cfg.init_temperature), seed)
+
+    model, opt, state = train_state(dev)
+    cpu_model, cpu_opt, cpu_state = train_state("cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    pool = evaluate_speech.SpeechPool(ds, seed=seed)
+    X, Y, subs = pool.gather(np.arange(BATCH) % len(pool))
+    step = make_train_step(model, opt, loss_cfg, collate)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, X, Y, subs, centre=0)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    _, mc = make_train_step(cpu_model, cpu_opt, loss_cfg, collate)(
+        cpu_state, X.cpu(), Y.cpu(), subs.cpu(), centre=0)
+    check = {"loss_rel_err": rel_err(m["loss"], mc["loss"]),
+             "grad_norm_rel_err": rel_err(m["grad_norm"], mc["grad_norm"]),
+             "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    if not (check["loss_rel_err"] <= 1e-4 and check["grad_norm_rel_err"] <= 1e-4):
+        raise AssertionError(f"card vs CPU Brennan train step: {check}")
+    del cpu_model, cpu_opt, cpu_state
+
+    rng = np.random.RandomState(seed)
+
+    def one(i):
+        idx = rng.randint(0, len(pool), BATCH)
+        return step(state, *pool.gather(
+            idx, generator=torch.Generator().manual_seed(i)))[1]
+
+    reset_all_launches()
+    prof = profile_config(cfg, one, warmup=2, steps=5)
+    launches = brennan_launches()
+    emit({"phase": "brennan_training", "card_vs_cpu": check,
+          "rel_err_limit": 1e-4, "first_step_ms": first_ms,
+          "steady_step_ms": prof["step_ms_median"], "step_ms": prof["step_ms"],
+          "device_ops_per_step": prof["device_ops_per_step"],
+          "busy_ms_per_step": prof["busy_ms_per_step"],
+          "idle_share_of_window": prof["idle_share_of_window"],
+          "groups_ms_per_step": prof["groups_ms_per_step"],
+          "width": {"C": cfg.num_channels, "S": cfg.num_subjects,
+                    "D1": int(cfg.D1), "D2": int(cfg.D2), "K": int(cfg.K),
+                    "F": int(Y.shape[1]), "T": int(X.shape[2]), "B": BATCH},
+          "launches": launches})
+    return {"launches": launches, "steady_step_ms": prof["step_ms_median"]}
+
+
+def phase_brennan_cli(work: str, seed: int) -> dict:
+    """The main path on Brennan: ``make_synthetic_brennan_raw`` (6 subjects
+    × 60 channels × 120 s at 500 Hz, F = 1024), the train CLI for one
+    epoch of BRENNAN_UPDATES updates with the subjects pooled for the
+    robust scale (rows of 6 × 14,040 = 84,240 keys: the long-row path), then the
+    eval CLI on its checkpoint.  Returns the launch counts of each."""
+    root = os.path.join(work, "brennan")
+    t0 = time.perf_counter()
+    make_synthetic_brennan_raw(root, seed=seed, **BRENNAN_CLI)
+    write_s = time.perf_counter() - t0
+    out = os.path.join(work, "brennan_out")
+    overrides = [f"root_dir={root}", f"save_root={out}", "epochs=1",
+                 f"updates={BRENNAN_UPDATES}", "run_name=smoke",
+                 "preprocs.subject_wise=false"]
+    result = {}
+    for name, cli in (("train", train_speech), ("eval", evaluate_speech)):
+        reset_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cli.run(brennan_cfg(seed, overrides), device="cuda")
+        torch.cuda.synchronize()
+        result[name] = {"seconds": time.perf_counter() - t0,
+                        "launches": brennan_launches(), "result": res}
+    best, ev = result["train"]["result"], result["eval"]["result"]
+    if best.get("train_skipped") != 0.0 or not (
+            math.isfinite(best["train_loss"]) and math.isfinite(best["test_loss"])):
+        raise AssertionError(f"Brennan train CLI: {best}")
+    if not (0.0 <= ev["test_top1"] <= ev["test_top10"] <= 1.0
+            and math.isfinite(ev["pairwise_correlation"])):
+        raise AssertionError(f"Brennan eval CLI: {ev}")
+    # one long-row launch a build; BN kernels in training only, 10 an update
+    want = {"train": {"window_gather": 0, "robust_quantiles": 0,
+                      "bn_stats": BN_PER_STEP * BRENNAN_UPDATES,
+                      "bn_bwd_stats": BN_PER_STEP * BRENNAN_UPDATES,
+                      "robust_quantiles_long": 1},
+            "eval": {"window_gather": 0, "robust_quantiles": 0, "bn_stats": 0,
+                     "bn_bwd_stats": 0, "robust_quantiles_long": 1}}
+    for name in want:
+        if result[name]["launches"] != want[name]:
+            raise AssertionError(f"Brennan {name} CLI launches "
+                                 f"{result[name]['launches']}, expected {want[name]}")
+    emit({"phase": "brennan_cli", "write_s": write_s, **BRENNAN_CLI,
+          "updates": BRENNAN_UPDATES, "train_cli_s": result["train"]["seconds"],
+          "eval_cli_s": result["eval"]["seconds"],
+          "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
+                                             "test_loss", "test_top10")},
+          "eval": ev, "launches": {k: r["launches"] for k, r in result.items()}})
+    return {k: r["launches"] for k, r in result.items()}
+
+
+def phase_unfused_step(cfg, ds, tr_idx, seed, work) -> dict:
+    """Gwilliams with ``fuse_gather: false``: the unfused first step (the
+    pool's gather, then ``make_train_step``) against the fused step on the
+    same segments and sessions (loss and global gradient norm within
+    1e-5), then the main path: the train CLI for one epoch with
+    ``fuse_gather=false``.  Returns its launch counts."""
+    dev = torch.device("cuda")
+    loc = ch_locations_2d(cfg)
+    loss_cfg = dataclasses.replace(train_speech.loss_config(cfg), grad_norms=True)
+    collate = evaluate_speech.collate_config(cfg)
+    pool = evaluate_speech.SpeechPool(ds, tr_idx, seed=seed)
+    idx = np.random.RandomState(seed + 3).randint(0, len(pool), BATCH)
+    metrics = {}
+    for kind in ("fused", "unfused"):  # the same weights: one seed
+        m_k = get_model(cfg, loc, device=dev, seed=seed)
+        opt = make_optimizer(cfg, int(cfg.updates))
+        state = create_train_state(m_k, opt, float(cfg.init_temperature), seed)
+        gen = torch.Generator().manual_seed(seed + 4)
+        if kind == "fused":
+            step = make_fused_speech_step(m_k, opt, loss_cfg, collate, ds)
+            _, metrics[kind] = step(state, pool.segment_ids(idx),
+                                    generator=gen, centre=0)
+        else:
+            step = make_train_step(m_k, opt, loss_cfg, collate)
+            _, metrics[kind] = step(state, *pool.gather(idx, generator=gen),
+                                    centre=0)
+    check = {k: rel_err(metrics["unfused"][k], metrics["fused"][k])
+             for k in ("loss", "grad_norm")}
+    if not all(v <= 1e-5 for v in check.values()):
+        raise AssertionError(f"unfused vs fused step: {check}")
+
+    out = os.path.join(work, "unfused_out")
+    tcfg = compose(CONFIGS_DIR, "config", [
+        f"cache_dir={cfg.cache_dir}", f"save_root={out}", f"seed={seed}",
+        f"batch_size={BATCH}", "epochs=1", f"updates={TRAIN_UPDATES}",
+        "fuse_gather=false", "run_name=unfused"])
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best = train_speech.run(tcfg, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = all_launches()
+    n_test = len(ds) - len(tr_idx)
+    pools = len(_test_pool_starts(n_test, min(n_test, BATCH),
+                                  bool(tcfg.get("test_sweep", True))))
+    # as the fused path: per update 2 gathers, 1 collate, 10 + 10 BN
+    # kernels; per test pool 2 gathers and 1 collate
+    expected = {"window_gather": 2 * (TRAIN_UPDATES + pools),
+                "robust_quantiles": TRAIN_UPDATES + pools,
+                "bn_stats": BN_PER_STEP * TRAIN_UPDATES,
+                "bn_bwd_stats": BN_PER_STEP * TRAIN_UPDATES}
+    if launches != expected:
+        raise AssertionError(f"unfused CLI launches {launches}, expected {expected}")
+    if best.get("train_skipped") != 0.0 or not math.isfinite(best["train_loss"]):
+        raise AssertionError(f"unfused CLI: {best}")
+    emit({"phase": "unfused_step", "rel_err": check, "limit": 1e-5,
+          "loss": float(metrics["fused"]["loss"]), "train_cli_s": run_s,
+          "test_pools": pools, "launches": launches,
+          "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
+                                             "test_loss", "test_top10",
+                                             "t_gather_ms", "t_step_ms")}})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke run of the port")
     ap.add_argument("--seed", type=int, default=0)
@@ -1503,9 +1879,17 @@ def main(argv=None) -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     resolve_device("cuda")  # TF32 off for f32 parity
+    seconds, clock = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Wall seconds since the previous lap, under ``name``."""
+        now = time.perf_counter()
+        seconds[name] = now - clock[0]
+        clock[0] = now
 
     phase_build()
     phase_device()
+    lap("build")
 
     work = os.path.join(ROOT, "runs_out", f"chip_smoke_{os.getpid()}")
     try:
@@ -1516,18 +1900,26 @@ def main(argv=None) -> int:
         emit({"phase": "data", "seconds": time.perf_counter() - t0,
               "recordings": list(ds.recordings.shape),
               "y_stream": list(ds.y_stream.shape), "segments": len(ds)})
+        lap("data")
 
         flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
         measured = phase_kernels(ds, flush)
         bn = phase_bn_kernels(flush)[str(torch.float32)]
         del flush
+        lap("kernels")
         serving = phase_serving(cfg, ds, tr_idx, args.seed)
+        lap("serving")
         training = phase_training(cfg, ds, tr_idx, args.seed, work)
+        lap("training")
+        unfused = phase_unfused_step(cfg, ds, tr_idx, args.seed, work)
+        lap("unfused_step")
         flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
         presets = phase_presets(cfg, ds, tr_idx, args.seed, work, flush)
         del flush
+        lap("presets")
         scan_speech = phase_scan_speech(cfg, ds, tr_idx, args.seed, work)
         del ds
+        lap("scan_speech")
 
         god_cfg, god_ds = phase_god_data(work, args.seed)
         flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
@@ -1539,12 +1931,39 @@ def main(argv=None) -> int:
         flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
         zoo = phase_model_zoo(god_cfg, god_ds, args.seed, flush)
         del flush
+        lap("god")
+
+        brennan_ds, row_len, brennan_build = phase_brennan_data(args.seed)
+        lap("brennan_data")
+        flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+        brennan_k = phase_brennan_kernels(row_len, flush)
+        del flush
+        lap("brennan_kernels")
+        brennan_train = phase_brennan_training(brennan_ds, args.seed)
+        del brennan_ds
+        lap("brennan_training")
+        brennan_cli = phase_brennan_cli(work, args.seed)
+        lap("brennan_cli")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     new_paths = {**{f"preset_{k}": v for k, v in presets["launches"].items()},
                  "scan_speech": scan_speech, "scan_god": scan_god,
-                 **{f"zoo_{k}": v for k, v in zoo["launches"].items()}}
+                 **{f"zoo_{k}": v for k, v in zoo["launches"].items()},
+                 "unfused_cli": unfused}
+    # the Brennan paths, each with the kernels it must launch
+    brennan_paths = {
+        **{f"brennan_build_{k}": (v, ("robust_quantiles_long",))
+           for k, v in brennan_build.items()},
+        "brennan_training": (brennan_train["launches"],
+                             ("bn_stats", "bn_bwd_stats")),
+        "brennan_train_cli": (brennan_cli["train"], ("robust_quantiles_long",
+                                                     "bn_stats", "bn_bwd_stats")),
+        "brennan_eval_cli": (brennan_cli["eval"], ("robust_quantiles_long",))}
+    for path, (launches, needed) in brennan_paths.items():
+        for name in needed:
+            if launches[name] <= 0:
+                raise AssertionError(f"{name}: no launch on the {path} path")
     for path, launches in (("serving", serving), ("training", training["launches"]),
                            *new_paths.items()):
         for name, n in launches.items():
@@ -1552,12 +1971,12 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{name}: no launch on the {path} path")
     paths = {"serving": serving, "training": training["launches"],
              "god_training": god_training["launches"], "god_eval": god_eval,
-             **new_paths}
+             **new_paths, **{k: v for k, (v, _) in brennan_paths.items()}}
     for name in training["launches"]:
         if paths["god_training"][name] + paths["god_eval"][name] <= 0:
             raise AssertionError(f"{name}: no launch on the GOD paths")
     launches = {k: sum(p.get(k, 0) for p in paths.values())
-                for k in training["launches"]}
+                for k in (*training["launches"], "robust_quantiles_long")}
     by_path = lambda k: {p: n.get(k, 0) for p, n in paths.items()}
     g = measured["gather"][:2]  # one batch: the X and the f32 Y gather
     q = measured["quantiles"]
@@ -1566,6 +1985,7 @@ def main(argv=None) -> int:
     per_step = (sum(c["kernel_ms"] for c in g) + q["kernel_ms"]
                 + BN_PER_STEP * (bn["bn_stats"]["kernel_ms"]
                                  + bn["bn_bwd_stats"]["kernel_ms"]))
+    emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"phase": "step_share", "kernels_ms_per_step": per_step,
           "steady_step_ms": training["steady_step_ms"],
           "share": per_step / training["steady_step_ms"]})
@@ -1591,6 +2011,7 @@ def main(argv=None) -> int:
                 "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
                 "bound_ms": r["bound_ms"] if "bound_ms" in r else r["bound_us"] / 1e3}
     cg, cq = presets["chunk_gather"], presets["chunk_quantiles"]
+    bl = brennan_k["subject-wise"]
     more = {
         "window_gather": {"sweep chunk": at(cg, cg["shape"]),
                           **{f"B=256 {k}": at(c, c["shape"])
@@ -1623,6 +2044,22 @@ def main(argv=None) -> int:
          "bound_by": "bytes", "library_ms": q["library_ms"],
          "god": god_rows["robust_quantiles"],
          "more_shapes": more["robust_quantiles"]},
+        # the global-memory path of the same source, for rows past the
+        # shared-memory limit, at Brennan's subject-wise rows
+        {"name": "robust_quantiles_long", "route": "cuda",
+         "source": "meg_decoding_tpu_torch/csrc/robust_quantiles.cu",
+         "replaces": "meg_decoding_tpu/ops/pallas/quantile.py:120",
+         "launches": launches["robust_quantiles_long"],
+         "launches_by_path": by_path("robust_quantiles_long"),
+         "max_abs_err": max(r["max_abs_err"] for r in brennan_k.values()),
+         "max_ulp": max(r["max_ulp"] for r in brennan_k.values()),
+         "shape": bl["shape"], "ms": bl["kernel_ms"], "run_ms": bl["run_ms"],
+         "plain_ms": bl["plain_ms"], "bound_ms": bl["bound_ms"],
+         "bound_by": "bytes", "library_ms": bl["library_ms"],
+         "library_refused": bl["library_refused"],
+         "more_shapes": {k: dict(at(r, r["shape"]),
+                                 library_refused=r["library_refused"])
+                         for k, r in brennan_k.items() if k != "subject-wise"}},
         *({"name": name, "route": "cuda",
            "source": "meg_decoding_tpu_torch/csrc/batchnorm_stats.cu",
            "replaces": f"meg_decoding_tpu/ops/pallas/batchnorm.py:{line}",

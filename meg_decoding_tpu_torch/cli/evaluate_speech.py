@@ -1,10 +1,12 @@
-"""Speech-decoding evaluation from a checkpoint (Gwilliams2022).
-Port of ``run`` from ``meg_decoding_tpu/cli/evaluate_speech.py``.
+"""Speech-decoding evaluation from a checkpoint (Gwilliams2022 /
+Brennan2018).  Port of ``run`` from ``meg_decoding_tpu/cli/evaluate_speech.py``.
 
 Scores the whole test split in candidate pools of ``test_size`` segments:
 segment-retrieval top-1/top-10 and pairwise identification (correlation),
 and writes ``{save_root}/eval_results.json``.  It reads the same YAML
-configs through the port's ``core/config.py``.
+configs through the port's ``core/config.py``.  The test split is the
+trainer's, from the same seed; Brennan's segments were scaled when the
+dataset was built, so they take no collate.
 
 The checkpoint is ``cfg.ckpt_path``, else the first of ``model_best.pt``,
 ``model_last.pt`` (the train CLI's, as the JAX package prefers best, then
@@ -28,10 +30,10 @@ import numpy as np
 import torch
 
 from meg_decoding_tpu_torch.core.config import Config, compose
+from meg_decoding_tpu_torch.data.brennan import BrennanPacked, build_brennan_dataset
 from meg_decoding_tpu_torch.data.gwilliams import (
     GwilliamsPacked,
     build_gwilliams_dataset,
-    gather_speech_batch,
     load_gwilliams_cache,
 )
 from meg_decoding_tpu_torch.data.layout import ch_locations_2d
@@ -48,16 +50,19 @@ from meg_decoding_tpu_torch.train.steps import CollateConfig
 
 __all__ = ["run", "find_gwilliams_cache", "checkpoint_path",
            "load_model_state", "collate_config", "SpeechPool",
-           "load_gwilliams_splits"]
+           "load_gwilliams_splits", "load_brennan_splits",
+           "load_speech_splits"]
 
 
 class SpeechPool:
-    """A packed split (or a subset of its segments) with the reference's
-    random subject-session pairing, drawn from a seeded ``torch.Generator``:
-    ``gather(idx) → (X, Y, subject_idxs)``; ``gather(idx, generator)``
-    draws the sessions from the given generator instead."""
+    """A packed speech split (or a subset of its segments) with the
+    reference's random pairing — a Gwilliams segment with a random
+    subject-session, a Brennan chunk with a random subject — drawn from a
+    seeded ``torch.Generator``: ``gather(idx) → (X, Y, subject_idxs)``;
+    ``gather(idx, generator)`` draws from the given generator instead."""
 
-    def __init__(self, ds: GwilliamsPacked, indices=None, seed: int = 0):
+    def __init__(self, ds: GwilliamsPacked | BrennanPacked, indices=None,
+                 seed: int = 0):
         self.ds = ds
         self.indices = None if indices is None else np.asarray(indices)
         self.generator = torch.Generator().manual_seed(int(seed))
@@ -66,14 +71,19 @@ class SpeechPool:
     def __len__(self):
         return len(self.ds) if self.indices is None else len(self.indices)
 
+    @property
+    def num_channels(self) -> int:
+        """The channels of a gathered batch."""
+        return self.ds.num_channels
+
     def segment_ids(self, idx) -> np.ndarray:
         """Pool positions → global segment ids of ``ds``."""
         return np.asarray(idx) if self.indices is None \
             else self.indices[np.asarray(idx)]
 
     def gather(self, idx, generator: torch.Generator | None = None):
-        X, Y, subs, _ = gather_speech_batch(
-            self.ds, self.segment_ids(idx),
+        X, Y, subs, _ = self.ds.gather(
+            self.segment_ids(idx),
             generator=self.generator if generator is None else generator)
         return X, Y, subs
 
@@ -116,6 +126,33 @@ def load_gwilliams_splits(cfg, seed: int, device) -> tuple[SpeechPool, SpeechPoo
     return SpeechPool(packed, tr, seed=seed), SpeechPool(packed, te, seed=seed + 1)
 
 
+def load_brennan_splits(cfg, seed: int, device) -> tuple[SpeechPool, SpeechPool]:
+    """The (train, test) pools of the trainer: the dataset built from the
+    raw EEG under ``{root_dir}/data/Brennan2018/raw`` and the embedding
+    stream at ``y_embeds_path``, then ``random_split`` over its chunks."""
+    root = cfg.get("root_dir", ".")
+    y_path = (cfg.get("y_embeds_path")
+              or f"{root}/data/Brennan2018/Y_embeds/embd_wav2vec.npy")
+    if not os.path.exists(y_path):
+        raise NotImplementedError(
+            f"no Brennan embedding stream at {y_path}: embedding the audio "
+            "with wav2vec2 is not ported yet (ROADMAP Queue 1 item 9, "
+            "stimulus features); write the (F, T) stream at the brain rate "
+            "there or point y_embeds_path at it")
+    packed = build_brennan_dataset(cfg, np.load(y_path), device=device)
+    tr, te = random_split(torch.Generator().manual_seed(seed), len(packed),
+                          float(cfg.split_ratio))
+    return (SpeechPool(packed.subset(tr), seed=seed),
+            SpeechPool(packed.subset(te), seed=seed + 1))
+
+
+def load_speech_splits(cfg, seed: int, device) -> tuple[SpeechPool, SpeechPool]:
+    """The (train, test) pools of ``cfg.dataset``."""
+    if cfg.dataset == "Brennan2018":
+        return load_brennan_splits(cfg, seed, device)
+    return load_gwilliams_splits(cfg, seed, device)
+
+
 def checkpoint_path(cfg) -> str:
     if cfg.get("ckpt_path"):
         return cfg.ckpt_path
@@ -137,24 +174,28 @@ def load_model_state(path: str, device) -> dict:
 
 def collate_config(cfg) -> CollateConfig:
     """The collate the trainer applied, from ``cfg.preprocs`` (no baseline
-    without a resample rate, as GOD's config allows)."""
+    without a resample rate, as GOD's config allows).  Off for Brennan,
+    which scales and baseline-corrects when the dataset is built (JAX
+    ``cli/train_speech.py:310-315``)."""
     rate = float(cfg.preprocs.get("brain_resample_rate") or 0)
     return CollateConfig(
         baseline_len_samp=int(rate * float(cfg.preprocs.get("baseline_len_sec", 0))),
         clamp_lim=float(cfg.preprocs.get("clamp_lim", 20)),
-        clamp=bool(cfg.preprocs.get("clamp", True)))
+        clamp=bool(cfg.preprocs.get("clamp", True)),
+        enabled=cfg.dataset != "Brennan2018")
 
 
 def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
     dev = resolve_device(device)
-    if cfg.dataset != "Gwilliams2022":
+    if cfg.dataset not in ("Gwilliams2022", "Brennan2018"):
         raise NotImplementedError(
-            f"dataset {cfg.dataset!r} is not ported yet (Gwilliams2022 only)")
+            f"dataset {cfg.dataset!r} is not a speech dataset "
+            "(Gwilliams2022, Brennan2018)")
     seed = int(cfg.get("seed", 0))
     save_root = cfg.get("save_root", "runs_out")
-    test_set = load_gwilliams_splits(cfg, seed, dev)[1]
+    test_set = load_speech_splits(cfg, seed, dev)[1]
     cfg.num_subjects = test_set.num_subjects
-    cfg.num_channels = int(test_set.ds.recordings.shape[2])
+    cfg.num_channels = test_set.num_channels
     model = get_model(cfg, ch_locations_2d(cfg), device=dev, seed=seed,
                       num_channels=cfg.num_channels)
 

@@ -1,24 +1,31 @@
-"""Speech-decoding trainer, Gwilliams2022 on one device.  Port of ``run``
-from ``meg_decoding_tpu/cli/train_speech.py``: the fused gather + train
-step (``train/scan_loop.py``) driven by ``fit``, or, with
-``use_scan_epochs`` on a sentence/deep split, the whole-epoch form driven by
-``fit_scan``; either with the cached collate statistics
-(``cache_collate_stats``, as the speed presets ``configs/throughput*.yaml``
-set it).
+"""Speech-decoding trainer, Gwilliams2022 and Brennan2018 on one device.
+Port of ``run`` from ``meg_decoding_tpu/cli/train_speech.py``.  Gwilliams
+runs the fused gather + train step (``train/scan_loop.py``) driven by
+``fit``, or, with ``use_scan_epochs`` on a sentence/deep split, the
+whole-epoch form driven by ``fit_scan``; either with the cached collate
+statistics (``cache_collate_stats``, as the speed presets
+``configs/throughput*.yaml`` set it).  Brennan, and Gwilliams with
+``fuse_gather: false``, run the unfused step: the pool gathers the batch,
+then ``make_train_step`` (no collate for Brennan: its segments were scaled
+when the dataset was built).
 
 Reference: ``train.py`` — builds the dataset per ``split_mode``
 (sentence/shallow/deep, :57-90), per-batch Adam updates, a test pass and
 model_last each epoch.  It reads the same YAML configs; the data source is
 a reference-format preprocessed cache (``cfg.cache_dir``, or the first
-cache under ``{root_dir}/data/Gwilliams2022/preprocessed``).
+cache under ``{root_dir}/data/Gwilliams2022/preprocessed``), or for
+Brennan the raw EEG under ``{root_dir}/data/Brennan2018/raw`` and the
+embedding stream at ``y_embeds_path`` (default
+``{root_dir}/data/Brennan2018/Y_embeds/embd_wav2vec.npy``).
 
 Writes ``{save_root}/runs/<run>/metrics.jsonl`` and ``config.yaml``, and
 ``{save_root}/ckpt/model_last.pt`` / ``model_best.pt`` (the full train
 state; ``resume=true`` continues from model_last).
 
-Not ported yet, and refused: Brennan2018, the host-resident spill path,
-the unfused step, wandb, and data parallelism over several GPUs (pass
-``data_parallel=false`` to train on one of them).
+Not ported yet, and refused: embedding the Brennan audio when the stream
+is missing (wav2vec2), the host-resident spill path, wandb, and data
+parallelism over several GPUs (pass ``data_parallel=false`` to train on
+one of them).
 
 Run: ``python -m meg_decoding_tpu_torch.cli.train_speech
 [--config-path configs] [--config-name config] [--device cuda] key=value …``
@@ -33,7 +40,7 @@ import torch
 
 from meg_decoding_tpu_torch.cli.evaluate_speech import (
     collate_config,
-    load_gwilliams_splits,
+    load_speech_splits,
 )
 from meg_decoding_tpu_torch.core.config import Config, compose
 from meg_decoding_tpu_torch.data.layout import ch_locations_2d
@@ -52,28 +59,46 @@ from meg_decoding_tpu_torch.train.scan_loop import (
 )
 from meg_decoding_tpu_torch.train.schedules import make_optimizer
 from meg_decoding_tpu_torch.train.state import create_train_state
-from meg_decoding_tpu_torch.train.steps import LossConfig, make_eval_step
+from meg_decoding_tpu_torch.train.steps import (
+    LossConfig,
+    make_eval_step,
+    make_train_step,
+)
 from meg_decoding_tpu_torch.utils.logging import RunLogger
 
 __all__ = ["run", "loss_config"]
 
 
 def _refuse_unported(cfg, dev: torch.device) -> None:
-    if cfg.dataset != "Gwilliams2022":
+    if cfg.dataset not in ("Gwilliams2022", "Brennan2018"):
         raise NotImplementedError(
-            f"dataset {cfg.dataset!r} is not ported yet (Gwilliams2022 only)")
+            f"dataset {cfg.dataset!r} is not a speech dataset "
+            "(Gwilliams2022, Brennan2018)")
     for key, what in (("host_resident", "the host-resident spill path"),
                       ("use_wandb", "wandb logging"),
                       ("distributed", "multi-host training")):
         if cfg.get(key, False):
             raise NotImplementedError(f"{key}: {what} is not ported yet")
-    if not cfg.get("fuse_gather", True):
-        raise NotImplementedError("fuse_gather=false: only the fused step is ported")
     if (dev.type == "cuda" and torch.cuda.device_count() > 1
             and cfg.get("data_parallel", True)):
         raise NotImplementedError(
             "data parallelism over several GPUs is not ported yet; pass "
             "data_parallel=false to train on one")
+
+
+class _FusedPool:
+    """A pool for the fused step, as JAX's ``_FusedLoader``: its gather
+    gives the segment ids and the generator, and the step draws the
+    sessions and gathers the batch itself."""
+
+    def __init__(self, pool):
+        self.pool = pool
+
+    def __len__(self):
+        return len(self.pool)
+
+    def gather(self, idx, generator: torch.Generator):
+        return self.pool.segment_ids(idx), generator
 
 
 def loss_config(cfg) -> LossConfig:
@@ -91,9 +116,9 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
     save_root = cfg.get("save_root", "runs_out")
     os.makedirs(save_root, exist_ok=True)
 
-    train_set, test_set = load_gwilliams_splits(cfg, seed, dev)
+    train_set, test_set = load_speech_splits(cfg, seed, dev)
     cfg.num_subjects = train_set.num_subjects
-    cfg.num_channels = int(train_set.ds.recordings.shape[2])
+    cfg.num_channels = train_set.num_channels
     model = get_model(cfg, ch_locations_2d(cfg), device=dev, seed=seed,
                       num_channels=cfg.num_channels)
     collate_cfg = collate_config(cfg)
@@ -113,9 +138,12 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
     ckpt = CheckpointManager(os.path.join(save_root, "ckpt"))
     state, start_epoch = resume_if_requested(
         cfg, ckpt, state, save_root, steps_per_epoch(cfg, len(train_set)))
-    if cfg.get("use_scan_epochs", False) and train_set.indices is None:
-        # the whole-epoch form, on a sentence/deep split (the packed set is
-        # the training split; a shallow subset takes the per-step driver)
+    gwilliams = cfg.dataset == "Gwilliams2022"
+    if (gwilliams and cfg.get("use_scan_epochs", False)
+            and train_set.indices is None):
+        # the whole-epoch form, on a sentence/deep Gwilliams split (the
+        # packed set is the training split; a shallow subset and Brennan
+        # take the per-step driver)
         scan_epoch = make_gwilliams_scan_epoch(
             model, optimizer, loss_cfg, collate_cfg, train_set.ds,
             updates=updates, batch_size=int(cfg.batch_size),
@@ -124,10 +152,17 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
                            eval_step, logger, ckpt, seed=seed,
                            start_epoch=start_epoch)
         return best
-    fused = make_fused_speech_step(model, optimizer, loss_cfg, collate_cfg,
-                                   train_set.ds, cache_collate_stats=cache_stats)
-    _, best = fit(cfg, train_set, test_set, state, fused, eval_step, logger,
-                  ckpt, seed=seed, start_epoch=start_epoch)
+    if gwilliams and bool(cfg.get("fuse_gather", True)):
+        fused = make_fused_speech_step(model, optimizer, loss_cfg,
+                                       collate_cfg, train_set.ds,
+                                       cache_collate_stats=cache_stats)
+        train_set_for_fit = _FusedPool(train_set)
+        step = lambda state, seg, gen: fused(state, seg, generator=gen)
+    else:
+        train_set_for_fit = train_set
+        step = make_train_step(model, optimizer, loss_cfg, collate_cfg)
+    _, best = fit(cfg, train_set_for_fit, test_set, state, step, eval_step,
+                  logger, ckpt, seed=seed, start_epoch=start_epoch)
     return best
 
 

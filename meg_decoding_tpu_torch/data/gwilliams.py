@@ -155,6 +155,15 @@ class GwilliamsPacked:
     def num_sessions(self) -> int:
         return int(self.recordings.shape[0])
 
+    @property
+    def num_channels(self) -> int:
+        return int(self.recordings.shape[2])
+
+    def gather(self, segment_ids, generator: torch.Generator | None = None):
+        """``gather_speech_batch`` with the sessions drawn from
+        ``generator``: ``(X, Y, subject_idxs, segment_ids)``."""
+        return gather_speech_batch(self, segment_ids, generator=generator)
+
     def segment_table(self) -> np.ndarray:
         """(N, 2) rows (task, i_in_task) for global segment ids (cached)."""
         if self._seg_table is None:

@@ -1,7 +1,6 @@
 """Sensor geometry: 2-D channel locations for spatial attention.
 
-Port of ``meg_decoding_tpu/data/layout.py`` for the Gwilliams2022 and GOD
-paths (the Brennan branch comes with its slice).  Resolution order:
+Port of ``meg_decoding_tpu/data/layout.py``.  Resolution order:
 
 1. ``cfg.layout_csv`` — explicit CSV of per-channel coordinates (2 or 3
    cols), filtered to ``roi_channels`` when given.
@@ -9,7 +8,13 @@ paths (the Brennan branch comes with its slice).  Resolution order:
    two of three coordinates, reference ``layout.py:34-36``) filtered to the
    ROI channels; falls back to the port's packaged copy of the Ricoh
    montage (``data/layouts/god_montage.csv``).
-3. Gwilliams — the cache-resident ``layout.npy`` the cache builder extracts
+3. Brennan — the port's packaged easycap-M10 coordinates
+   (``data/layouts/easycap_M10.csv``, the JAX package's file: a geometric
+   reconstruction of the 61-electrode equidistant montage, projected like
+   MNE's ``find_layout``), minus broken channel 29 (reference
+   ``layout.py:16-18``) for 60 channels; any other channel count gets a
+   synthetic cap.
+4. Gwilliams — the cache-resident ``layout.npy`` the cache builder extracts
    from the first BIDS recording (``cfg.cache_dir``); otherwise a
    deterministic synthetic cap layout (Vogel spiral over the scalp disc),
    structure-preserving only.
@@ -28,7 +33,8 @@ import numpy as np
 
 from meg_decoding_tpu_torch.data.roi import LAYOUTS_DIR, roi
 
-__all__ = ["ch_locations_2d", "normalize_locations", "synthetic_cap_locations"]
+__all__ = ["ch_locations_2d", "easycap_m10_locations", "normalize_locations",
+           "synthetic_cap_locations"]
 
 
 def normalize_locations(loc: np.ndarray) -> np.ndarray:
@@ -59,6 +65,11 @@ def _read_csv_coords(path: str) -> np.ndarray:
     return np.asarray(rows, dtype=np.float32)
 
 
+def easycap_m10_locations() -> np.ndarray:
+    """The packaged (61, 2) easycap-M10 coordinates."""
+    return _read_csv_coords(os.path.join(LAYOUTS_DIR, "easycap_M10.csv"))
+
+
 def ch_locations_2d(cfg, roi_channels: list[int] | None = None) -> np.ndarray:
     """Resolve normalized (C, 2) sensor coordinates for ``cfg.dataset``;
     ``roi_channels`` selects rows of an explicit CSV or of the GOD montage
@@ -79,10 +90,24 @@ def ch_locations_2d(cfg, roi_channels: list[int] | None = None) -> np.ndarray:
         montage = _read_csv_coords(montage_path)  # (C, 3)
         return normalize_locations(montage[np.asarray(roi_channels), :2])
 
+    if cfg.dataset == "Brennan2018":
+        num = int(cfg.get("num_channels", 60) or 60)
+        if num in (60, 61):
+            loc = easycap_m10_locations()
+            if num == 60:
+                loc = np.delete(loc, 28, axis=0)
+        else:
+            warnings.warn(
+                f"Brennan layout requested for {num} channels — the easycap "
+                "M10 montage has 61; using a synthetic cap (accuracy parity "
+                "needs real geometry)")
+            loc = synthetic_cap_locations(num)
+        return normalize_locations(loc)
+
     if cfg.dataset != "Gwilliams2022":
         raise NotImplementedError(
-            f"layout for dataset {cfg.dataset!r} is not ported yet "
-            "(Gwilliams2022, GOD or an explicit layout_csv)")
+            f"no layout for dataset {cfg.dataset!r} (Gwilliams2022, "
+            "Brennan2018, GOD or an explicit layout_csv)")
     num = int(cfg.get("num_channels", 208) or 208)
     cache_dir = cfg.get("cache_dir")
     layout_path = cache_dir and os.path.join(cache_dir, "layout.npy")

@@ -1,15 +1,17 @@
 """Synthetic datasets in the exact on-disk formats the real builders read:
 a Gwilliams2022 cache (``x_dict.npy``/``y_dict.npy``/onset tables —
-reference ``gwilliams2022.py:64-109``) and GOD sessions (Brainstorm
-``.mat`` files — reference ``load_meg.py:12-103``), so every downstream
-code path is the real one.
+reference ``gwilliams2022.py:64-109``), GOD sessions (Brainstorm ``.mat``
+files — reference ``load_meg.py:12-103``) and Brennan2018 raw EEG
+(fieldtrip ``raw`` structs — reference ``brennan2018.py:248-258``) with a
+precomputed embedding stream, so every downstream code path is the real
+one.
 
-Port of ``make_synthetic_gwilliams_cache`` and
-``make_synthetic_god_dataset`` from ``meg_decoding_tpu/data/synthetic.py``
-(numpy/scipy only; the same seed writes the same files), plus the
-full-width set-ups of the on-card smoke run.  The Gwilliams MEG channels are
-a random linear mix of the task's embedding stream plus noise, so
-contrastive retrieval is learnable.
+Port of ``make_synthetic_gwilliams_cache``, ``make_synthetic_god_dataset``
+and ``make_synthetic_brennan_raw`` from
+``meg_decoding_tpu/data/synthetic.py`` (numpy/scipy only; the same seed
+writes the same files), plus the full-width set-ups of the on-card smoke
+run.  The Gwilliams MEG and Brennan EEG channels are a random linear mix of
+the embedding stream plus noise, so contrastive retrieval is learnable.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from meg_decoding_tpu_torch.data.layout import synthetic_cap_locations
 from meg_decoding_tpu_torch.data.sampling import random_split
 
 __all__ = ["make_synthetic_gwilliams_cache", "make_synthetic_god_dataset",
-           "full_width_speech", "full_width_god", "CONFIGS_DIR",
+           "make_synthetic_brennan_raw", "full_width_speech", "full_width_god", "CONFIGS_DIR",
            "FULL_WIDTH_CACHE", "FULL_WIDTH_GOD"]
 
 CONFIGS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -196,6 +198,63 @@ def make_synthetic_god_dataset(root, num_channels=12, num_roi=8, fs=200.0,
             "brain_filter": [1.0, 40.0],
             "brain_resample_rate": 100,
             "baseline_len_sec": 0.05,
+            "clamp": True,
+            "clamp_lim": 20,
+            "last4layers": False,
+        },
+    })
+
+
+def make_synthetic_brennan_raw(root, n_subjects=4, C=8, fs=500.0,
+                               rec_sec=60.0, F=16, seed=0) -> Config:
+    """Write synthetic Brennan-format raw .mat EEG files (fieldtrip-style
+    ``raw`` struct — reference brennan2018.py:248-258) under
+    ``{root}/data/Brennan2018/raw`` and an embedding stream at the brain
+    rate (120 Hz) as ``{root}/data/Brennan2018/Y_embeds/embd_wav2vec.npy``
+    (what the trainer reads instead of embedding the audio); returns a
+    minimal config pointing at them.  At most 6 subjects (S01, S03–S06,
+    S08: none of them excluded)."""
+    from scipy.signal import resample as sp_resample
+
+    rng = np.random.RandomState(seed)
+    raw_dir = os.path.join(root, "data", "Brennan2018", "raw")
+    os.makedirs(raw_dir, exist_ok=True)
+    T = int(fs * rec_sec)
+    rate = 120.0
+    Ty = int(rate * rec_sec)
+    Y = rng.randn(F, Ty).astype(np.float32)
+    # EEG = channel-mixed, upsampled Y + noise (decodable)
+    Y_at_fs = sp_resample(Y, T, axis=-1)
+    subj_ids = [1, 3, 4, 5, 6, 8][:n_subjects]  # avoid excluded S02/S07
+    for i in subj_ids:
+        mix = rng.randn(C, F) * 0.5
+        eeg = mix @ Y_at_fs + 0.1 * rng.randn(C, T)
+        entry = np.zeros((1,), dtype=[("trial", "O"), ("fsample", "O"),
+                                      ("label", "O")])
+        trial = np.zeros((1, 1), dtype=object)
+        trial[0, 0] = eeg
+        entry[0]["trial"] = trial
+        entry[0]["fsample"] = np.array([[fs]])
+        entry[0]["label"] = np.array([["ch"]])
+        scipy.io.savemat(os.path.join(raw_dir, f"S{i:02d}.mat"),
+                         {"raw": entry.reshape(1, 1)})
+    y_dir = os.path.join(root, "data", "Brennan2018", "Y_embeds")
+    os.makedirs(y_dir, exist_ok=True)
+    np.save(os.path.join(y_dir, "embd_wav2vec.npy"), Y)
+    return Config({
+        "dataset": "Brennan2018",
+        "root_dir": root,
+        "split_ratio": 0.8,
+        "num_channels": C,
+        "preprocs": {
+            "brain_resample_rate": rate,
+            "brain_filter_low": 1.0,
+            "brain_filter_high": 50.0,
+            "seq_len_sec": 3,
+            "baseline_len_sec": 0.5,
+            "shift_brain": True,
+            "shift_len": 150,
+            "subject_wise": True,
             "clamp": True,
             "clamp_lim": 20,
             "last4layers": False,

@@ -7,11 +7,14 @@ row over the time axis, with ``numpy.percentile(method='linear')``
 semantics under the total float order of XLA's sort (sign-flipped int32
 keys: −NaN < −inf < … < −0 < +0 < … < +inf < +NaN).
 
-* The kernel takes one warp per row.  A row of up to ``REGISTER_MAX_T``
-  keys is sorted in registers by a warp-wide bitonic network and the order
-  statistics are read from the lanes that hold them; a longer row is kept
-  in shared memory and each order statistic found by bisection over the
-  key space.  Both blend in f32.
+* The kernel has three routes by row length (``kernel_route``).  A row of
+  up to ``REGISTER_MAX_T`` keys is sorted in registers by a warp-wide
+  bitonic network (one warp a row) and the order statistics are read from
+  the lanes that hold them; a row of up to ``SHARED_MAX_T`` keys is kept in
+  shared memory and each order statistic found by bisection over the key
+  space; a longer row (a whole recording, as the Brennan build scales
+  them) stays in global memory and takes a radix select, 8 bits of the
+  key a pass, its rows spread over many CTAs.  All blend in f32.
 * The plain version sorts the flipped int32 KEYS with ``torch.sort`` (a
   float sort would put every NaN last and tie ±0), then applies the same
   blend.
@@ -33,21 +36,36 @@ import numpy as np
 import torch
 
 __all__ = ["robust_quantiles", "robust_quantiles_plain", "ranks_and_weights",
-           "REGISTER_MAX_T", "launches", "reset_launches"]
+           "kernel_route", "REGISTER_MAX_T", "SHARED_MAX_T", "launches",
+           "long_launches", "reset_launches"]
 
 _I32_MAX = int(np.iinfo(np.int32).max)
 _MAX_QUANTILES = 4
-_MAX_T = (227 * 1024) // 4  # one row's keys in the opt-in shared memory
+_MAX_TARGETS = 2 * _MAX_QUANTILES  # kMaxTargets: order statistics k and k + 1
+_BINS = 256
 # longest row the kernel sorts in registers (kRegisterMaxT in the source)
 REGISTER_MAX_T = 1024
+# longest row kept in the opt-in shared memory (kSharedMaxT)
+SHARED_MAX_T = (227 * 1024) // 4
 
-# kernel launches since the last reset_launches()
+# wrapper calls since the last reset_launches() that launched the register
+# or shared-memory kernel (``launches``) and the global-memory radix select
+# (``long_launches``, one a call for its 8 kernels)
 launches = 0
+long_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, long_launches
+    launches = long_launches = 0
+
+
+def kernel_route(T: int) -> str:
+    """The kernel path a CUDA row of ``T`` keys takes: ``"register"``,
+    ``"shared"`` or ``"global"`` (any longer row)."""
+    if T <= REGISTER_MAX_T:
+        return "register"
+    return "shared" if T <= SHARED_MAX_T else "global"
 
 
 def ranks_and_weights(T: int, qs) -> list[tuple[int, float, float, bool]]:
@@ -95,13 +113,17 @@ class _QuantileSpec(ctypes.Structure):
 def _lib():
     from meg_decoding_tpu_torch.ops.kernels.build import load_library
 
-    fn = load_library("robust_quantiles").robust_quantiles_launch
+    lib = load_library("robust_quantiles")
+    fn, long_fn = lib.robust_quantiles_launch, lib.robust_quantiles_long_launch
     if fn.argtypes is None:
-        fn.restype = ctypes.c_int
+        fn.restype = long_fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.POINTER(_QuantileSpec),
                        ctypes.c_void_p]
-    return fn
+        long_fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                            ctypes.c_longlong, ctypes.POINTER(_QuantileSpec),
+                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    return fn, long_fn
 
 
 def robust_quantiles(x2d: torch.Tensor,
@@ -123,19 +145,35 @@ def robust_quantiles(x2d: torch.Tensor,
     N, T = x2d.shape
     if not x2d.is_contiguous():
         raise ValueError("x2d must be contiguous")
-    if T > _MAX_T:
-        raise ValueError(f"row length {T} exceeds the kernel's {_MAX_T}")
     spec = _QuantileSpec()
     spec.n = len(qs)
     for j, (rank, w_lo, w_hi, interp) in enumerate(ranks_and_weights(T, qs)):
         spec.rank[j], spec.interp[j] = rank, int(interp)
         spec.w_lo[j], spec.w_hi[j] = w_lo, w_hi
     out = torch.empty((N, len(qs)), dtype=torch.float32, device=x2d.device)
-    err = _lib()(x2d.data_ptr(), out.data_ptr(), N, T, ctypes.byref(spec),
-                 torch.cuda.current_stream(x2d.device).cuda_stream)
+    stream = torch.cuda.current_stream(x2d.device).cuda_stream
+    fn, long_fn = _lib()
+    long_rows = kernel_route(T) == "global"
+    if not long_rows:
+        err = fn(x2d.data_ptr(), out.data_ptr(), N, T, ctypes.byref(spec),
+                 stream)
+    else:
+        # the radix select's scratch: per row a 256-bin histogram for each
+        # target (zero on entry; the kernels leave it zero) and each
+        # target's key prefix and remaining rank
+        hist = torch.zeros(N * 2 * len(qs) * _BINS, dtype=torch.int32,
+                           device=x2d.device)
+        state = torch.empty(N * 2 * _MAX_TARGETS, dtype=torch.int32,
+                            device=x2d.device)
+        err = long_fn(x2d.data_ptr(), out.data_ptr(), N, T,
+                      ctypes.byref(spec), hist.data_ptr(), state.data_ptr(),
+                      stream)
     if err != 0:
         raise RuntimeError(
             f"robust_quantiles kernel launch failed: CUDA error {err}")
-    global launches
-    launches += 1
+    global launches, long_launches
+    if long_rows:
+        long_launches += 1
+    else:
+        launches += 1
     return out

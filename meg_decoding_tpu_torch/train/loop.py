@@ -1,11 +1,11 @@
 """Epoch loop: sampler → train steps → test pools → metrics → checkpoint.
 Port of ``fit``, ``fit_scan``, ``steps_per_epoch`` and
 ``resume_if_requested`` from ``meg_decoding_tpu/train/loop.py`` (single
-device; the host prefetch is not ported).  Two forms of step: the fused
-Gwilliams step, which draws its sessions and gathers its batch itself, and
-the per-step form over a ``PackedDataset`` (GOD), whose batches ``fit``
-gathers.  ``fit_scan`` drives the whole-epoch forms of
-``train/scan_loop.py`` instead: one call an epoch.
+device; the host prefetch is not ported).  Two forms of train set: a
+stochastic speech pool, whose gather takes a generator for its random
+pairing, and a ``PackedDataset`` (GOD), whose gather is plain indexing.
+``fit_scan`` drives the whole-epoch forms of ``train/scan_loop.py``
+instead: one call an epoch.
 
 Reference skeleton: ``train.py:178-274`` (epoch loop with per-batch
 updates, a test pass, epoch metric means, model_last each epoch) and
@@ -117,10 +117,14 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
     ``train_set.gather(idx)`` and the step is ``train_step(state, X, Y,
     subject_idxs[, labels])`` (``train/steps.py``), with the labels when
     ``with_labels`` (classification and same-label losses).  Otherwise
-    ``train_step(state, segment_ids, generator=…)`` is the fused Gwilliams
-    step (``train/scan_loop.py``): it draws the sessions from ``generator``
-    and gathers the batch itself, so ``train_set`` only maps pool positions
-    to segment ids (``segment_ids(idx)``).  The test pools call
+    ``train_set`` is a stochastic pool, each batch is
+    ``train_set.gather(idx, generator=…)`` and the step
+    ``train_step(state, *batch)``.  The generator is derived from (seed,
+    epoch, step), as JAX derives a key per call (``train/loop.py:143-172``),
+    so a resumed run draws what a continuous one would.  A ``SpeechPool``
+    gives ``(X, Y, subject_idxs)`` for ``make_train_step``; the train CLI
+    wraps the fused Gwilliams step so that its pool gives the segment ids
+    and the generator, and the step gathers.  The test pools call
     ``eval_step(X, Y, subject_idxs, temp, labels)``.  ``start_epoch``
     continues the epoch numbering after a resume."""
     epochs = int(cfg.epochs)
@@ -149,10 +153,12 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
                     state, metrics = train_step(
                         state, *batch[:4 if with_labels else 3])
             else:
+                with timer.phase("gather"):
+                    batch = train_set.gather(
+                        idx, generator=derived_generator(seed, epoch, _GATHER,
+                                                         step_i))
                 with timer.phase("step"):
-                    state, metrics = train_step(
-                        state, train_set.segment_ids(idx),
-                        generator=derived_generator(seed, epoch, _GATHER, step_i))
+                    state, metrics = train_step(state, *batch)
             train_hist.append(metrics)
 
         tm = _mean_metrics(train_hist)

@@ -181,7 +181,7 @@ def test_register_bitonic_sort_matches_plain_and_pallas(T):
 def test_register_path_limit_matches_the_source():
     src = "robust_quantiles"
     assert _const("kRegisterMaxT", src) == tq.REGISTER_MAX_T == 32 * 32
-    assert tq.REGISTER_MAX_T < tq._MAX_T
+    assert tq.REGISTER_MAX_T < tq.SHARED_MAX_T == _const("kSharedMaxT", src)
 
 
 # --- bn_stats: each thread's walk over its channel ---------------------------

@@ -315,11 +315,13 @@ def test_train_cli_refuses_to_checkpoint_an_all_skipped_epoch(train_setup,
 def test_train_cli_refuses_unported_paths(train_setup, tmp_path):
     from meg_decoding_tpu_torch.cli.train_speech import run
 
-    for kw, what in (({"dataset": "Brennan2018"}, "Brennan2018"),
-                     ({"host_resident": True}, "host"),
+    for kw, what in (({"host_resident": True}, "host"),
                      ({"use_wandb": True}, "wandb"),
                      ({"distributed": True}, "multi-host"),
-                     ({"fuse_gather": False}, "fused")):
+                     # Brennan without its embedding stream: embedding the
+                     # audio needs wav2vec2, not ported yet
+                     ({"dataset": "Brennan2018",
+                       "root_dir": str(tmp_path / "no_data")}, "wav2vec2")):
         with pytest.raises(NotImplementedError, match=what):
             run(_cli_cfg(train_setup, tmp_path, epochs=1, **kw), device="cpu")
 
