@@ -12,7 +12,10 @@ mean-pooled, T = 24, batch 64, f32) with the brain encoder, EEGNet and
 Seq2Static, then Brennan2018 (EEG ↔ audiobook) at the scale of the real
 dataset and the full width of ``configs/config.yaml`` (60 channels on the
 easycap layout, S = 33, F = 1024, T = 360, batch 64, f32, no batch-time
-collate), with random weights from ``--seed``.
+collate), then the stimulus encoders at full width (wav2vec2-large-xlsr-53
+and CLIP ViT-B/32), the Gwilliams preprocessing and cache builder, GOD's
+error analysis and the dispatching entry points, with random weights from
+``--seed``.
 Phases, each printed as one JSON line:
 
 1. build    — compile the three CUDA sources of
@@ -114,6 +117,36 @@ Phases, each printed as one JSON line:
               ``make_synthetic_brennan_raw``'s files (6 subjects × 60
               channels × 120 s, subjects pooled: rows of 84,240 keys), then
               the eval CLI on its checkpoint; exact launch counts;
+    w2v_features — wav2vec2-large-xlsr-53 (317 M parameters) with seeded
+              random weights: every hidden state of a 3 s clip card against
+              CPU (max|Δ| ≤ 1e-4·max|ref|), a 2-layer copy's chunked,
+              masked last-4 average over 45 s card against CPU (same
+              bound), then the full model over 742 s of 16 kHz audio (the
+              last-4 average (1024, T′) and the conv features (512, T′):
+              seconds, frames/s, peak memory);
+    clip_features — CLIP ViT-B/32 with seeded random weights:
+              ``preprocess_images`` and ``encode_images`` over 1,250
+              images of 375 × 500 (GOD's 1,200 train and 50 test), timed;
+              8 of them card against CPU (pixels ≤ 1e-5, features ≤
+              1e-4·max|ref|);
+    gwilliams_preprocess — ``preprocess_recordings`` on one 208 × 360,000
+              recording at 1000 Hz (1–60 Hz, then 120 Hz), timed; 208 ×
+              60,000 card against CPU (≤ 1e-5·max|X|); then the cache
+              builder's ``main`` (``cli/build_gwilliams_cache.py``) over
+              synthetic audio for the four task prefixes, wav2vec2 at full
+              width: ``check_preprocs``' directory choice and ``build_y``;
+    brennan_embed_cli — the ``brennan_cli`` set-up with 120 s of synthetic
+              audio at 44.1 kHz and no embedding stream: the train CLI
+              embeds the audio at full width, writes the stream and trains
+              one epoch, the eval CLI reuses the stream; exact launches;
+    god_error_analysis — the GOD eval CLI with ``error_analysis`` on the
+              train CLI's checkpoint, without and with a synthetic 50,000 ×
+              512 distractor gallery (``top5.csv``,
+              ``top5_with_imagenet_val.csv``); exact launches;
+    entry_points — ``cli/main.py``'s ``train_main`` and ``evaluate_main``
+              (``train_torch.py``, ``evaluate_torch.py``) on the full-width
+              GOD set-up for 2 updates, then a 2-job ``-m`` sweep; the BN
+              kernels' exact launches;
 11. ``seconds`` (each phase group's wall time), ``step_share`` and
               ``god_step_share``, the ``kernels`` line (each
               kernel's launches by path, its times at the GOD shapes under
@@ -122,11 +155,14 @@ Phases, each printed as one JSON line:
               line.
 
 The serving, training, unfused, GOD training, GOD eval, preset, scan,
-model-zoo and Brennan paths each run with every launch count set to 0 just
-before and read just after; the run fails unless each kernel launched on
-the speech paths and on the GOD paths, every kernel on each preset, scan,
-model-zoo and unfused path, the long-row path on each Brennan build and
-CLI, and the BN kernels in Brennan training.
+model-zoo, Brennan, error-analysis and entry-point paths each run with
+every launch count set to 0 just before and read just after; the run fails
+unless each kernel launched on the speech paths and on the GOD paths, every
+kernel on each preset, scan, model-zoo, unfused and training entry-point
+path, the long-row path on each Brennan build and CLI (with and without
+the embedding), the BN kernels in Brennan training, and the gather and the
+percentiles on each GOD evaluation.  The encoders and the preprocessing
+run no TPU kernel in the JAX package, and none here.
 
 Any failure raises and exits non-zero.  Without CUDA, or without the rest
 of the repository beside it, it exits non-zero and prints no result.
@@ -1870,6 +1906,439 @@ def phase_unfused_step(cfg, ds, tr_idx, seed, work) -> dict:
     return launches
 
 
+# --- the stimulus encoders, the cache builder, error analysis, entry points --
+
+FEATURE_RTOL = 1e-4        # card vs CPU: 24 f32 layers, cuDNN/cuBLAS vs MKL sums
+W2V_CLIP_SEC, W2V_CHUNKED_SEC, W2V_LONG_SEC = 3.0, 45.0, 742.0
+GOD_IMAGES, GOD_IMAGE_HW, CLIP_CHECK_IMAGES = 1250, (375, 500), 8
+GW_REC = dict(C=208, T=360_000, fs=1000.0)  # one 6-minute recording
+GW_CHECK_T = 60_000
+GW_BUILD_Y_SEC = (25.0, 30.0, 35.0, 40.0)   # one file a task prefix
+BRENNAN_AUDIO = dict(sr=44_100, files=2)     # 120 s in all (BRENNAN_CLI)
+DISTRACTORS = 50_000                         # ImageNet-val's size
+
+
+def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max|got − want| / max|want|, on the CPU."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def w2v_flops(cfg, n_samples: int, layers: bool = True) -> float:
+    """Operations (2 per multiply-add) of one wav2vec2 forward over
+    ``n_samples``: the conv stack, and with ``layers`` the projection, the
+    positional conv and the encoder layers (attention over all frames)."""
+    flops, n, c_in = 0.0, n_samples, 1
+    for c_out, k, s in zip(cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride):
+        n = (n - k) // s + 1
+        flops += 2.0 * n * c_out * c_in * k
+        c_in = c_out
+    if not layers:
+        return flops
+    H, T = cfg.hidden_size, n
+    flops += 2.0 * T * c_in * H
+    flops += 2.0 * T * H * (H // cfg.num_conv_pos_embedding_groups) \
+        * cfg.num_conv_pos_embeddings
+    per_layer = 2.0 * T * (4 * H * H + 2 * H * cfg.intermediate_size) \
+        + 4.0 * T * T * H
+    return flops + cfg.num_hidden_layers * per_layer
+
+
+def clip_flops(cfg, n_images: int) -> float:
+    """Operations of ``get_image_features`` over ``n_images``."""
+    H, P = cfg.hidden_size, cfg.num_positions
+    patch = 2.0 * (P - 1) * H * cfg.num_channels * cfg.patch_size ** 2
+    per_layer = 2.0 * P * (4 * H * H + 2 * H * cfg.intermediate_size) \
+        + 4.0 * P * P * H
+    return n_images * (patch + cfg.num_hidden_layers * per_layer
+                       + 2.0 * H * cfg.projection_dim)
+
+
+def write_wav(path: str, sr: int, seconds: float, seed: int) -> None:
+    from scipy.io import wavfile
+
+    w = 0.1 * np.random.RandomState(seed).randn(int(sr * seconds))
+    wavfile.write(path, sr, w.astype(np.float32))
+
+
+def phase_w2v_features(seed: int) -> dict:
+    """wav2vec2-large-xlsr-53 with seeded random weights: every hidden
+    state of one 3 s clip on the card against the same weights on the CPU,
+    a 2-layer copy's chunked, masked last-4 average over 45 s against the
+    CPU, then the full model over 742 s of 16 kHz audio (Brennan's
+    length): the last-4 average and the conv features, timed."""
+    from meg_decoding_tpu_torch.features import wav2vec
+    from meg_decoding_tpu_torch.features.wav2vec2_model import Wav2Vec2Model
+
+    def cpu_copy(model):
+        cpu = Wav2Vec2Model(model.config)
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        return cpu.eval().requires_grad_(False)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    audio = lambda sec: 0.1 * torch.randn(int(16000 * sec), device="cuda",
+                                          generator=g)
+    t0 = time.perf_counter()
+    model = wav2vec.load_wav2vec(backend="random", device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    clip = audio(W2V_CLIP_SEC)
+    with torch.no_grad():
+        card = model(clip[None])
+        cpu_states = cpu_copy(model)(clip[None].cpu())
+    clip_errs = [max_rel(a, b) for a, b in zip(card, cpu_states)]
+    del cpu_states
+    if len(card) != 25 or not max(clip_errs) <= FEATURE_RTOL:
+        raise AssertionError(f"wav2vec2 hidden states card vs CPU: {clip_errs}")
+
+    shallow = wav2vec.load_wav2vec(backend="random", num_hidden_layers=2,
+                                   device="cuda", seed=seed)
+    long_clip = audio(W2V_CHUNKED_SEC)
+    got = wav2vec.embed_last4_avg(shallow, long_clip)
+    t0 = time.perf_counter()
+    want = wav2vec.embed_last4_avg(cpu_copy(shallow), long_clip.cpu())
+    cpu_chunked_s = time.perf_counter() - t0
+    chunked_err = max_rel(got, want)
+    n_chunked = int(shallow.config.num_frames(long_clip.numel()))
+    if got.shape != (1024, n_chunked) or not chunked_err <= FEATURE_RTOL:
+        raise AssertionError(f"chunked last-4 card vs CPU: {chunked_err}, "
+                             f"{tuple(got.shape)}")
+    del shallow, got, want
+
+    wav = audio(W2V_LONG_SEC)
+    chunks = []  # the samples of each forward the last-4 average runs
+    forward = model.forward
+    model.forward = lambda x, *a, **k: (chunks.append(x.shape[-1]),
+                                        forward(x, *a, **k))[1]
+    out = {}
+    for name, fn in (("last4", wav2vec.embed_last4_avg),
+                     ("features", wav2vec.embed_features)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        emb = fn(model, wav)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        if not bool(torch.isfinite(emb).all()):
+            raise AssertionError(f"wav2vec2 {name} over {W2V_LONG_SEC} s: not finite")
+        flops = (sum(w2v_flops(model.config, n) for n in chunks) if name == "last4"
+                 else w2v_flops(model.config, wav.numel(), layers=False))
+        bound_s = flops / F32_FLOP_PER_S
+        out[name] = {"shape": list(emb.shape), "seconds": sec,
+                     "frames_per_s": emb.shape[1] / sec,
+                     "audio_s_per_s": W2V_LONG_SEC / sec,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                     "tflop": flops / 1e12, "bound_s": bound_s,
+                     "bound_by": "operations (f32, TF32 off)",
+                     "share_of_bound": bound_s / sec}
+        del emb
+    out["last4"]["chunks"] = len(chunks)
+    model.forward = forward
+    frames = int(model.config.num_frames(wav.numel()))
+    if out["last4"]["shape"] != [1024, frames] or out["features"]["shape"] != [512, frames]:
+        raise AssertionError(f"wav2vec2 shapes {out}")
+    del model, wav
+    torch.cuda.empty_cache()
+    row = {"phase": "w2v_features", "params": n_params, "init_s": init_s,
+           "clip_sec": W2V_CLIP_SEC, "clip_hidden_states": len(card),
+           "clip_max_rel_err": max(clip_errs),
+           "chunked": {"layers": 2, "sec": W2V_CHUNKED_SEC,
+                       "frames": n_chunked, "max_rel_err": chunked_err,
+                       "cpu_s": cpu_chunked_s},
+           "rel_err_limit": FEATURE_RTOL, "long_sec": W2V_LONG_SEC,
+           "frames": frames, **out}
+    emit(row)
+    return row
+
+
+def phase_clip_features(seed: int) -> dict:
+    """ViT-B/32 with seeded random weights: ``preprocess_images`` and
+    ``encode_images`` over GOD's 1,250 images (1,200 train, 50 test) of
+    375 × 500 made on the card, timed; then 8 of them card against CPU."""
+    from meg_decoding_tpu_torch.features import clip_features
+    from meg_decoding_tpu_torch.features.clip_model import CLIPImageEncoder
+
+    model = clip_features.load_clip(backend="random", device="cuda", seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    images = torch.randint(0, 256, (GOD_IMAGES, *GOD_IMAGE_HW, 3),
+                           dtype=torch.uint8, device="cuda", generator=g)
+    clip_features.encode_images(model, clip_features.preprocess_images(
+        images[:64], device="cuda"))  # first calls: cuBLAS/cuDNN set-up
+    times = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pixels = clip_features.preprocess_images(images, device="cuda")
+    torch.cuda.synchronize()
+    times["preprocess_s"] = time.perf_counter() - t0
+    feats = clip_features.encode_images(model, pixels)
+    torch.cuda.synchronize()
+    times["encode_s"] = time.perf_counter() - t0 - times["preprocess_s"]
+    if feats.shape != (GOD_IMAGES, 512) or not bool(torch.isfinite(feats).all()):
+        raise AssertionError(f"CLIP features {tuple(feats.shape)}")
+    cpu = CLIPImageEncoder(model.config)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    few = images[:CLIP_CHECK_IMAGES].cpu()
+    cpu_pixels = clip_features.preprocess_images(few, device="cpu")
+    pixel_err = float((pixels[:CLIP_CHECK_IMAGES].cpu() - cpu_pixels).abs().max())
+    feat_err = max_rel(feats[:CLIP_CHECK_IMAGES],
+                       clip_features.encode_images(cpu.eval(), cpu_pixels))
+    if not (pixel_err <= 1e-5 and feat_err <= FEATURE_RTOL):
+        raise AssertionError(f"CLIP card vs CPU: pixels {pixel_err}, "
+                             f"features {feat_err}")
+    total = times["preprocess_s"] + times["encode_s"]
+    flops = clip_flops(model.config, GOD_IMAGES)
+    row = {"phase": "clip_features", "images": GOD_IMAGES,
+           "image_hw": list(GOD_IMAGE_HW), **times, "seconds": total,
+           "images_per_s": GOD_IMAGES / total,
+           "encode_tflop": flops / 1e12,
+           "encode_bound_s": flops / F32_FLOP_PER_S,
+           "encode_share_of_bound": flops / F32_FLOP_PER_S / times["encode_s"],
+           "card_vs_cpu": {"images": CLIP_CHECK_IMAGES,
+                           "pixels_max_abs_err": pixel_err,
+                           "features_max_rel_err": feat_err,
+                           "limits": {"pixels": 1e-5, "features": FEATURE_RTOL}}}
+    del model, images, pixels, feats
+    torch.cuda.empty_cache()
+    emit(row)
+    return row
+
+
+def phase_gwilliams_preprocess(work: str, seed: int) -> dict:
+    """``preprocess_recordings`` on one Gwilliams recording (208 × 360,000
+    samples at 1000 Hz, 1–60 Hz, then 120 Hz), timed; 208 × 60,000 of it
+    card against CPU; then the cache builder's ``main`` on synthetic
+    stimulus audio for the four task prefixes (wav2vec2 at full width,
+    random weights): ``check_preprocs`` picks the directory whose settings
+    match, ``build_y`` writes ``y_dict.npy``."""
+    from meg_decoding_tpu_torch.cli import build_gwilliams_cache
+    from meg_decoding_tpu_torch.data.gwilliams import preprocess_recordings
+    from meg_decoding_tpu_torch.utils.cache import check_preprocs, mark_done
+
+    pre = compose(CONFIGS_DIR, "config").preprocs
+    band = (float(pre.brain_filter_low), float(pre.brain_filter_high),
+            float(pre.brain_resample_rate))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn(GW_REC["C"], GW_REC["T"], device="cuda", generator=g)
+    rec_s = []  # the first call makes the FFT plans of this length
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = preprocess_recordings(X, GW_REC["fs"], *band, device="cuda")
+        torch.cuda.synchronize()
+        rec_s.append(time.perf_counter() - t0)
+    want_T = resample_len(GW_REC["T"], down=GW_REC["fs"] / band[2])
+    if out.shape != (GW_REC["C"], want_T) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"Gwilliams preprocess {tuple(out.shape)}")
+    part = X[:, :GW_CHECK_T]
+    card = preprocess_recordings(part, GW_REC["fs"], *band, device="cuda").cpu()
+    cpu = preprocess_recordings(part.cpu(), GW_REC["fs"], *band, device="cpu")
+    err, peak = float((card - cpu).abs().max()), float(cpu.abs().max())
+    if not err <= 1e-5 * peak:
+        raise AssertionError(f"Gwilliams preprocess card vs CPU: {err} > 1e-5·{peak}")
+    del X, out
+
+    root = os.path.join(work, "gwilliams_build")
+    audio = os.path.join(root, "data", "Gwilliams2022", "stimuli", "audio")
+    os.makedirs(audio)
+    for t, (prefix, sec) in enumerate(zip(build_gwilliams_cache.TASK_PREFIXES,
+                                          GW_BUILD_Y_SEC)):
+        write_wav(os.path.join(audio, f"{prefix}_0.wav"), 16000, sec, seed + t)
+    argv = [f"root_dir={root}", "+wav2vec_backend=random"]
+    cfg = build_gwilliams_cache.parse_cli(argv)
+    base = os.path.join(root, "data", "Gwilliams2022", "preprocessed")
+    other, _, _ = check_preprocs({**to_dict(cfg.preprocs),
+                                  "brain_resample_rate": 100}, base)
+    mine, _, _ = check_preprocs(to_dict(cfg.preprocs), base)
+    mark_done(mine, "x_done")  # the MEG half needs mne_bids: not here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chosen = build_gwilliams_cache.main(["--device", "cuda", *argv])
+    torch.cuda.synchronize()
+    build_y_s = time.perf_counter() - t0
+    y = np.load(os.path.join(chosen, "y_dict.npy"), allow_pickle=True).item()
+    shapes = {k: list(v.shape) for k, v in sorted(y.items())}
+    want = {f"task{t}": [1024, int(round(sec * band[2]))]
+            for t, sec in enumerate(GW_BUILD_Y_SEC)}
+    if chosen != mine or chosen == other or shapes != want \
+            or not all(np.isfinite(v).all() for v in y.values()):
+        raise AssertionError(f"cache builder: {chosen} (want {mine}), {shapes}")
+    row = {"phase": "gwilliams_preprocess",
+           "recording": [GW_REC["C"], GW_REC["T"]], "fs": GW_REC["fs"],
+           "band_hz": band[:2], "rate_hz": band[2],
+           "bytes": GW_REC["C"] * GW_REC["T"] * 4, "first_s": rec_s[0],
+           "seconds": min(rec_s[1:]),
+           "card_vs_cpu": {"shape": [GW_REC["C"], GW_CHECK_T],
+                           "max_abs_err": err, "max_abs_X": peak,
+                           "limit": "1e-5 * max|X|"},
+           "build_y": {"audio_s": list(GW_BUILD_Y_SEC), "seconds": build_y_s,
+                       "y_dict": shapes,
+                       "cache_dir": os.path.relpath(chosen, root),
+                       "other_settings_dir": os.path.relpath(other, root)}}
+    emit(row)
+    return row
+
+
+def phase_brennan_embed_cli(work: str, seed: int) -> dict:
+    """Both speech CLIs on Brennan with its audio and no stream: the
+    ``brennan_cli`` set-up (6 subjects × 60 channels × 120 s) plus 120 s
+    of synthetic audio at 44.1 kHz in two files.  The train CLI embeds the
+    audio at full width (wav2vec2 last-4 average, random weights), writes
+    the stream and trains one epoch; the eval CLI reuses the stream.
+    Returns the launch counts of each."""
+    root = os.path.join(work, "brennan_embed")
+    make_synthetic_brennan_raw(root, seed=seed, **BRENNAN_CLI)
+    y_path = os.path.join(root, "data", "Brennan2018", "Y_embeds",
+                          "embd_wav2vec.npy")
+    os.remove(y_path)
+    audio = os.path.join(root, "data", "Brennan2018", "audio")
+    os.makedirs(audio)
+    n = BRENNAN_AUDIO["files"]
+    for i in range(n):
+        write_wav(os.path.join(audio, f"DownTheRabbitHoleFinal_SoundFile{i + 1}.wav"),
+                  BRENNAN_AUDIO["sr"], BRENNAN_CLI["rec_sec"] / n, seed + i)
+    overrides = [f"root_dir={root}", f"save_root={os.path.join(work, 'be_out')}",
+                 "epochs=1", f"updates={BRENNAN_UPDATES}", "run_name=smoke",
+                 "preprocs.subject_wise=false", "+wav2vec_backend=random"]
+    result, mtime = {}, None
+    for name, cli in (("train", train_speech), ("eval", evaluate_speech)):
+        reset_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cli.run(brennan_cfg(seed, overrides), device="cuda")
+        torch.cuda.synchronize()
+        result[name] = {"seconds": time.perf_counter() - t0,
+                        "launches": brennan_launches(), "result": res}
+        if mtime is None:
+            mtime = os.path.getmtime(y_path)
+    stream = np.load(y_path)
+    frames = int(round(BRENNAN_CLI["rec_sec"] * BRENNAN["rate"]))
+    if stream.shape != (1024, frames) or not np.isfinite(stream).all():
+        raise AssertionError(f"Brennan stream {stream.shape}")
+    if os.path.getmtime(y_path) != mtime:
+        raise AssertionError("the eval CLI embedded the audio again")
+    best, ev = result["train"]["result"], result["eval"]["result"]
+    if best.get("train_skipped") != 0.0 or not math.isfinite(best["train_loss"]):
+        raise AssertionError(f"Brennan train CLI (embedding): {best}")
+    if not (0.0 <= ev["test_top1"] <= ev["test_top10"] <= 1.0):
+        raise AssertionError(f"Brennan eval CLI (embedding): {ev}")
+    want = {"train": {"window_gather": 0, "robust_quantiles": 0,
+                      "bn_stats": BN_PER_STEP * BRENNAN_UPDATES,
+                      "bn_bwd_stats": BN_PER_STEP * BRENNAN_UPDATES,
+                      "robust_quantiles_long": 1},
+            "eval": {"window_gather": 0, "robust_quantiles": 0, "bn_stats": 0,
+                     "bn_bwd_stats": 0, "robust_quantiles_long": 1}}
+    for name in want:
+        if result[name]["launches"] != want[name]:
+            raise AssertionError(f"Brennan {name} CLI (embedding) launches "
+                                 f"{result[name]['launches']}, expected {want[name]}")
+    emit({"phase": "brennan_embed_cli", "audio_s": BRENNAN_CLI["rec_sec"],
+          "audio_hz": BRENNAN_AUDIO["sr"], "stream": list(stream.shape),
+          "train_cli_s": result["train"]["seconds"],
+          "eval_cli_s": result["eval"]["seconds"],
+          "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
+                                             "test_loss", "test_top10")},
+          "eval": ev, "launches": {k: r["launches"] for k, r in result.items()}})
+    return {k: r["launches"] for k, r in result.items()}
+
+
+def phase_god_error_analysis(cfg, work: str, seed: int) -> dict:
+    """The GOD eval CLI with ``error_analysis: true`` on the train CLI's
+    checkpoint: without distractors (``top5.csv``) and with a synthetic
+    50,000 × 512 ImageNet-val gallery (``top5_with_imagenet_val.csv``).
+    Returns the launch counts of each run."""
+    dpath = os.path.join(work, "imagenet_val_features.npy")
+    np.save(dpath, np.random.RandomState(seed + 2).randn(
+        DISTRACTORS, FULL_WIDTH_GOD["feat_dim"]).astype(np.float32))
+    out, launches = {}, {}
+    for name, csv_name, extra in (
+            ("val", "top5.csv", {}),
+            ("imagenet_val", "top5_with_imagenet_val.csv",
+             {"imagenet_val_features_path": dpath})):
+        ecfg = Config({**to_dict(cfg), "error_analysis": True,
+                       "save_root": os.path.join(work, f"god_error_{name}"),
+                       "ckpt_dir": os.path.join(cfg.save_root, "ckpt"), **extra})
+        reset_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = evaluate_god.run(ecfg, device="cuda")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches[name] = all_launches()
+        with open(os.path.join(ecfg.save_root, csv_name)) as f:
+            rows = f.read().splitlines()
+        if len(rows) != 1 + FULL_WIDTH_GOD["n_test"] or not all(
+                0.0 <= res[k] <= 1.0 for k in ("similarity_acc", "mean_acc_scene")):
+            raise AssertionError(f"GOD error analysis ({name}): {res}, "
+                                 f"{len(rows)} CSV rows")
+        expected = {"window_gather": 2, "robust_quantiles": 1, "bn_stats": 0,
+                    "bn_bwd_stats": 0}
+        if launches[name] != expected:
+            raise AssertionError(f"GOD error analysis ({name}) launches "
+                                 f"{launches[name]}, expected {expected}")
+        out[name] = {"seconds": sec, "csv": csv_name, "csv_rows": len(rows) - 1,
+                     **{k: res[k] for k in ("similarity_acc", "mean_acc_scene")}}
+    emit({"phase": "god_error_analysis", "distractors": DISTRACTORS, **out,
+          "launches": launches})
+    return launches
+
+
+def phase_entry_points(cfg, work: str) -> dict:
+    """``train_main`` and ``evaluate_main`` (``train_torch.py``,
+    ``evaluate_torch.py``) on the full-width GOD set-up for 2 updates, then
+    a 2-job ``-m`` sweep over the seed.  Returns the launch counts of each."""
+    import yaml
+
+    from meg_decoding_tpu_torch.cli import main as entry
+
+    cfg_dir = os.path.join(work, "entry_cfg")
+    os.makedirs(cfg_dir)
+    with open(os.path.join(cfg_dir, "god_entry.yaml"), "w") as f:
+        yaml.safe_dump({**to_dict(cfg), "save_root": os.path.join(work, "entry_out"),
+                        "run_name": "entry", "use_sampler": True,
+                        "updates": 2, "epochs": 1}, f)
+    argv = ["--device", "cuda", "--config-path", cfg_dir,
+            "--config-name", "god_entry"]
+    result = {}
+    for name, fn, args in (("train", entry.train_main, argv),
+                           ("evaluate", entry.evaluate_main, argv),
+                           ("sweep", entry.train_main, ["-m", *argv, "seed=0,1"])):
+        reset_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(args)
+        torch.cuda.synchronize()
+        result[name] = {"seconds": time.perf_counter() - t0,
+                        "launches": all_launches(), "result": res}
+    best, ev, jobs = (result[k]["result"] for k in ("train", "evaluate", "sweep"))
+    if best.get("train_skipped") != 0.0 or not math.isfinite(best["train_loss"]):
+        raise AssertionError(f"train_main: {best}")
+    if set(ev) != GOD_EVAL_KEYS:
+        raise AssertionError(f"evaluate_main: {ev}")
+    sweep = os.path.join(work, "entry_out", "multirun")
+    stamps = os.listdir(sweep)
+    job_dirs = [os.path.join(sweep, stamps[0], str(i)) for i in range(2)]
+    if len(jobs) != 2 or len(stamps) != 1 or any("error" in r for r in jobs) \
+            or not all(os.path.exists(os.path.join(d, "ckpt", "model_best.pt"))
+                       for d in job_dirs):
+        raise AssertionError(f"sweep: {stamps}, {jobs}")
+    per_update = {"bn_stats": BN_PER_STEP * 2, "bn_bwd_stats": BN_PER_STEP * 2}
+    for name, k in (("train", 1), ("sweep", 2)):
+        got = result[name]["launches"]
+        if any(got[b] != k * n for b, n in per_update.items()) \
+                or got["window_gather"] != k or got["robust_quantiles"] < 3 * k:
+            raise AssertionError(f"{name} launches {got}")
+    if result["evaluate"]["launches"] != {"window_gather": 2, "robust_quantiles": 1,
+                                          "bn_stats": 0, "bn_bwd_stats": 0}:
+        raise AssertionError(f"evaluate_main launches {result['evaluate']['launches']}")
+    emit({"phase": "entry_points", "updates": 2,
+          **{f"{k}_s": r["seconds"] for k, r in result.items()},
+          "train": {k: best[k] for k in ("train_loss", "train_skipped", "test_loss")},
+          "sweep_jobs": [os.path.relpath(d, work) for d in job_dirs],
+          "launches": {k: r["launches"] for k, r in result.items()}})
+    return {k: r["launches"] for k, r in result.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke run of the port")
     ap.add_argument("--seed", type=int, default=0)
@@ -1944,6 +2413,19 @@ def main(argv=None) -> int:
         lap("brennan_training")
         brennan_cli = phase_brennan_cli(work, args.seed)
         lap("brennan_cli")
+
+        phase_w2v_features(args.seed)
+        lap("w2v_features")
+        phase_clip_features(args.seed)
+        lap("clip_features")
+        phase_gwilliams_preprocess(work, args.seed)
+        lap("gwilliams_preprocess")
+        brennan_embed = phase_brennan_embed_cli(work, args.seed)
+        lap("brennan_embed_cli")
+        god_error = phase_god_error_analysis(god_cfg, work, args.seed)
+        lap("god_error_analysis")
+        entry = phase_entry_points(god_cfg, work)
+        lap("entry_points")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1959,7 +2441,21 @@ def main(argv=None) -> int:
                              ("bn_stats", "bn_bwd_stats")),
         "brennan_train_cli": (brennan_cli["train"], ("robust_quantiles_long",
                                                      "bn_stats", "bn_bwd_stats")),
-        "brennan_eval_cli": (brennan_cli["eval"], ("robust_quantiles_long",))}
+        "brennan_eval_cli": (brennan_cli["eval"], ("robust_quantiles_long",)),
+        "brennan_embed_train_cli": (brennan_embed["train"], (
+            "robust_quantiles_long", "bn_stats", "bn_bwd_stats")),
+        "brennan_embed_eval_cli": (brennan_embed["eval"],
+                                   ("robust_quantiles_long",))}
+    # the GOD eval path with error analysis, and the dispatching entry points
+    god_extra_paths = {
+        **{f"god_error_analysis_{k}": v for k, v in god_error.items()},
+        **{f"entry_{k}": v for k, v in entry.items()}}
+    for path, launches in god_extra_paths.items():
+        needed = (("window_gather", "robust_quantiles") if "evaluate" in path
+                  or "error" in path else tuple(launches))
+        for name in needed:
+            if launches[name] <= 0:
+                raise AssertionError(f"{name}: no launch on the {path} path")
     for path, (launches, needed) in brennan_paths.items():
         for name in needed:
             if launches[name] <= 0:
@@ -1971,7 +2467,8 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{name}: no launch on the {path} path")
     paths = {"serving": serving, "training": training["launches"],
              "god_training": god_training["launches"], "god_eval": god_eval,
-             **new_paths, **{k: v for k, (v, _) in brennan_paths.items()}}
+             **new_paths, **{k: v for k, (v, _) in brennan_paths.items()},
+             **god_extra_paths}
     for name in training["launches"]:
         if paths["god_training"][name] + paths["god_eval"][name] <= 0:
             raise AssertionError(f"{name}: no launch on the GOD paths")

@@ -13,9 +13,16 @@ trial-averaged predictions (:182-189).  Writes
 
 The checkpoint is found as ``cli/evaluate_speech.py`` finds it
 (``ckpt_path``, else ``model_best.pt``, ``model_last.pt``, ``model.pt``
-under ``{ckpt_dir or save_root/ckpt}``).  Not ported yet, and refused:
-``error_analysis`` (``cli/eval_analysis.py``, the ImageNet distractor
-gallery).
+under ``{ckpt_dir or save_root/ckpt}``).
+
+With ``error_analysis: true`` it also runs ``cli/eval_analysis.py``
+(``eval_wowandb_cv*.py``): ``top5.csv`` (``top5_with_imagenet_val.csv``
+when ``imagenet_val_features_path`` names an (N, 512) distractor gallery,
+normalized by the train split's Y statistics) and the keys
+``similarity_acc``/``mean_acc_scene``.  Its figures (``confusion_mat.png``,
+``std_vs_tp.png``) and the top-5 image tiles need matplotlib, and are drawn
+only when ``image_dir`` is set (the JAX package draws the figures always);
+the machine with the card has no matplotlib.
 
 Run: ``python -m meg_decoding_tpu_torch.cli.evaluate_god
 [--config-path configs] [--config-name config_GOD] [--device cuda]
@@ -25,6 +32,7 @@ key=value …``
 from __future__ import annotations
 
 import argparse
+import csv
 import json
 import os
 
@@ -88,9 +96,6 @@ def predict(cfg, model, dataset, batch_size: int = 256) -> torch.Tensor:
 
 def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
     dev = resolve_device(device)
-    if cfg.get("error_analysis", False):
-        raise NotImplementedError(
-            "error_analysis: cli/eval_analysis.py is not ported yet")
     save_root = cfg.get("save_root", "runs_out")
     _, val, model = _build(cfg, dev)
     path = checkpoint_path(cfg)
@@ -125,11 +130,43 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
                                               metric=metric)
         results[f"pairwise_{metric}"] = float(pid.mean())
 
+    if cfg.get("error_analysis", False):
+        results.update(_error_analysis(cfg, Z, val, save_root, dev))
+
     os.makedirs(save_root, exist_ok=True)
     with open(os.path.join(save_root, "eval_results.json"), "w") as f:
         json.dump(results, f, indent=2)
     print(json.dumps(results, indent=2))
     return results
+
+
+def _error_analysis(cfg, Z, val, save_root: str, dev) -> dict:
+    """``eval_analysis.run_error_analysis`` with the ImageNet distractors
+    and the image tiles, as JAX ``cli/evaluate_god.py:135-161``."""
+    from meg_decoding_tpu_torch.cli.eval_analysis import (
+        run_error_analysis,
+        save_top5_image_tiles,
+    )
+
+    distractors = None
+    dpath = cfg.get("imagenet_val_features_path")
+    if dpath:
+        distractors = np.load(dpath)
+    image_dir = cfg.get("image_dir")
+    analysis = run_error_analysis(
+        Z, val.Y, val.labels, save_root, distractors=distractors,
+        norm_mean=val.mean_Y, norm_std=val.std_Y, make_plots=bool(image_dir),
+        device=dev)
+    if image_dir:
+        # run_error_analysis names the CSV by gallery kind
+        csv_name = ("top5_with_imagenet_val.csv" if distractors is not None
+                    else "top5.csv")
+        with open(os.path.join(save_root, csv_name)) as f:
+            rows = [{k: int(float(v)) if k != "acc(scene_id)" else float(v)
+                     for k, v in r.items() if k}
+                    for r in csv.DictReader(f)]
+        save_top5_image_tiles(rows, image_dir, save_root)
+    return {k: analysis[k] for k in ("similarity_acc", "mean_acc_scene")}
 
 
 def main(argv=None) -> dict:

@@ -30,7 +30,11 @@ import numpy as np
 import torch
 
 from meg_decoding_tpu_torch.core.config import Config, compose
-from meg_decoding_tpu_torch.data.brennan import BrennanPacked, build_brennan_dataset
+from meg_decoding_tpu_torch.data.brennan import (
+    BrennanPacked,
+    build_brennan_dataset,
+    embed_brennan_audio,
+)
 from meg_decoding_tpu_torch.data.gwilliams import (
     GwilliamsPacked,
     build_gwilliams_dataset,
@@ -129,17 +133,17 @@ def load_gwilliams_splits(cfg, seed: int, device) -> tuple[SpeechPool, SpeechPoo
 def load_brennan_splits(cfg, seed: int, device) -> tuple[SpeechPool, SpeechPool]:
     """The (train, test) pools of the trainer: the dataset built from the
     raw EEG under ``{root_dir}/data/Brennan2018/raw`` and the embedding
-    stream at ``y_embeds_path``, then ``random_split`` over its chunks."""
+    stream at ``y_embeds_path`` (embedded from the audio and saved there
+    when it does not exist: ``data/brennan.py:embed_brennan_audio``), then
+    ``random_split`` over its chunks."""
     root = cfg.get("root_dir", ".")
     y_path = (cfg.get("y_embeds_path")
               or f"{root}/data/Brennan2018/Y_embeds/embd_wav2vec.npy")
-    if not os.path.exists(y_path):
-        raise NotImplementedError(
-            f"no Brennan embedding stream at {y_path}: embedding the audio "
-            "with wav2vec2 is not ported yet (ROADMAP Queue 1 item 9, "
-            "stimulus features); write the (F, T) stream at the brain rate "
-            "there or point y_embeds_path at it")
-    packed = build_brennan_dataset(cfg, np.load(y_path), device=device)
+    if os.path.exists(y_path):
+        Y_stream = np.load(y_path)
+    else:
+        Y_stream = embed_brennan_audio(cfg, y_path, device=device)
+    packed = build_brennan_dataset(cfg, Y_stream, device=device)
     tr, te = random_split(torch.Generator().manual_seed(seed), len(packed),
                           float(cfg.split_ratio))
     return (SpeechPool(packed.subset(tr), seed=seed),

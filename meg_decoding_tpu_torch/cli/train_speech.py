@@ -16,15 +16,17 @@ a reference-format preprocessed cache (``cfg.cache_dir``, or the first
 cache under ``{root_dir}/data/Gwilliams2022/preprocessed``), or for
 Brennan the raw EEG under ``{root_dir}/data/Brennan2018/raw`` and the
 embedding stream at ``y_embeds_path`` (default
-``{root_dir}/data/Brennan2018/Y_embeds/embd_wav2vec.npy``).
+``{root_dir}/data/Brennan2018/Y_embeds/embd_wav2vec.npy``; when it does not
+exist, the audio under ``{root_dir}/data/Brennan2018/audio`` is embedded
+with wav2vec2 and the stream saved there, as in JAX
+``cli/train_speech.py:199-205``).
 
 Writes ``{save_root}/runs/<run>/metrics.jsonl`` and ``config.yaml``, and
 ``{save_root}/ckpt/model_last.pt`` / ``model_best.pt`` (the full train
 state; ``resume=true`` continues from model_last).
 
-Not ported yet, and refused: embedding the Brennan audio when the stream
-is missing (wav2vec2), the host-resident spill path, wandb, and data
-parallelism over several GPUs (pass ``data_parallel=false`` to train on
+Not ported yet, and refused: the host-resident spill path, wandb, and
+data parallelism over several GPUs (pass ``data_parallel=false`` to train on
 one of them).
 
 Run: ``python -m meg_decoding_tpu_torch.cli.train_speech

@@ -34,11 +34,13 @@ import scipy.io
 import torch
 
 from meg_decoding_tpu_torch.device import resolve_device
+from meg_decoding_tpu_torch.features import wav2vec
 from meg_decoding_tpu_torch.ops.fir import bandpass_filter
 from meg_decoding_tpu_torch.ops.resample import resample_fft
 from meg_decoding_tpu_torch.ops.scaling import baseline_correct, robust_scale
 
 __all__ = ["EXCLUDED_SUBJECTS", "load_brennan_eeg", "build_brennan_dataset",
+           "embed_brennan_audio",
            "BrennanPacked"]
 
 # comprehension-score exclusions (brennan2018.py:216-233)
@@ -179,3 +181,43 @@ def build_brennan_dataset(cfg, Y_stream, X_raw=None, fs: float | None = None,
     if baseline_len > 0:
         Xc = baseline_correct(Xc, baseline_len)
     return BrennanPacked(Xc, Yc)
+
+
+def embed_brennan_audio(cfg, y_path: str,
+                        device: str | torch.device = "cuda") -> torch.Tensor:
+    """Audio → wav2vec last-4 (or conv features) → resample to the brain
+    rate (brennan2018.py:154-212), saved to ``y_path`` as .npy.  Port of
+    ``_embed_brennan_audio`` (JAX ``cli/train_speech.py:212-257``): the
+    ``.wav`` files under ``{root_dir}/data/Brennan2018/audio``, in name
+    order, concatenated and brought to ``preprocs.audio_resample_rate``;
+    the encoder from ``wav2vec_model`` with ``wav2vec_backend`` (default
+    ``auto``).  Returns the (F, T) stream on ``device``."""
+    dev = resolve_device(device)
+    pre = cfg.preprocs
+    audio_dir = os.path.join(cfg.get("root_dir", "."), "data", "Brennan2018",
+                             "audio")
+    paths = sorted(glob.glob(os.path.join(audio_dir, "*.wav")))
+    if not paths:
+        raise FileNotFoundError(f"no audio under {audio_dir}")
+    rates, wavs = zip(*(wav2vec.read_wav(p) for p in paths))
+    if len(set(rates)) != 1:
+        raise ValueError(f"the audio files have several sample rates: {rates}")
+    wav = torch.from_numpy(np.concatenate(wavs)).to(dev)
+    target = int(pre.get("audio_resample_rate", 16000))
+    if rates[0] != target:
+        wav = resample_fft(wav[None], down=rates[0] / target)[0]
+    model = wav2vec.load_wav2vec(
+        cfg.get("wav2vec_model") or "facebook/wav2vec2-large-xlsr-53",
+        backend=cfg.get("wav2vec_backend", "auto"), device=dev)
+    if pre.get("last4layers", True):
+        emb = wav2vec.embed_last4_avg(model, wav)
+    else:
+        emb = wav2vec.embed_features(model, wav)
+    del model
+    # resample embeddings to the brain rate (~50 → 120 Hz; the reference
+    # hard-codes up=2.4, brennan2018.py:197-201 — computed here)
+    emb_rate = emb.shape[-1] / (wav.shape[0] / target)
+    emb = resample_fft(emb, up=float(pre.brain_resample_rate) / emb_rate)
+    os.makedirs(os.path.dirname(y_path) or ".", exist_ok=True)
+    np.save(y_path, emb.cpu().numpy())
+    return emb

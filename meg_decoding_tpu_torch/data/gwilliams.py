@@ -27,17 +27,19 @@ import numpy as np
 import torch
 
 from meg_decoding_tpu_torch.device import resolve_device
+from meg_decoding_tpu_torch.ops.fir import bandpass_filter
 from meg_decoding_tpu_torch.ops.kernels.window_gather import (
     pad_time_for_gather,
     window_gather,
 )
+from meg_decoding_tpu_torch.ops.resample import resample_fft
 from meg_decoding_tpu_torch.ops.scaling import baseline_correct, robust_stats
 
 __all__ = ["GwilliamsPacked", "load_gwilliams_cache", "parse_sessions",
            "build_gwilliams_dataset", "sentence_split", "deep_split",
            "drop_overlapping_words", "gather_speech_batch",
            "draw_sessions", "compute_collate_stats", "collate_stats_chunk",
-           "collate_stats_rows"]
+           "collate_stats_rows", "preprocess_recordings"]
 
 NUM_TASKS = 4
 SWEEP_CHUNK = 512  # windows per chunk of the collate-stats sweep, as JAX
@@ -65,6 +67,20 @@ def parse_sessions(keys):
                   if sum(1 for k in keys if k.startswith(s + "_")) == NUM_TASKS]
     subjects = sorted({s.split("_")[0] for s in sess_names})
     return sess_names, subjects
+
+
+def preprocess_recordings(raw, fs: float, l_freq: float, h_freq: float,
+                          new_rate: float,
+                          device: str | torch.device = "cuda") -> torch.Tensor:
+    """Bandpass + resample a stack of recordings (..., C, T) on ``device``:
+    the device replacement for the reference's 20-process MNE pool
+    (gwilliams2022.py:254-261, 299-306), on ``ops/fir.py`` and
+    ``ops/resample.py``.  ``raw`` is a numpy array or a tensor; returns an
+    f32 tensor on ``device``."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(raw).to(device=dev, dtype=torch.float32)
+    x = bandpass_filter(x, fs, l_freq, h_freq)
+    return resample_fft(x, down=fs / new_rate)
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,24 @@ The port keeps the flax parameter names wherever a name maps 1:1 (see
 * ``optax.adam``'s state: its ``ScaleByAdamState`` moments ``mu``/``nu``
   follow the parameters' names and layouts, ``count`` stays a scalar.
 
+The stimulus encoders (``features/wav2vec2_model.py``,
+``features/clip_model.py``) keep transformers' module trees, and take
+weights from two sources:
+
+* a Flax params tree (``encoder_params_from_flax``): Dense ``(in, out)`` →
+  ``(out, in)``, Conv ``(K, in, out)`` → ``(out, in, K)``, the 2-D patch
+  conv HWIO → OIHW, LayerNorm ``scale`` → ``weight``, ``nn.Embed``'s
+  ``embedding`` → ``weight``; the weight-norm pair ``weight_v`` (out, in/g,
+  K) and ``weight_g`` (1, 1, K) already has torch's layout;
+* a transformers-torch ``state_dict`` (``encoder_params_from_hf``): the
+  names are the port's, apart from a ``wav2vec2.`` prefix (checkpoints of
+  the pre-training or CTC heads) and the weight norm's newer names
+  ``parametrizations.weight.original0``/``original1`` (``weight_g`` /
+  ``weight_v``).
+
+Both keep only the entries the target module has (the CLIP text tower,
+wav2vec2's quantizer) and raise when one of its entries is missing.
+
 Input leaves are numpy arrays (``np.asarray`` each jax array first), so
 this module needs no JAX.
 """
@@ -31,7 +49,8 @@ import torch
 
 from meg_decoding_tpu_torch.train.optim import AdamState
 
-__all__ = ["params_from_jax", "adam_state_from_jax", "split_loss_params"]
+__all__ = ["params_from_jax", "adam_state_from_jax", "split_loss_params",
+           "encoder_params_from_flax", "encoder_params_from_hf"]
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -93,3 +112,47 @@ def split_loss_params(state_dict: Mapping) -> tuple[dict, dict]:
     loss = {k[len("loss."):]: v for k, v in state_dict.items()
             if k.startswith("loss.")}
     return model, loss
+
+
+def _for_module(entries: dict, module: torch.nn.Module, source: str) -> dict:
+    """The entries ``module`` has; raises when one of its entries is missing."""
+    want = module.state_dict().keys()
+    missing = sorted(set(want) - entries.keys())
+    if missing:
+        raise KeyError(f"{source} lacks {len(missing)} entries of "
+                       f"{type(module).__name__}: {missing[:5]}")
+    return {k: entries[k] for k in want}
+
+
+_FLAX_KERNEL_AXES = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+
+
+def encoder_params_from_flax(params: Mapping, module: torch.nn.Module
+                             ) -> dict[str, torch.Tensor]:
+    """A transformers Flax params tree (numpy leaves) → ``module``'s
+    state_dict (a ``Wav2Vec2Model`` or a ``CLIPImageEncoder``)."""
+    out = {}
+    for key, a in _flatten(params):
+        stem, _, leaf = key.rpartition(".")
+        if leaf == "kernel":
+            key, a = f"{stem}.weight", np.transpose(a, _FLAX_KERNEL_AXES[a.ndim])
+        elif leaf in ("scale", "embedding"):
+            key = f"{stem}.weight"
+        out[key] = _tensor(a)
+    return _for_module(out, module, "the Flax params")
+
+
+_HF_RENAMES = (("parametrizations.weight.original0", "weight_g"),
+               ("parametrizations.weight.original1", "weight_v"))
+
+
+def encoder_params_from_hf(state_dict: Mapping, module: torch.nn.Module
+                           ) -> dict[str, torch.Tensor]:
+    """A transformers-torch state_dict → ``module``'s state_dict."""
+    out = {}
+    for key, t in state_dict.items():
+        key = key.removeprefix("wav2vec2.")
+        for old, new in _HF_RENAMES:
+            key = key.replace(old, new)
+        out[key] = t
+    return _for_module(out, module, "the checkpoint")

@@ -384,8 +384,11 @@ def test_god_clis_refuse_unported_paths(god_setup, tmp_path):
         with pytest.raises(NotImplementedError, match=what):
             train_god.run(_cli_cfg(god_setup, tmp_path, epochs=1, **kw),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="eval_analysis"):
-        evaluate_god.run(_cli_cfg(god_setup, tmp_path, error_analysis=True),
+    # error_analysis is ported (tests/test_torch_port_eval_analysis.py);
+    # the eval CLI refuses a checkpoint that is not there
+    with pytest.raises(FileNotFoundError):
+        evaluate_god.run(_cli_cfg(god_setup, tmp_path, error_analysis=True,
+                                  save_root=str(tmp_path / "nothing")),
                          device="cpu")
 
 

@@ -1,8 +1,10 @@
 """Import guard and device policy of the port (meg_decoding_tpu_torch).
 
 * No module of the port, and not ``chip_smoke.py``, imports JAX, flax,
-  optax, orbax or anything of the JAX package: an AST scan of every file,
-  plus a subprocess that imports every module with those blocked.
+  optax, orbax, transformers, safetensors or anything of the JAX package:
+  an AST scan of every file, plus a subprocess that imports every module
+  with those and matplotlib blocked; matplotlib is imported only inside
+  functions (the figures of ``cli/eval_analysis.py``).
 * An entry point called without ``device="cpu"`` on a machine without a GPU
   raises; it never falls back to the CPU.
 * ``chip_smoke.py`` fails, printing no result, without a GPU and when it
@@ -21,7 +23,11 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "meg_decoding_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "meg_decoding_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "meg_decoding_tpu",
+             "transformers", "safetensors")
+# importable only inside the functions that draw figures (not on the
+# machine with the card)
+LAZY_ONLY = ("matplotlib", "seaborn")
 
 
 def _port_files():
@@ -53,10 +59,23 @@ def test_ast_scan_finds_no_jax_imports():
     assert bad == []
 
 
+def test_matplotlib_is_imported_only_inside_functions():
+    bad = []
+    for f in _port_files():
+        tree = ast.parse(open(f).read(), filename=f)
+        for node in tree.body:
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module] if isinstance(node, ast.ImportFrom)
+                     and node.level == 0 else [])
+            bad += [(os.path.relpath(f, ROOT), n) for n in names
+                    if n.split(".")[0] in LAZY_ONLY]
+    assert bad == []
+
+
 def test_every_module_imports_with_jax_blocked():
     code = (
         "import importlib, pkgutil, sys\n"
-        f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
+        f"for m in {FORBIDDEN + LAZY_ONLY!r}: sys.modules[m] = None\n"
         "import meg_decoding_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
@@ -68,8 +87,17 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_entry_points_refuse_cuda_without_a_gpu(monkeypatch, tmp_path):
-    from meg_decoding_tpu_torch.cli import evaluate_god, train_god, train_speech
+    from meg_decoding_tpu_torch.cli import (
+        build_gwilliams_cache,
+        evaluate_god,
+        main,
+        train_god,
+        train_speech,
+    )
     from meg_decoding_tpu_torch.cli.evaluate_speech import run
+    from meg_decoding_tpu_torch.data.brennan import embed_brennan_audio
+    from meg_decoding_tpu_torch.data.gwilliams import preprocess_recordings
+    from meg_decoding_tpu_torch.features import clip_features, wav2vec
     from meg_decoding_tpu_torch.core.config import compose
     from meg_decoding_tpu_torch.data.god import build_god_dataset
     from meg_decoding_tpu_torch.data.gwilliams import build_gwilliams_dataset
@@ -92,6 +120,15 @@ def test_entry_points_refuse_cuda_without_a_gpu(monkeypatch, tmp_path):
         lambda: evaluate_god.run(god_cfg),
         lambda: train_god.main(["--config-path", os.path.join(ROOT, "configs"),
                                 f"data_root={tmp_path}"]),
+        lambda: wav2vec.load_wav2vec(backend="random", num_hidden_layers=1),
+        lambda: clip_features.load_clip(backend="random"),
+        lambda: clip_features.preprocess_images(np.zeros((1, 8, 8, 3), np.uint8)),
+        lambda: preprocess_recordings(np.zeros((2, 1000)), 1000.0, 1.0, 60.0,
+                                      120.0),
+        lambda: embed_brennan_audio(cfg, str(tmp_path / "y.npy")),
+        lambda: build_gwilliams_cache.build_y(cfg, str(tmp_path)),
+        lambda: main.train_main(["dataset=GOD", f"data_root={tmp_path}"]),
+        lambda: main.evaluate_main(["dataset=GOD", f"data_root={tmp_path}"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -317,13 +317,14 @@ def test_train_cli_refuses_unported_paths(train_setup, tmp_path):
 
     for kw, what in (({"host_resident": True}, "host"),
                      ({"use_wandb": True}, "wandb"),
-                     ({"distributed": True}, "multi-host"),
-                     # Brennan without its embedding stream: embedding the
-                     # audio needs wav2vec2, not ported yet
-                     ({"dataset": "Brennan2018",
-                       "root_dir": str(tmp_path / "no_data")}, "wav2vec2")):
+                     ({"distributed": True}, "multi-host")):
         with pytest.raises(NotImplementedError, match=what):
             run(_cli_cfg(train_setup, tmp_path, epochs=1, **kw), device="cpu")
+    # Brennan without its embedding stream embeds the audio (wav2vec2);
+    # without audio either, it names the missing directory
+    with pytest.raises(FileNotFoundError, match="no audio"):
+        run(_cli_cfg(train_setup, tmp_path, epochs=1, dataset="Brennan2018",
+                     root_dir=str(tmp_path / "no_data")), device="cpu")
 
 
 def test_frozen_temperature_stays_at_its_init(train_setup):
