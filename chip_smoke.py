@@ -14,8 +14,10 @@ dataset and the full width of ``configs/config.yaml`` (60 channels on the
 easycap layout, S = 33, F = 1024, T = 360, batch 64, f32, no batch-time
 collate), then the stimulus encoders at full width (wav2vec2-large-xlsr-53
 and CLIP ViT-B/32), the Gwilliams preprocessing and cache builder, GOD's
-error analysis and the dispatching entry points, with random weights from
-``--seed``.
+error analysis and the dispatching entry points, then the serving artifact
+(``torch.export`` with the percentiles as the registered custom op), the
+export CLI, the reference-checkpoint import and the host-spill training
+path, with random weights from ``--seed``.
 Phases, each printed as one JSON line:
 
 1. build    — compile the three CUDA sources of
@@ -147,6 +149,36 @@ Phases, each printed as one JSON line:
               (``train_torch.py``, ``evaluate_torch.py``) on the full-width
               GOD set-up for 2 updates, then a 2-job ``-m`` sweep; the BN
               kernels' exact launches;
+    serving_export — the Gwilliams seq2seq encoder (collate on) and the
+              GOD encoder exported on the card (``serving/export.py``),
+              loaded on the card and on the CPU: the card artifact against
+              the eager serving forward at B = 1, 7, 8 and 64 (≤ 1e-5 ·
+              max|ref|), against the CPU artifact (≤ 1e-4 · max|ref|), one
+              request's launches (exactly one ``robust_quantiles``, nothing
+              else), a weight scaled by 1.5 changing Z, and the serving
+              benchmark's rows (``cli/serving_benchmark.py:latency_row``,
+              eager and artifact at B = 1, 8, 64);
+    export_cli — ``train_speech`` and ``train_god`` for 2 updates each,
+              ``cli/export_model.py`` on each checkpoint, the artifact on
+              the card against the evaluator's eager forward on the same
+              checkpoint (≤ 1e-5 · max|ref|), exact launches;
+    torch_import — a full-width Gwilliams encoder written under the
+              reference's module names (``reference_state_dict``),
+              imported by ``utils/torch_import.py`` and served on the card:
+              every entry and Z bit-identical;
+    spill_speech — the `training` phase's cache at B = 64: unfused steps on
+              host-gathered, pinned batches through ``prefetch_to_device``
+              against the device-resident unfused steps on the same draws
+              (cuDNN deterministic; losses and state within 1e-5), the step
+              time of each, the onsets between the two gathers' clamps,
+              then the train CLI with ``host_resident`` and its epoch traced
+              (``profile_dir``): the unfused CLI's launches without its
+              gathers, the port's kernels and a host-to-device copy on a
+              stream other than the kernels' in the trace;
+    spill_god — the same for the GOD trainer: the spilled train split's
+              host batches against the device-resident ones, then
+              ``cli/train_god.py`` with ``host_resident`` (the device CLI's
+              launches) and its trace;
 11. ``seconds`` (each phase group's wall time), ``step_share`` and
               ``god_step_share``, the ``kernels`` line (each
               kernel's launches by path, its times at the GOD shapes under
@@ -155,13 +187,16 @@ Phases, each printed as one JSON line:
               line.
 
 The serving, training, unfused, GOD training, GOD eval, preset, scan,
-model-zoo, Brennan, error-analysis and entry-point paths each run with
+model-zoo, Brennan, error-analysis, entry-point, artifact, export, import
+and spill paths each run with
 every launch count set to 0 just before and read just after; the run fails
 unless each kernel launched on the speech paths and on the GOD paths, every
 kernel on each preset, scan, model-zoo, unfused and training entry-point
 path, the long-row path on each Brennan build and CLI (with and without
-the embedding), the BN kernels in Brennan training, and the gather and the
-percentiles on each GOD evaluation.  The encoders and the preprocessing
+the embedding), the BN kernels in Brennan training, the gather and the
+percentiles on each GOD evaluation, the percentiles on each artifact,
+export and import path, and the percentiles and BN kernels on both spill
+CLIs.  The encoders and the preprocessing
 run no TPU kernel in the JAX package, and none here.
 
 Any failure raises and exits non-zero.  Without CUDA, or without the rest
@@ -192,9 +227,11 @@ from meg_decoding_tpu_torch.cli import (
     train_speech,
 )
 from meg_decoding_tpu_torch.cli.profile_train_step import profile_config
+from meg_decoding_tpu_torch.cli.serving_benchmark import latency_row
 from meg_decoding_tpu_torch.core.config import Config, compose, to_dict
 from meg_decoding_tpu_torch.data.brennan import build_brennan_dataset
 from meg_decoding_tpu_torch.data.god import build_god_dataset
+from meg_decoding_tpu_torch.data.prefetch import prefetch_to_device
 from meg_decoding_tpu_torch.data.layout import ch_locations_2d
 from meg_decoding_tpu_torch.data.roi import roi
 from meg_decoding_tpu_torch.data.synthetic import (
@@ -224,7 +261,11 @@ from meg_decoding_tpu_torch.ops.scaling import (
     collate_preprocess_cached,
     epoch_slice,
 )
-from meg_decoding_tpu_torch.serving.forward import make_serving_forward
+from meg_decoding_tpu_torch.serving.export import (
+    load_artifact,
+    make_serving_forward,
+    save_artifact,
+)
 from meg_decoding_tpu_torch.train.checkpoint import CheckpointManager
 from meg_decoding_tpu_torch.train.loop import _test_pool_starts
 from meg_decoding_tpu_torch.train.scan_loop import (
@@ -2339,6 +2380,447 @@ def phase_entry_points(cfg, work: str) -> dict:
     return {k: r["launches"] for k, r in result.items()}
 
 
+# --- the serving artifact, the export CLI, checkpoint import, host spill ------
+
+SERVE_BATCHES = (1, 7, 8, 64)   # odd and even, past one and at the step's
+BENCH_BATCHES, BENCH_ITERS = (1, 8, 64), 30
+EXPORT_RTOL = 1e-5    # artifact vs eager forward on the card, · max|ref|
+CARD_CPU_RTOL = 1e-4  # card vs CPU: cuDNN vs MKL f32 sums, as `serving`
+SPILL_STEPS = 6       # the timed steps of each form (the first untimed)
+SPILL_RTOL = 1e-5     # spill vs device-resident: the same kernels and draws
+QUANTILE_OP = torch.ops.meg_decoding_tpu_torch.robust_quantiles.default
+
+
+def rel_max(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max|got − want| / max|want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def serve_case(name, model, n_channels, seq_len, n_subjects, collate, seed,
+               work) -> dict:
+    """One encoder: export on the card, load on the card and on the CPU,
+    served against the eager forward, the CPU artifact, its launches, a
+    scaled weight and the latency rows."""
+    dev = torch.device("cuda")
+    out = os.path.join(work, f"artifact_{name}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_artifact(out, model, n_channels, seq_len, collate,
+                  extra_meta={"num_subjects": n_subjects})
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = load_artifact(out, device="cuda")
+    cpu = load_artifact(out, device="cpu")
+    load_s = time.perf_counter() - t0
+    n_ops = sum(1 for n in card.program.graph.nodes if n.target is QUANTILE_OP)
+    if n_ops != 1 or card.program.state_dict:
+        raise AssertionError(f"{name} artifact: {n_ops} quantile ops, "
+                             f"{len(card.program.state_dict)} weights inside")
+    forward = make_serving_forward(collate)
+    rng = np.random.RandomState(seed)
+
+    def request(B):
+        X = torch.from_numpy(rng.randn(B, n_channels, seq_len)
+                             .astype(np.float32)).to(dev)
+        subs = torch.from_numpy(rng.randint(0, n_subjects, B)
+                                .astype(np.int32)).to(dev)
+        return X, subs
+
+    errs = {}
+    for B in SERVE_BATCHES:
+        X, subs = request(B)
+        Z, ref = card(X, subs), forward(model, X, subs)
+        if Z.shape != ref.shape or Z.shape[0] != B or not bool(torch.isfinite(Z).all()):
+            raise AssertionError(f"{name} artifact at B = {B}: {tuple(Z.shape)}")
+        errs[B] = rel_max(Z, ref)
+        if not errs[B] <= EXPORT_RTOL:
+            raise AssertionError(f"{name} artifact vs eager at B = {B}: {errs[B]}")
+    X, subs = request(8)
+    cpu_err = rel_max(card(X, subs).cpu(), cpu(X.cpu(), subs.cpu()))
+    if not cpu_err <= CARD_CPU_RTOL:
+        raise AssertionError(f"{name} card vs CPU artifact: {cpu_err}")
+    # one served request launches the hand-written percentiles once
+    X, subs = request(BATCH)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    Z = card(X, subs)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    if launches != {"window_gather": 0, "robust_quantiles": 1, "bn_stats": 0,
+                    "bn_bwd_stats": 0} or qk.long_launches != 0:
+        raise AssertionError(f"{name} artifact call launches {launches}")
+    key = "conv_final2.weight"
+    w = card.weights[key]
+    card.weights[key] = w * 1.5
+    scaled = card(X, subs)
+    card.weights[key] = w
+    if torch.equal(scaled, Z):
+        raise AssertionError(f"{name}: a weight scaled by 1.5 left Z as it was")
+    rows = []
+    for B in BENCH_BATCHES:
+        X, subs = request(B)
+        for source, call in (("eager", lambda x, s: forward(model, x, s)),
+                             ("artifact", card)):
+            rows.append({"source": source,
+                         **latency_row(call, X, subs, BENCH_ITERS, dev)})
+    sizes = {f: os.path.getsize(os.path.join(out, f))
+             for f in ("forward.pt2", "weights.pt", "meta.json")}
+    return {"input": [n_channels, seq_len], "subjects": n_subjects,
+            "export_s": export_s, "load_s": load_s, "rel_err": errs,
+            "limit": EXPORT_RTOL, "card_vs_cpu_rel_err": cpu_err,
+            "card_vs_cpu_limit": CARD_CPU_RTOL, "launches": launches,
+            "file_bytes": sizes, "latency": rows}
+
+
+def phase_serving_export(cfg, god_cfg, god_ds, seed, work) -> dict:
+    """The serving artifact at full width: the Gwilliams seq2seq encoder
+    (collate on) and the GOD encoder at config_GOD.yaml's widths.  Returns
+    each artifact call's launch counts."""
+    dev = torch.device("cuda")
+    speech = get_model(cfg, ch_locations_2d(cfg), device=dev, seed=seed)
+    god_loc = ch_locations_2d(god_cfg, roi(god_cfg))
+    god = get_model(god_cfg, god_loc, device=dev, seed=seed,
+                    num_channels=len(god_loc))
+    cases = {
+        "speech": serve_case("speech", speech, C, int(cfg.preprocs.brain_resample_rate
+                                                    * cfg.preprocs.seq_len_sec),
+                             int(cfg.num_subjects),
+                             evaluate_speech.collate_config(cfg), seed, work),
+        "god": serve_case("god", god, len(god_loc), int(god_ds.X.shape[-1]),
+                          int(god_ds.num_subjects),
+                          evaluate_speech.collate_config(god_cfg), seed, work)}
+    emit({"phase": "serving_export", **cases})
+    return {f"artifact_serve_{k}": v["launches"] for k, v in cases.items()}
+
+
+def phase_export_cli(cfg, god_cfg, seed, work) -> dict:
+    """``train_speech`` and ``train_god`` for 2 updates each, then
+    ``cli/export_model.py`` on each checkpoint; the artifact served on the
+    card against the evaluator's eager forward on the same checkpoint.
+    Returns the launch counts of export + one served request."""
+    from meg_decoding_tpu_torch.cli.export_model import (
+        export_checkpoint_path,
+        run as export_run,
+    )
+
+    dev = torch.device("cuda")
+    out_speech = os.path.join(work, "export_speech")
+    overrides = [f"cache_dir={cfg.cache_dir}", f"save_root={out_speech}",
+                 f"seed={seed}", f"batch_size={BATCH}", "epochs=1", "updates=2",
+                 "run_name=export"]
+    god = dict(to_dict(god_cfg), save_root=os.path.join(work, "export_god"),
+               updates=2, use_sampler=True, epochs=1, run_name="export")
+    result = {}
+    for name in ("speech", "god"):
+        t0 = time.perf_counter()
+        if name == "speech":
+            train_speech.run(compose(CONFIGS_DIR, "config", overrides), device="cuda")
+            ecfg = compose(CONFIGS_DIR, "config", overrides)
+            test_set = evaluate_speech.load_speech_splits(ecfg, seed, dev)[1]
+            ecfg.num_subjects, ecfg.num_channels = (test_set.num_subjects,
+                                                    test_set.num_channels)
+            model = get_model(ecfg, ch_locations_2d(ecfg), device=dev, seed=seed,
+                              num_channels=ecfg.num_channels)
+            model.load_state_dict(evaluate_speech.load_model_state(
+                export_checkpoint_path(ecfg)[0], dev))
+            X, _, subs = test_set.gather(np.arange(BATCH))
+            ref = make_serving_forward(evaluate_speech.collate_config(ecfg))(
+                model, X, subs)
+            expected = {"window_gather": 0, "robust_quantiles": 1,
+                        "bn_stats": 0, "bn_bwd_stats": 0}
+        else:
+            train_god.run(Config(god), device="cuda")
+            ecfg = Config(god)
+            _, val, model = evaluate_god._build(ecfg, dev)
+            model.load_state_dict(evaluate_speech.load_model_state(
+                export_checkpoint_path(ecfg)[0], dev))
+            n = min(BATCH, len(val))
+            sub = val.subset(np.arange(n))
+            ref = evaluate_god.predict(ecfg, model, sub, batch_size=n)
+            X, _, subs = sub.gather(np.arange(n))[:3]
+            # the export builds the GOD train split for its shapes: one gather
+            expected = {"window_gather": 1, "robust_quantiles": 1,
+                        "bn_stats": 0, "bn_bwd_stats": 0}
+        train_s = time.perf_counter() - t0
+        ecfg = (compose(CONFIGS_DIR, "config", overrides) if name == "speech"
+                else Config(god))
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        art = export_run(ecfg, device="cuda")
+        export_s = time.perf_counter() - t0
+        served = load_artifact(art, device="cuda")
+        Z = served(X, subs)
+        torch.cuda.synchronize()
+        launches = all_launches()
+        if launches != expected:
+            raise AssertionError(f"export CLI {name}: launches {launches}, "
+                                 f"expected {expected}")
+        err = rel_max(Z, ref)
+        if not err <= EXPORT_RTOL or served.meta["checkpoint"] != "model_best":
+            raise AssertionError(f"export CLI {name}: artifact vs evaluator "
+                                 f"{err}, meta {served.meta}")
+        result[name] = {"train_and_reference_s": train_s, "export_s": export_s,
+                        "rel_err": err, "limit": EXPORT_RTOL,
+                        "meta": {k: served.meta[k] for k in (
+                            "input", "checkpoint", "dataset", "num_subjects",
+                            "custom_ops")},
+                        "launches": launches}
+    emit({"phase": "export_cli", **result})
+    return {f"export_cli_{k}": v["launches"] for k, v in result.items()}
+
+
+def reference_state_dict(sd: dict) -> dict:
+    """A port ``BrainEncoder`` state_dict under the reference's module names
+    and layouts (``meg_decoding/models.py:340-361``): the inverse of
+    ``utils/torch_import.py:brain_encoder_from_state_dict``."""
+    ref = {"subject_block.spatial_attention.z": torch.complex(
+        sd["subject_block.spatial_attention.z_re"],
+        sd["subject_block.spatial_attention.z_im"])}
+    for name in ("subject_block.conv", "conv_final1", "conv_final2"):
+        ref[f"{name}.weight"] = sd[f"{name}.weight"][:, :, None]
+        ref[f"{name}.bias"] = sd[f"{name}.bias"]
+    for s, w in enumerate(sd["subject_block.subject_layer.weight"]):
+        ref[f"subject_block.subject_layer.{s}.weight"] = w.T[:, :, None]
+    k = 0
+    while f"conv{k}.conv0.weight" in sd:
+        blk, out = f"conv{k}", f"conv_blocks.conv{k}"
+        for c in ("conv0", "conv1"):
+            ref[f"{out}.{c}.weight"] = sd[f"{blk}.{c}.weight"]
+            ref[f"{out}.{c}.bias"] = sd[f"{blk}.{c}.bias"]
+        for p in ("weight", "bias"):
+            ref[f"{out}.conv2.{p}"] = torch.cat([sd[f"{blk}.conv2a.{p}"],
+                                                 sd[f"{blk}.conv2b.{p}"]])
+        for i in (0, 1):
+            bn, rbn = f"{blk}.bn{i}", f"{out}.batchnorm{i}"
+            ref[f"{rbn}.weight"], ref[f"{rbn}.bias"] = sd[f"{bn}.scale"], sd[f"{bn}.bias"]
+            ref[f"{rbn}.running_mean"] = sd[f"{bn}.mean"]
+            ref[f"{rbn}.running_var"] = sd[f"{bn}.var"]
+            ref[f"{rbn}.num_batches_tracked"] = torch.tensor(0)
+        k += 1
+    return {k_: v.detach().cpu().contiguous() for k_, v in ref.items()}
+
+
+def phase_torch_import(cfg, seed, work) -> dict:
+    """A full-width Gwilliams encoder written as a reference-named
+    checkpoint, imported (``utils/torch_import.py``) and served on the card:
+    bit-identical to the model it came from.  Returns the launches of the
+    imported model's request."""
+    from meg_decoding_tpu_torch.utils.torch_import import (
+        brain_encoder_from_state_dict,
+        load_torch_checkpoint,
+    )
+
+    dev = torch.device("cuda")
+    loc = ch_locations_2d(cfg)
+    model = get_model(cfg, loc, device=dev, seed=seed)
+    path = os.path.join(work, "reference_model_last.pt")
+    torch.save(reference_state_dict(model.state_dict()), path)
+    t0 = time.perf_counter()
+    sd = brain_encoder_from_state_dict(load_torch_checkpoint(path))
+    imported = get_model(cfg, loc, device=dev, seed=seed + 1)
+    imported.load_state_dict(sd)
+    import_s = time.perf_counter() - t0
+    for k, v in model.state_dict().items():
+        if not torch.equal(imported.state_dict()[k], v):
+            raise AssertionError(f"torch_import: {k} differs after the round trip")
+    rng = np.random.RandomState(seed + 7)
+    seq_len = int(cfg.preprocs.brain_resample_rate * cfg.preprocs.seq_len_sec)
+    X = torch.from_numpy(rng.randn(BATCH, C, seq_len).astype(np.float32)).to(dev)
+    subs = torch.from_numpy(rng.randint(0, int(cfg.num_subjects), BATCH)).to(dev)
+    forward = make_serving_forward(evaluate_speech.collate_config(cfg))
+    ref = forward(model, X, subs)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    Z = forward(imported, X, subs)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    if not torch.equal(Z, ref) or launches["robust_quantiles"] != 1:
+        raise AssertionError(f"torch_import: served Z differs "
+                             f"({rel_max(Z, ref)}) or launches {launches}")
+    emit({"phase": "torch_import", "entries": len(sd), "import_s": import_s,
+          "bit_identical": True, "Z_shape": list(Z.shape), "launches": launches})
+    return launches
+
+
+def same_draw_runs(make_state, batches_device, batches_spill) -> dict:
+    """SPILL_STEPS unfused steps on the device-resident batches and on the
+    spilled ones (host gathers through ``prefetch_to_device``), the same
+    draws and init, cuDNN deterministic: losses and every state entry
+    within SPILL_RTOL; the wall time a step of each, its first step
+    untimed, one synchronize at the end."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for kind, batches in (("device", batches_device), ("spill", batches_spill)):
+            model, state, step = make_state()
+            losses = []
+            for i, batch in enumerate(batches()):
+                if i == 1:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                state, m = step(state, *batch)
+                losses.append(m["loss"])
+            torch.cuda.synchronize()
+            out[kind] = (model, [float(v) for v in losses],
+                         (time.perf_counter() - t0) * 1e3 / (len(losses) - 1))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    (dm, dl, dt), (sm, sl, st) = out["device"], out["spill"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(sl, dl))
+    p_rel = params_rel_err(sm, dm)
+    if len(sl) != len(dl) or not (loss_rel <= SPILL_RTOL and p_rel <= SPILL_RTOL):
+        raise AssertionError(f"spill vs device: losses {sl} / {dl}, params {p_rel}")
+    return {"steps": len(dl), "device_step_ms": dt, "spill_step_ms": st,
+            "losses": dl, "loss_rel_err": loss_rel, "params_rel_err": p_rel,
+            "limit": SPILL_RTOL}
+
+
+def spill_cli(run, tcfg, work, name, expected) -> dict:
+    """A train CLI with ``host_resident: true, prefetch: 2`` and the epoch
+    traced: exact launches, and a trace holding the port's kernels and a
+    host-to-device copy on a stream other than the kernels'."""
+    prof = os.path.join(work, f"profile_{name}")
+    tcfg.host_resident, tcfg.prefetch = True, 2
+    tcfg.profile_dir, tcfg.profile_epoch = prof, 0
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best = run(tcfg, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = all_launches()
+    if launches != expected:
+        raise AssertionError(f"{name} spill CLI launches {launches}, "
+                             f"expected {expected}")
+    if best.get("train_skipped") != 0.0 or not math.isfinite(best["train_loss"]):
+        raise AssertionError(f"{name} spill CLI: {best}")
+    (trace,) = os.listdir(prof)
+    with open(os.path.join(prof, trace)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    copies_h2d = [e for e in events if e.get("cat") == "gpu_memcpy"
+                  and "HtoD" in str(e.get("name"))]
+    ours = {"robust_quantiles": 0, "bn_stats": 0, "bn_bwd": 0}
+    for e in kernels:
+        for k in ours:
+            ours[k] += k in e["name"]
+    streams = lambda es: sorted({e.get("args", {}).get("stream") for e in es})  # noqa: E731
+    compute = {e.get("args", {}).get("stream") for e in kernels
+               if "bn_stats" in e["name"]}
+    side = [e for e in copies_h2d if e.get("args", {}).get("stream") not in compute]
+    if not all(ours.values()) or not side:
+        raise AssertionError(f"{name} trace: kernels {ours}, H2D copies on "
+                             f"{streams(copies_h2d)}, kernels on {sorted(compute)}")
+    return {"train_cli_s": run_s, "launches": launches,
+            "trace": {"events": len(events), "port_kernels": ours,
+                      "h2d_copies": len(copies_h2d), "h2d_off_compute": len(side),
+                      "h2d_streams": streams(copies_h2d),
+                      "compute_streams": sorted(compute)},
+            "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
+                                               "test_loss", "t_gather_ms",
+                                               "t_step_ms")}}
+
+
+def phase_spill_speech(cfg, seed, work, unfused_launches) -> dict:
+    """The speech spill path at full width (the `training` phase's cache,
+    B = 64): unfused steps on host-gathered batches through the prefetch
+    against the device-resident unfused steps on the same draws, then the
+    train CLI with ``host_resident``: no gather launch, the other kernels
+    as the unfused CLI launched them.  Returns the CLI's launches."""
+    from meg_decoding_tpu_torch.cli.train_speech import spill_speech_splits
+    from meg_decoding_tpu_torch.ops.kernels.window_gather import padded_window
+    from meg_decoding_tpu_torch.train.loop import derived_generator
+
+    dev = torch.device("cuda")
+    loc = ch_locations_2d(cfg)
+    loss_cfg = train_speech.loss_config(cfg)
+    collate = evaluate_speech.collate_config(cfg)
+    train_pool, test_pool = evaluate_speech.load_speech_splits(
+        Config(to_dict(cfg)), seed, dev)
+    ds = train_pool.ds
+    L, T = int(ds.seq_len), int(ds.recordings.shape[-1])
+    on = ds.meg_onsets
+    between = int(((on > T - padded_window(L)) & (on <= T - L)).sum())
+    rng = np.random.RandomState(seed + 8)
+    draws = [rng.randint(0, len(train_pool), BATCH) for _ in range(SPILL_STEPS + 1)]
+
+    def make_state():
+        model = get_model(cfg, loc, device=dev, seed=seed)
+        opt = make_optimizer(cfg, SPILL_STEPS + 1)
+        state = create_train_state(model, opt, float(cfg.init_temperature), seed)
+        return model, state, make_train_step(model, opt, loss_cfg, collate)
+
+    def gathered():
+        for i, idx in enumerate(draws):
+            yield train_pool.gather(idx, generator=derived_generator(seed, 0, 2, i))
+
+    # the device-resident form first, then the same pools spilled
+    device_ds, spilled = train_pool.ds, {}
+
+    def batches_device():
+        train_pool.ds = device_ds
+        return gathered()
+
+    def batches_spill():
+        if not spilled:
+            spill_speech_splits(train_pool, test_pool)
+            spilled["ds"] = train_pool.ds
+        train_pool.ds = spilled["ds"]
+        return prefetch_to_device(gathered(), size=2, device=dev)
+
+    check = same_draw_runs(make_state, batches_device, batches_spill)
+    pinned = bool(spilled["ds"].recordings.is_pinned())
+    bytes_per_step = BATCH * (C * L + int(ds.y_stream.shape[1]) * L) * 4
+    del train_pool, test_pool, ds, device_ds, spilled
+
+    out = os.path.join(work, "spill_out")
+    tcfg = compose(CONFIGS_DIR, "config", [
+        f"cache_dir={cfg.cache_dir}", f"save_root={out}", f"seed={seed}",
+        f"batch_size={BATCH}", "epochs=1", f"updates={TRAIN_UPDATES}",
+        "fuse_gather=false", "run_name=spill"])
+    expected = dict(unfused_launches, window_gather=0)
+    cli = spill_cli(train_speech.run, tcfg, work, "speech", expected)
+    emit({"phase": "spill_speech", **check, "pinned": pinned,
+          "h2d_bytes_per_step": bytes_per_step,
+          "onsets_between_clamps": between, **cli})
+    return cli["launches"]
+
+
+def phase_spill_god(cfg, god_ds, seed, work, god_launches) -> dict:
+    """The GOD spill path: steps on the spilled train split's host batches
+    through the prefetch against the device-resident steps on the same
+    draws, then ``cli/train_god.py`` with ``host_resident``: the launches
+    of the device-resident CLI (`god_training`).  Returns them."""
+    dev = torch.device("cuda")
+    loc = ch_locations_2d(cfg, roi(cfg))
+    loss_cfg = train_god._loss_config(cfg)
+    collate = evaluate_speech.collate_config(cfg)
+    host = god_ds.to_host()
+    rng = np.random.RandomState(seed + 9)
+    draws = [rng.randint(0, len(god_ds), BATCH) for _ in range(SPILL_STEPS + 1)]
+
+    def make_state():
+        model = get_model(cfg, loc, device=dev, seed=seed, num_channels=len(loc))
+        opt = make_optimizer(cfg, SPILL_STEPS + 1)
+        state = create_train_state(model, opt, float(cfg.init_temperature), seed)
+        return model, state, make_train_step(model, opt, loss_cfg, collate)
+
+    check = same_draw_runs(
+        make_state, lambda: (god_ds.gather(i)[:3] for i in draws),
+        lambda: prefetch_to_device((host.gather(i)[:3] for i in draws),
+                                   size=2, device=dev))
+    pinned = bool(host.X.is_pinned())
+    del host
+    tcfg = Config(dict(to_dict(cfg), save_root=os.path.join(work, "spill_god"),
+                       run_name="spill"))
+    cli = spill_cli(train_god.run, tcfg, work, "god", dict(god_launches))
+    emit({"phase": "spill_god", **check, "pinned": pinned, **cli})
+    return cli["launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke run of the port")
     ap.add_argument("--seed", type=int, default=0)
@@ -2402,6 +2884,20 @@ def main(argv=None) -> int:
         del flush
         lap("god")
 
+        # the serving artifact, the export CLI, checkpoint import, host spill
+        artifact_spill_paths = phase_serving_export(cfg, god_cfg, god_ds, args.seed, work)
+        lap("serving_export")
+        artifact_spill_paths.update(phase_export_cli(cfg, god_cfg, args.seed, work))
+        lap("export_cli")
+        artifact_spill_paths["torch_import"] = phase_torch_import(cfg, args.seed, work)
+        lap("torch_import")
+        artifact_spill_paths["spill_speech_cli"] = phase_spill_speech(cfg, args.seed, work,
+                                                       unfused)
+        lap("spill_speech")
+        artifact_spill_paths["spill_god_cli"] = phase_spill_god(
+            god_cfg, god_ds, args.seed, work, god_training["launches"])
+        lap("spill_god")
+
         brennan_ds, row_len, brennan_build = phase_brennan_data(args.seed)
         lap("brennan_data")
         flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
@@ -2460,6 +2956,12 @@ def main(argv=None) -> int:
         for name in needed:
             if launches[name] <= 0:
                 raise AssertionError(f"{name}: no launch on the {path} path")
+    for path, launches in artifact_spill_paths.items():
+        needed = (("robust_quantiles", "bn_stats", "bn_bwd_stats")
+                  if path.startswith("spill") else ("robust_quantiles",))
+        for name in needed:
+            if launches[name] <= 0:
+                raise AssertionError(f"{name}: no launch on the {path} path")
     for path, launches in (("serving", serving), ("training", training["launches"]),
                            *new_paths.items()):
         for name, n in launches.items():
@@ -2468,7 +2970,7 @@ def main(argv=None) -> int:
     paths = {"serving": serving, "training": training["launches"],
              "god_training": god_training["launches"], "god_eval": god_eval,
              **new_paths, **{k: v for k, (v, _) in brennan_paths.items()},
-             **god_extra_paths}
+             **god_extra_paths, **artifact_spill_paths}
     for name in training["launches"]:
         if paths["god_training"][name] + paths["god_eval"][name] <= 0:
             raise AssertionError(f"{name}: no launch on the GOD paths")

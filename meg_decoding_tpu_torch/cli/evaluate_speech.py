@@ -80,6 +80,12 @@ class SpeechPool:
         """The channels of a gathered batch."""
         return self.ds.num_channels
 
+    @property
+    def host_resident(self) -> bool:
+        """The split lives in host memory: ``fit`` streams its batches
+        through the prefetch (``train/loop.py``)."""
+        return bool(getattr(self.ds, "host_resident", False))
+
     def segment_ids(self, idx) -> np.ndarray:
         """Pool positions → global segment ids of ``ds``."""
         return np.asarray(idx) if self.indices is None \

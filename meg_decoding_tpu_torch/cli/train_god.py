@@ -21,9 +21,15 @@ Writes ``{save_root}/runs/<run>/metrics.jsonl`` and ``config.yaml``, and
 ``{save_root}/ckpt/model_last.pt`` / ``model_best.pt`` (``resume=true``
 continues from model_last).
 
-Not ported yet, and refused: the host-resident spill path, wandb, and
-data parallelism over several GPUs (pass ``data_parallel=false`` to train
-on one of them).
+``host_resident: true`` spills the train split to host memory
+(``PackedDataset.to_host``) and ``fit`` streams its batches to the card
+through the prefetch (``prefetch: N``, 2 by default), as JAX
+``cli/train_god.py:82-85``; the whole-epoch form is then not taken.
+``use_wandb: true`` logs to wandb as well when the module and its
+credentials are there, else to the JSONL alone (``utils/logging.py``).
+
+Not ported yet, and refused: multi-host training and data parallelism
+over several GPUs (pass ``data_parallel=false`` to train on one of them).
 
 Run: ``python -m meg_decoding_tpu_torch.cli.train_god
 [--config-path configs] [--config-name config_GOD] [--device cuda]
@@ -68,11 +74,9 @@ __all__ = ["run"]
 
 
 def _refuse_unported(cfg, dev: torch.device) -> None:
-    for key, what in (("host_resident", "the host-resident spill path"),
-                      ("use_wandb", "wandb logging"),
-                      ("distributed", "multi-host training")):
-        if cfg.get(key, False):
-            raise NotImplementedError(f"{key}: {what} is not ported yet")
+    if cfg.get("distributed", False):
+        raise NotImplementedError(
+            "distributed: multi-host training is not ported yet")
     if (dev.type == "cuda" and torch.cuda.device_count() > 1
             and cfg.get("data_parallel", True)):
         raise NotImplementedError(
@@ -116,6 +120,10 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
             cfg, "val", mean_X=source.mean_X, std_X=source.std_X,
             mean_Y=source.mean_Y, std_Y=source.std_Y, device=dev)
     cfg.num_subjects = source.num_subjects
+    if cfg.get("host_resident", False):
+        # the spill path: the train epochs stay in host memory and stream
+        # through the prefetch (train/loop.py)
+        train_set = train_set.to_host()
 
     roi_channels = roi(cfg)
     model = get_model(cfg, ch_locations_2d(cfg, roi_channels), device=dev,
@@ -142,13 +150,17 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
     eval_step = make_eval_step(model, loss_cfg, collate_cfg, gallery=gallery,
                                gallery_self_sim=gallery_self_sim)
 
-    logger = RunLogger(save_root, run_name=cfg.get("run_name"))
+    logger = RunLogger(save_root, run_name=cfg.get("run_name"),
+                       use_wandb=bool(cfg.get("use_wandb", False)),
+                       wandb_cfg=cfg.get("wandb"))
     logger.dump_config(cfg)
     ckpt = CheckpointManager(os.path.join(save_root, "ckpt"))
     state, start_epoch = resume_if_requested(
         cfg, ckpt, state, save_root, steps_per_epoch(cfg, len(train_set)))
-    if cfg.get("use_scan_epochs", False) and not with_labels:
-        # the whole-epoch form; the label losses take the per-step driver
+    if (cfg.get("use_scan_epochs", False) and not with_labels
+            and not cfg.get("host_resident", False)):
+        # the whole-epoch form; the label losses and the spill path take
+        # the per-step driver
         scan_epoch = make_scan_epoch(model, optimizer, loss_cfg, collate_cfg,
                                      train_set, updates=updates,
                                      batch_size=int(cfg.batch_size))

@@ -25,9 +25,16 @@ Writes ``{save_root}/runs/<run>/metrics.jsonl`` and ``config.yaml``, and
 ``{save_root}/ckpt/model_last.pt`` / ``model_best.pt`` (the full train
 state; ``resume=true`` continues from model_last).
 
-Not ported yet, and refused: the host-resident spill path, wandb, and
-data parallelism over several GPUs (pass ``data_parallel=false`` to train on
-one of them).
+``host_resident: true`` spills both splits to host memory (through one
+buffer cache, so that splits sharing a tensor share its host copy) and
+forces ``fuse_gather: false`` and ``use_scan_epochs: false``: the batches
+are gathered on the host and streamed to the card by ``fit``'s prefetch
+(``prefetch: N``, 2 by default), as JAX ``cli/train_speech.py:271-290``.
+``use_wandb: true`` logs to wandb as well when the module and its
+credentials are there, else to the JSONL alone (``utils/logging.py``).
+
+Not ported yet, and refused: multi-host training and data parallelism
+over several GPUs (pass ``data_parallel=false`` to train on one of them).
 
 Run: ``python -m meg_decoding_tpu_torch.cli.train_speech
 [--config-path configs] [--config-name config] [--device cuda] key=value …``
@@ -45,6 +52,7 @@ from meg_decoding_tpu_torch.cli.evaluate_speech import (
     load_speech_splits,
 )
 from meg_decoding_tpu_torch.core.config import Config, compose
+from meg_decoding_tpu_torch.data.gwilliams import GwilliamsPacked, to_host
 from meg_decoding_tpu_torch.data.layout import ch_locations_2d
 from meg_decoding_tpu_torch.device import resolve_device
 from meg_decoding_tpu_torch.models.factory import get_model
@@ -68,7 +76,7 @@ from meg_decoding_tpu_torch.train.steps import (
 )
 from meg_decoding_tpu_torch.utils.logging import RunLogger
 
-__all__ = ["run", "loss_config"]
+__all__ = ["run", "loss_config", "spill_speech_splits"]
 
 
 def _refuse_unported(cfg, dev: torch.device) -> None:
@@ -76,11 +84,9 @@ def _refuse_unported(cfg, dev: torch.device) -> None:
         raise NotImplementedError(
             f"dataset {cfg.dataset!r} is not a speech dataset "
             "(Gwilliams2022, Brennan2018)")
-    for key, what in (("host_resident", "the host-resident spill path"),
-                      ("use_wandb", "wandb logging"),
-                      ("distributed", "multi-host training")):
-        if cfg.get(key, False):
-            raise NotImplementedError(f"{key}: {what} is not ported yet")
+    if cfg.get("distributed", False):
+        raise NotImplementedError(
+            "distributed: multi-host training is not ported yet")
     if (dev.type == "cuda" and torch.cuda.device_count() > 1
             and cfg.get("data_parallel", True)):
         raise NotImplementedError(
@@ -103,6 +109,22 @@ class _FusedPool:
         return self.pool.segment_ids(idx), generator
 
 
+def spill_speech_splits(train_set, test_set) -> None:
+    """Move both pools' packed splits to host memory, in place: shallow
+    pools wrap one packed object, sentence and deep splits share the
+    recordings and streams across two, so the spill goes through one
+    buffer cache and each tensor is copied to the host once.  Both are
+    spilled before either is replaced, so that the cache's keys (the
+    sources' storages) stay alive meanwhile."""
+    shared = test_set.ds is train_set.ds
+    cache = {}
+    spill = ((lambda d: to_host(d, cache)) if isinstance(train_set.ds, GwilliamsPacked)
+             else lambda d: d.to_host())
+    train_host = spill(train_set.ds)
+    test_host = train_host if shared else spill(test_set.ds)
+    train_set.ds, test_set.ds = train_host, test_host
+
+
 def loss_config(cfg) -> LossConfig:
     return LossConfig(kind=cfg.select("loss.kind", "clip"),
                       reduction=cfg.get("reduction", "mean"),
@@ -120,6 +142,10 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
 
     train_set, test_set = load_speech_splits(cfg, seed, dev)
     cfg.num_subjects = train_set.num_subjects
+    if cfg.get("host_resident", False):
+        spill_speech_splits(train_set, test_set)
+        cfg.fuse_gather = False
+        cfg.use_scan_epochs = False
     cfg.num_channels = train_set.num_channels
     model = get_model(cfg, ch_locations_2d(cfg), device=dev, seed=seed,
                       num_channels=cfg.num_channels)
@@ -135,7 +161,9 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
     cache_stats = bool(cfg.get("cache_collate_stats", False))
     eval_step = make_eval_step(model, loss_cfg, collate_cfg)
 
-    logger = RunLogger(save_root, run_name=cfg.get("run_name"))
+    logger = RunLogger(save_root, run_name=cfg.get("run_name"),
+                       use_wandb=bool(cfg.get("use_wandb", False)),
+                       wandb_cfg=cfg.get("wandb"))
     logger.dump_config(cfg)
     ckpt = CheckpointManager(os.path.join(save_root, "ckpt"))
     state, start_epoch = resume_if_requested(

@@ -33,6 +33,7 @@ import numpy as np
 import scipy.io
 import torch
 
+from meg_decoding_tpu_torch.data.packed import host_copy, host_index
 from meg_decoding_tpu_torch.device import resolve_device
 from meg_decoding_tpu_torch.features import wav2vec
 from meg_decoding_tpu_torch.ops.fir import bandpass_filter
@@ -77,13 +78,17 @@ class BrennanPacked:
 
     X: (num_chunks, S, C, L) baseline-corrected segments;
     Y: (num_chunks, F, L) embedding segments.
+    ``to_host`` spills them to host memory (``host_resident``), where a
+    gather slices on the host.
     A training sample = (chunk i, random subject), reproducing
     ``__getitem__``'s distribution (:147-152)."""
 
-    def __init__(self, X_chunks: torch.Tensor, Y_chunks: torch.Tensor):
+    def __init__(self, X_chunks: torch.Tensor, Y_chunks: torch.Tensor,
+                 host_resident: bool = False):
         self.X = X_chunks
         self.Y = Y_chunks
         self.num_subjects = int(X_chunks.shape[1])
+        self.host_resident = host_resident
 
     def __len__(self):
         return int(self.X.shape[0])
@@ -108,13 +113,26 @@ class BrennanPacked:
                                          generator=generator,
                                          device=generator.device)
         subs = torch.as_tensor(subject_idxs, dtype=torch.int64, device=dev)
+        if self.host_resident:  # host slices, into pinned memory
+            N, S = self.X.shape[:2]
+            flat = self.X.reshape(N * S, *self.X.shape[2:])
+            return (host_index(flat, torch.as_tensor(idx) * S + subs),
+                    host_index(self.Y, idx), subs, idx)
         idx_t = torch.as_tensor(idx, dtype=torch.int64, device=dev)
         return self.X[idx_t, subs], self.Y[idx_t], subs, idx
 
     def subset(self, idx) -> "BrennanPacked":
+        if self.host_resident:
+            return BrennanPacked(host_index(self.X, idx),
+                                 host_index(self.Y, idx), host_resident=True)
         idx_t = torch.as_tensor(np.asarray(idx), dtype=torch.int64,
                                 device=self.X.device)
         return BrennanPacked(self.X[idx_t], self.Y[idx_t])
+
+    def to_host(self) -> "BrennanPacked":
+        """The packed chunks in host memory (see ``PackedDataset.to_host``)."""
+        return BrennanPacked(host_copy(self.X), host_copy(self.Y),
+                             host_resident=True)
 
 
 def build_brennan_dataset(cfg, Y_stream, X_raw=None, fs: float | None = None,

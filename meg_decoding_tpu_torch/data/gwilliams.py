@@ -12,6 +12,11 @@ Both X and Y stay continuous on the device ((sessions, 4, C, T) padded
 recordings, (4, F, T) embedding streams) and a batch is two window gathers
 (``ops/kernels/window_gather.py``), one for X and one for Y.
 
+``to_host`` spills a packed split to host memory (pinned when it comes
+from the card); its batches are then sliced on the host
+(``_gather_batch_host``) and copied to the card by the prefetch
+(``data/prefetch.py``).
+
 ``compute_collate_stats`` sweeps every (session, task, word) window once
 and keeps its RobustScaler fit, so the cached collate
 (``ops/scaling.py:collate_preprocess_cached``) needs no percentiles per
@@ -20,12 +25,14 @@ step.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from meg_decoding_tpu_torch.data.packed import host_copy, host_index
 from meg_decoding_tpu_torch.device import resolve_device
 from meg_decoding_tpu_torch.ops.fir import bandpass_filter
 from meg_decoding_tpu_torch.ops.kernels.window_gather import (
@@ -38,7 +45,8 @@ from meg_decoding_tpu_torch.ops.scaling import baseline_correct, robust_stats
 __all__ = ["GwilliamsPacked", "load_gwilliams_cache", "parse_sessions",
            "build_gwilliams_dataset", "sentence_split", "deep_split",
            "drop_overlapping_words", "gather_speech_batch",
-           "draw_sessions", "compute_collate_stats", "collate_stats_chunk",
+           "draw_sessions", "to_host", "compute_collate_stats",
+           "collate_stats_chunk",
            "collate_stats_rows", "preprocess_recordings"]
 
 NUM_TASKS = 4
@@ -152,6 +160,7 @@ class GwilliamsPacked:
     n_words:    (4,) numpy valid word counts per task for this split.
     session_subject: (n_sessions,) int64 subject index of each session.
     seq_len: segment length in samples (360).
+    host_resident: the tensors live in host memory (``to_host``).
     """
 
     recordings: torch.Tensor
@@ -163,6 +172,7 @@ class GwilliamsPacked:
     seq_len: int
     num_subjects: int
     _seg_table: np.ndarray | None = None  # lazily built, immutable per split
+    host_resident: bool = False
 
     def __len__(self):
         return int(self.n_words.sum())
@@ -226,11 +236,20 @@ def gather_speech_batch(ds: GwilliamsPacked, segment_ids: np.ndarray,
 
     Sessions come from ``sess_ids`` when given, else are drawn uniformly
     with ``generator`` (``draw_sessions``).  ``y_dtype`` casts Y inside the
-    gather (see ``_gather_batch``).  Returns
+    gather (see ``_gather_batch``).  On a host-resident split
+    (``to_host``) the windows are host slices from the same draw
+    (``_gather_batch_host``).  Returns
     ``(X, Y, subject_idxs, segment_ids)``."""
     seg = ds.segment_table()[np.asarray(segment_ids)]
     if sess_ids is None:
         sess_ids = draw_sessions(ds, len(seg), generator)
+    if ds.host_resident:
+        if y_dtype is not None:
+            raise ValueError("y_dtype casts inside the device gather; a "
+                             "host-resident split gathers on the host")
+        X, Y, subs = _gather_batch_host(ds, seg[:, 0], seg[:, 1],
+                                        np.asarray(sess_ids))
+        return X, Y, subs, np.asarray(segment_ids)
     dev = ds.recordings.device
     sess_ids = torch.as_tensor(np.asarray(sess_ids), dtype=torch.int64,
                                device=dev)
@@ -241,6 +260,68 @@ def gather_speech_batch(ds: GwilliamsPacked, segment_ids: np.ndarray,
         ds.session_subject, task_ids, i_in_task, sess_ids, ds.seq_len,
         y_dtype=y_dtype)
     return X, Y, subs, np.asarray(segment_ids)
+
+
+def to_host(ds: GwilliamsPacked, buffer_cache: dict | None = None
+            ) -> GwilliamsPacked:
+    """The split in host memory (``packed.host_copy``: pinned when it comes
+    from the card), for recordings that exceed the card's memory.  Its
+    batches are host slices (``gather_speech_batch``) streamed through the
+    prefetch (``data/prefetch.py``; ``host_resident: true`` and
+    ``prefetch: N`` on the speech trainer).
+
+    ``buffer_cache`` (a dict, keyed by the source tensor's storage): pass
+    the same dict when spilling splits that share tensors (sentence and
+    deep splits share the recordings, the streams and the session table
+    across two packed objects, ``build_gwilliams_dataset``), so that each
+    is copied to the host once and the host copy is shared.  Keep every
+    source split alive until its spills through one cache are done: the
+    keys are addresses of live storages."""
+    if ds.host_resident:
+        return ds
+    cache = {} if buffer_cache is None else buffer_cache
+
+    def pull(t: torch.Tensor) -> torch.Tensor:
+        key = (str(t.device), t.untyped_storage().data_ptr(),
+               t.storage_offset(), tuple(t.shape), tuple(t.stride()))
+        if key not in cache:
+            cache[key] = host_copy(t)
+        return cache[key]
+
+    return dataclasses.replace(
+        ds, recordings=pull(ds.recordings), y_stream=pull(ds.y_stream),
+        meg_onsets=pull(ds.meg_onsets), speech_onsets=pull(ds.speech_onsets),
+        session_subject=pull(ds.session_subject), host_resident=True)
+
+
+def _gather_batch_host(ds: GwilliamsPacked, task_ids, i_in_task, sess_ids):
+    """Host twin of ``_gather_batch``, as JAX's ``_gather_batch_host``
+    (``data/gwilliams.py:534-549``): the same windows, cut on the host into
+    pinned batches when the split is pinned.  Onsets are clamped to
+    [0, T − L] as JAX's host gather clamps them; the device gather clamps to
+    T − padded_window(L).  The two differ only for an onset past
+    T − padded_window(L); in a packed split everything from there on is
+    the zero padding of ``pad_time_for_gather``, so both windows are
+    zeros."""
+    L = int(ds.seq_len)
+    task, i_in, sess = (torch.from_numpy(np.array(a, dtype=np.int64))
+                        for a in (task_ids, i_in_task, sess_ids))
+    T, Ty = ds.recordings.shape[-1], ds.y_stream.shape[-1]
+    x_on = ds.meg_onsets[sess, task, i_in].clamp(0, T - L).tolist()
+    y_on = ds.speech_onsets[task, i_in].clamp(0, Ty - L).tolist()
+    B, C, F = len(sess), ds.recordings.shape[2], ds.y_stream.shape[1]
+    X = torch.empty((B, C, L), dtype=ds.recordings.dtype,
+                    pin_memory=ds.recordings.is_pinned())
+    Y = torch.empty((B, F, L), dtype=ds.y_stream.dtype,
+                    pin_memory=ds.y_stream.is_pinned())
+    # one stack per output: the window views are made under the GIL, the
+    # copy runs in one call that releases it (a copy per window would wait
+    # for the GIL once per window while the training thread holds it)
+    torch.stack([ds.recordings[s, t, :, o:o + L]
+                 for s, t, o in zip(sess.tolist(), task.tolist(), x_on)], out=X)
+    torch.stack([ds.y_stream[t, :, o:o + L]
+                 for t, o in zip(task.tolist(), y_on)], out=Y)
+    return X, Y, host_index(ds.session_subject, sess)
 
 
 def collate_stats_chunk(recordings: torch.Tensor, rec_ids: torch.Tensor,

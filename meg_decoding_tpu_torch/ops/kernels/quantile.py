@@ -25,7 +25,13 @@ keys: −NaN < −inf < … < −0 < +0 < … < +inf < +NaN).
   f64 sum itself rounds onto an f32 rounding midpoint (≤ 1 ulp apart then).
 
 ``robust_quantiles`` launches the kernel for a CUDA tensor and runs the
-plain version only for a CPU tensor.
+plain version only for a CPU tensor.  The same function is registered as
+the custom op ``meg_decoding_tpu_torch::robust_quantiles`` (``OP``: its
+CUDA kernel is the launch, its CPU kernel the plain version, its fake
+kernel gives the output's shape), so that ``torch.export`` keeps the
+hand-written kernel inside an exported program (``serving/export.py``);
+the eager callers take the direct route.  Each launch counts once,
+whichever route reached it.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ import torch
 
 __all__ = ["robust_quantiles", "robust_quantiles_plain", "ranks_and_weights",
            "kernel_route", "REGISTER_MAX_T", "SHARED_MAX_T", "launches",
-           "long_launches", "reset_launches"]
+           "long_launches", "reset_launches", "OP", "OP_NAME"]
 
 _I32_MAX = int(np.iinfo(np.int32).max)
 _MAX_QUANTILES = 4
@@ -126,22 +132,20 @@ def _lib():
     return fn, long_fn
 
 
-def robust_quantiles(x2d: torch.Tensor,
-                     qs: tuple = (25.0, 50.0, 75.0)) -> torch.Tensor:
-    """Exact linear-interpolated percentiles along the last axis:
-    (N, T) float32 → (N, len(qs)) float32, matching
-    ``np.percentile(x2d, qs, axis=1, method='linear')`` under the
-    NaN-beyond-infinity total order."""
+def _check(x2d: torch.Tensor, qs) -> None:
     if x2d.dim() != 2 or x2d.shape[1] < 1:
         raise ValueError(f"expected (N, T ≥ 1), got {tuple(x2d.shape)}")
     if x2d.dtype != torch.float32:
         raise TypeError(f"robust_quantiles takes float32, got {x2d.dtype}")
     if not 1 <= len(qs) <= _MAX_QUANTILES:
         raise ValueError(f"1 to {_MAX_QUANTILES} quantiles, got {len(qs)}")
-    if x2d.device.type == "cpu":
-        return robust_quantiles_plain(x2d, qs)
+
+
+def _launch(x2d: torch.Tensor, qs) -> torch.Tensor:
+    """The kernel on a CUDA tensor, on the current stream."""
+    _check(x2d, qs)
     if not x2d.is_cuda:
-        raise ValueError(f"robust_quantiles runs on cuda or cpu, not {x2d.device}")
+        raise ValueError(f"the robust_quantiles kernel runs on cuda, not {x2d.device}")
     N, T = x2d.shape
     if not x2d.is_contiguous():
         raise ValueError("x2d must be contiguous")
@@ -177,3 +181,38 @@ def robust_quantiles(x2d: torch.Tensor,
     else:
         launches += 1
     return out
+
+
+def robust_quantiles(x2d: torch.Tensor,
+                     qs: tuple = (25.0, 50.0, 75.0)) -> torch.Tensor:
+    """Exact linear-interpolated percentiles along the last axis:
+    (N, T) float32 → (N, len(qs)) float32, matching
+    ``np.percentile(x2d, qs, axis=1, method='linear')`` under the
+    NaN-beyond-infinity total order."""
+    _check(x2d, qs)
+    if x2d.device.type == "cpu":
+        return robust_quantiles_plain(x2d, qs)
+    if not x2d.is_cuda:
+        raise ValueError(f"robust_quantiles runs on cuda or cpu, not {x2d.device}")
+    return _launch(x2d, qs)
+
+
+OP_NAME = "meg_decoding_tpu_torch::robust_quantiles"
+
+
+@torch.library.custom_op(OP_NAME, mutates_args=(), device_types="cuda")
+def OP(x2d: torch.Tensor, qs: list[float]) -> torch.Tensor:
+    """``robust_quantiles`` as a registered op: the kernel on CUDA."""
+    return _launch(x2d, tuple(qs))
+
+
+@OP.register_kernel("cpu")
+def _op_cpu(x2d: torch.Tensor, qs: list[float]) -> torch.Tensor:
+    _check(x2d, qs)
+    return robust_quantiles_plain(x2d, tuple(qs))
+
+
+@OP.register_fake
+def _op_fake(x2d: torch.Tensor, qs: list[float]) -> torch.Tensor:
+    _check(x2d, qs)
+    return x2d.new_empty((x2d.shape[0], len(qs)))

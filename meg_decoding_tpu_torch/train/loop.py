@@ -1,9 +1,13 @@
 """Epoch loop: sampler → train steps → test pools → metrics → checkpoint.
 Port of ``fit``, ``fit_scan``, ``steps_per_epoch`` and
 ``resume_if_requested`` from ``meg_decoding_tpu/train/loop.py`` (single
-device; the host prefetch is not ported).  Two forms of train set: a
-stochastic speech pool, whose gather takes a generator for its random
-pairing, and a ``PackedDataset`` (GOD), whose gather is plain indexing.
+device).  Two forms of train set: a stochastic speech pool, whose gather
+takes a generator for its random pairing, and a ``PackedDataset`` (GOD),
+whose gather is plain indexing.  A train set spilled to host memory
+(``host_resident``) streams its batches through the prefetch
+(``data/prefetch.py``; ``prefetch: N``, 2 by default then), so that each
+batch's copy to the card runs under the previous step.  ``profile_dir``
+traces the epoch ``profile_epoch`` (``utils/profiling.py``).
 ``fit_scan`` drives the whole-epoch forms of ``train/scan_loop.py``
 instead: one call an epoch.
 
@@ -29,13 +33,14 @@ import numpy as np
 import torch
 
 from meg_decoding_tpu_torch.data.packed import PackedDataset
+from meg_decoding_tpu_torch.data.prefetch import prefetch_to_device, to_device
 from meg_decoding_tpu_torch.data.sampling import (
     sample_with_replacement,
     shuffle_batches,
 )
 from meg_decoding_tpu_torch.train.checkpoint import CheckpointManager
 from meg_decoding_tpu_torch.utils.logging import RunLogger
-from meg_decoding_tpu_torch.utils.profiling import StepTimer
+from meg_decoding_tpu_torch.utils.profiling import StepTimer, profile_trace
 
 __all__ = ["fit", "fit_scan", "steps_per_epoch", "resume_if_requested",
            "derived_generator"]
@@ -89,8 +94,10 @@ def _eval_test_pools(cfg, test_set, eval_step, state, test_size: int,
     """Epoch test pass: every pool of ``test_size`` segments of the shuffled
     test split is scored and the metrics averaged (``test_sweep: false``
     scores one pool, as the reference does).  A ``PackedDataset`` pool is a
-    plain gather; any other draws its sessions from a derived generator."""
+    plain gather; any other draws its sessions from a derived generator.
+    A host-resident pool's batch is copied to the state's device."""
     n = len(test_set)
+    dev = state.step.device
     perm = torch.randperm(n, generator=derived_generator(seed, epoch, _TEST)).numpy()
     sweep = bool(cfg.get("test_sweep", True))
     hist = []
@@ -101,6 +108,7 @@ def _eval_test_pools(cfg, test_set, eval_step, state, test_size: int,
         else:
             batch = test_set.gather(
                 idx, generator=derived_generator(seed, epoch, _TEST, j + 1))
+        batch = to_device(batch, dev)
         labels = batch[3] if with_labels else None
         m, _ = eval_step(*batch[:3], state.temp.detach(), labels)
         hist.append(m)
@@ -126,7 +134,13 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
     wraps the fused Gwilliams step so that its pool gives the segment ids
     and the generator, and the step gathers.  The test pools call
     ``eval_step(X, Y, subject_idxs, temp, labels)``.  ``start_epoch``
-    continues the epoch numbering after a resume."""
+    continues the epoch numbering after a resume.
+
+    A ``train_set`` with ``host_resident`` gathers on the host, and its
+    batches reach the state's device through ``prefetch_to_device`` with
+    ``cfg.prefetch`` batches in flight (2 by default; 0 copies each batch
+    in the loop).  With ``cfg.profile_dir`` the train steps of epoch
+    ``cfg.profile_epoch`` (1 by default, as JAX) are traced into it."""
     epochs = int(cfg.epochs)
     batch_size = min(int(cfg.batch_size), len(train_set))
     use_sampler = bool(cfg.get("use_sampler", True))
@@ -135,6 +149,11 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
     best_top10, best_metrics = -1.0, {}
     timer = StepTimer()
     packed = isinstance(train_set, PackedDataset)
+    dev = state.step.device
+    host_resident = bool(getattr(train_set, "host_resident", False))
+    prefetch_n = int(cfg.get("prefetch", 2 if host_resident else 0) or 0)
+    profile_dir = cfg.get("profile_dir")
+    profile_epoch = int(cfg.get("profile_epoch", 1)) if profile_dir else -1
 
     for epoch in range(start_epoch, epochs):
         egen = derived_generator(seed, epoch, _SAMPLE)
@@ -144,22 +163,31 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
         else:
             idx_epoch = shuffle_batches(egen, len(train_set), batch_size)
 
+        def gathered_batches(epoch=epoch, idx_epoch=idx_epoch):
+            for step_i, idx in enumerate(idx_epoch):
+                with timer.phase("gather"):
+                    if packed:
+                        batch = train_set.gather(idx)[:4 if with_labels else 3]
+                    else:
+                        batch = train_set.gather(
+                            idx, generator=derived_generator(
+                                seed, epoch, _GATHER, step_i))
+                yield batch
+
+        if prefetch_n > 0:
+            batch_iter = prefetch_to_device(gathered_batches(),
+                                            size=prefetch_n, device=dev)
+        elif host_resident:
+            batch_iter = (to_device(b, dev) for b in gathered_batches())
+        else:
+            batch_iter = gathered_batches()
+
         train_hist = []
-        for step_i, idx in enumerate(idx_epoch):
-            if packed:
-                with timer.phase("gather"):
-                    batch = train_set.gather(idx)
-                with timer.phase("step"):
-                    state, metrics = train_step(
-                        state, *batch[:4 if with_labels else 3])
-            else:
-                with timer.phase("gather"):
-                    batch = train_set.gather(
-                        idx, generator=derived_generator(seed, epoch, _GATHER,
-                                                         step_i))
+        with profile_trace(profile_dir if epoch == profile_epoch else None):
+            for batch in batch_iter:
                 with timer.phase("step"):
                     state, metrics = train_step(state, *batch)
-            train_hist.append(metrics)
+                train_hist.append(metrics)
 
         tm = _mean_metrics(train_hist)
         best_top10, best_metrics = _end_epoch(

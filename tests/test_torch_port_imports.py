@@ -3,8 +3,9 @@
 * No module of the port, and not ``chip_smoke.py``, imports JAX, flax,
   optax, orbax, transformers, safetensors or anything of the JAX package:
   an AST scan of every file, plus a subprocess that imports every module
-  with those and matplotlib blocked; matplotlib is imported only inside
-  functions (the figures of ``cli/eval_analysis.py``).
+  with those, matplotlib and wandb blocked; matplotlib is imported only
+  inside functions (the figures of ``cli/eval_analysis.py``), and wandb
+  only inside the ``use_wandb`` branch of ``utils/logging.py``.
 * An entry point called without ``device="cpu"`` on a machine without a GPU
   raises; it never falls back to the CPU.
 * ``chip_smoke.py`` fails, printing no result, without a GPU and when it
@@ -25,9 +26,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "meg_decoding_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "meg_decoding_tpu",
              "transformers", "safetensors")
-# importable only inside the functions that draw figures (not on the
-# machine with the card)
-LAZY_ONLY = ("matplotlib", "seaborn")
+# importable only inside the functions that draw figures or log to wandb
+# (neither is on the machine with the card)
+LAZY_ONLY = ("matplotlib", "seaborn", "wandb")
 
 
 def _port_files():
@@ -90,10 +91,14 @@ def test_entry_points_refuse_cuda_without_a_gpu(monkeypatch, tmp_path):
     from meg_decoding_tpu_torch.cli import (
         build_gwilliams_cache,
         evaluate_god,
+        export_model,
         main,
+        serving_benchmark,
         train_god,
         train_speech,
     )
+    from meg_decoding_tpu_torch.data.prefetch import prefetch_to_device
+    from meg_decoding_tpu_torch.serving.export import load_artifact
     from meg_decoding_tpu_torch.cli.evaluate_speech import run
     from meg_decoding_tpu_torch.data.brennan import embed_brennan_audio
     from meg_decoding_tpu_torch.data.gwilliams import preprocess_recordings
@@ -129,6 +134,10 @@ def test_entry_points_refuse_cuda_without_a_gpu(monkeypatch, tmp_path):
         lambda: build_gwilliams_cache.build_y(cfg, str(tmp_path)),
         lambda: main.train_main(["dataset=GOD", f"data_root={tmp_path}"]),
         lambda: main.evaluate_main(["dataset=GOD", f"data_root={tmp_path}"]),
+        lambda: export_model.run(cfg),
+        lambda: serving_benchmark.main(["--batches", "1"]),
+        lambda: load_artifact(str(tmp_path)),
+        lambda: prefetch_to_device(iter([])),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
