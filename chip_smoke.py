@@ -170,13 +170,20 @@ Phases, each printed as one JSON line:
               host-gathered, pinned batches through ``prefetch_to_device``
               against the device-resident unfused steps on the same draws
               (cuDNN deterministic; losses and state within 1e-5), the step
-              time of each, the onsets between the two gathers' clamps,
+              time of each, each run again under torch.profiler for its
+              split (the compute thread's time in and out of operators,
+              the card's busy time, the spill producer's time a batch),
+              the collate's
+              percentiles through the registered op against a direct call
+              of the launch (a call's host time, the step's time), the
+              onsets between the two gathers' clamps,
               then the train CLI with ``host_resident`` and its epoch traced
               (``profile_dir``): the unfused CLI's launches without its
               gathers, the port's kernels and a host-to-device copy on a
               stream other than the kernels' in the trace;
     spill_god — the same for the GOD trainer: the spilled train split's
-              host batches against the device-resident ones, then
+              host batches against the device-resident ones, the split and
+              the route's cost, then
               ``cli/train_god.py`` with ``host_resident`` (the device CLI's
               launches) and its trace;
 11. ``seconds`` (each phase group's wall time), ``step_share`` and
@@ -2724,6 +2731,126 @@ def spill_cli(run, tcfg, work, name, expected) -> dict:
                                                "t_step_ms")}}
 
 
+def direct_quantiles(x2d, qs=(25.0, 50.0, 75.0)):
+    """The kernel's launch called directly, past the registered op."""
+    return qk._launch(x2d, tuple(qs))
+
+
+def route_cost(make_state, batches: list) -> dict:
+    """What the registered op costs the collate against a direct call of
+    the same launch: the host time of one call on a (8, 24) block (the
+    kernel a few µs; 400 calls, one synchronize), and the wall time of an
+    unfused step on ``batches`` (device-resident) with the collate's
+    percentiles through each route, in blocks op, direct, direct, op after
+    one untimed pass."""
+    from meg_decoding_tpu_torch.ops import scaling
+
+    routes = {"op": qk.robust_quantiles, "direct": direct_quantiles}
+    tiny = torch.randn(8, 24, device="cuda")
+    _, state, step = make_state()
+    dispatch = {k: [] for k in routes}
+    step_ms = {k: [] for k in routes}
+    try:
+        for i, name in enumerate(("op", "direct", "direct", "op")):
+            scaling.robust_quantiles = routes[name]
+            for _ in range(1 if i else 2):  # the first block warms up first
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for batch in batches:
+                    state, _ = step(state, *batch)
+                torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t0) * 1e3 / len(batches))
+            fn = routes[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(400):
+                fn(tiny)
+            torch.cuda.synchronize()
+            dispatch[name].append((time.perf_counter() - t0) * 1e6 / 400)
+    finally:
+        scaling.robust_quantiles = qk.robust_quantiles
+    return {"steps": len(batches), "step_ms": step_ms, "call_us": dispatch}
+
+
+def busy_ms(spans) -> float:
+    """Milliseconds covered by the union of (start µs, duration µs) spans."""
+    total, end = 0.0, -math.inf
+    for ts, dur in sorted(spans):
+        if ts + dur > end:
+            total += ts + dur - max(ts, end)
+            end = ts + dur
+    return total / 1e3
+
+
+def traced_steps(make_state, batches, path: str) -> dict:
+    """The steps of ``batches()`` (its first untimed) under torch.profiler,
+    the trace written to ``path``, split per step: wall time; the host
+    thread that launches the kernels (the compute thread), its time inside
+    operators and outside them (Python, waits); the card's busy time
+    (kernels and copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, state, step = make_state()
+    it = iter(batches())
+    state, _ = step(state, *next(it))
+    torch.cuda.synchronize()
+    n = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in it:
+            state, _ = step(state, *batch)
+            n += 1
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if "dur" in e]
+    launches = {}
+    for e in events:
+        if e.get("cat") == "cuda_runtime" and "LaunchKernel" in str(e.get("name")):
+            launches[e["tid"]] = launches.get(e["tid"], 0) + 1
+    compute = max(launches, key=launches.get, default=None)
+    ops = busy_ms((e["ts"], e["dur"]) for e in events
+                  if e.get("cat") == "cpu_op" and e["tid"] == compute)
+    on_card = busy_ms((e["ts"], e["dur"]) for e in events
+                      if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    return {"step_ms": wall_ms / n, "compute_thread_ops_ms": ops / n,
+            "compute_thread_other_ms": (wall_ms - ops) / n,
+            "device_busy_ms": on_card / n, "steps": n}
+
+
+def producer_timed(batches, spent: list):
+    """``batches``' items; the thread CPU and wall seconds that making each
+    took, appended to ``spent``."""
+    it = iter(batches)
+    while True:
+        c0, w0 = time.thread_time(), time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        spent.append((time.thread_time() - c0, time.perf_counter() - w0))
+        yield item
+
+
+def spill_split(make_state, batches_device, host_batches, work, name) -> dict:
+    """``traced_steps`` of the device-resident run and of the spill run
+    (``host_batches()`` through ``prefetch_to_device``), with the spill
+    producer's thread CPU and wall time per batch (the profiler traces the
+    compute thread's operators only)."""
+    spent = []
+    out = {"device": traced_steps(make_state, batches_device,
+                                  os.path.join(work, f"split_{name}_device.json")),
+           "spill": traced_steps(
+               make_state,
+               lambda: prefetch_to_device(producer_timed(host_batches(), spent),
+                                          size=2, device="cuda"),
+               os.path.join(work, f"split_{name}_spill.json"))}
+    out["spill"]["producer_cpu_ms"] = sum(c for c, _ in spent) * 1e3 / len(spent)
+    out["spill"]["producer_wall_ms"] = sum(w for _, w in spent) * 1e3 / len(spent)
+    return out
+
+
 def phase_spill_speech(cfg, seed, work, unfused_launches) -> dict:
     """The speech spill path at full width (the `training` phase's cache,
     B = 64): unfused steps on host-gathered batches through the prefetch
@@ -2764,14 +2891,19 @@ def phase_spill_speech(cfg, seed, work, unfused_launches) -> dict:
         train_pool.ds = device_ds
         return gathered()
 
-    def batches_spill():
+    def host_batches():
         if not spilled:
             spill_speech_splits(train_pool, test_pool)
             spilled["ds"] = train_pool.ds
         train_pool.ds = spilled["ds"]
-        return prefetch_to_device(gathered(), size=2, device=dev)
+        return gathered()
+
+    def batches_spill():
+        return prefetch_to_device(host_batches(), size=2, device=dev)
 
     check = same_draw_runs(make_state, batches_device, batches_spill)
+    split = spill_split(make_state, batches_device, host_batches, work, "speech")
+    route = route_cost(make_state, list(batches_device()))
     pinned = bool(spilled["ds"].recordings.is_pinned())
     bytes_per_step = BATCH * (C * L + int(ds.y_stream.shape[1]) * L) * 4
     del train_pool, test_pool, ds, device_ds, spilled
@@ -2785,7 +2917,8 @@ def phase_spill_speech(cfg, seed, work, unfused_launches) -> dict:
     cli = spill_cli(train_speech.run, tcfg, work, "speech", expected)
     emit({"phase": "spill_speech", **check, "pinned": pinned,
           "h2d_bytes_per_step": bytes_per_step,
-          "onsets_between_clamps": between, **cli})
+          "onsets_between_clamps": between, "split": split,
+          "quantile_route": route, **cli})
     return cli["launches"]
 
 
@@ -2808,16 +2941,25 @@ def phase_spill_god(cfg, god_ds, seed, work, god_launches) -> dict:
         state = create_train_state(model, opt, float(cfg.init_temperature), seed)
         return model, state, make_train_step(model, opt, loss_cfg, collate)
 
-    check = same_draw_runs(
-        make_state, lambda: (god_ds.gather(i)[:3] for i in draws),
-        lambda: prefetch_to_device((host.gather(i)[:3] for i in draws),
-                                   size=2, device=dev))
+    def batches_device():
+        return (god_ds.gather(i)[:3] for i in draws)
+
+    def host_batches():
+        return (host.gather(i)[:3] for i in draws)
+
+    def batches_spill():
+        return prefetch_to_device(host_batches(), size=2, device=dev)
+
+    check = same_draw_runs(make_state, batches_device, batches_spill)
+    split = spill_split(make_state, batches_device, host_batches, work, "god")
+    route = route_cost(make_state, list(batches_device()))
     pinned = bool(host.X.is_pinned())
     del host
     tcfg = Config(dict(to_dict(cfg), save_root=os.path.join(work, "spill_god"),
                        run_name="spill"))
     cli = spill_cli(train_god.run, tcfg, work, "god", dict(god_launches))
-    emit({"phase": "spill_god", **check, "pinned": pinned, **cli})
+    emit({"phase": "spill_god", **check, "pinned": pinned, "split": split,
+          "quantile_route": route, **cli})
     return cli["launches"]
 
 

@@ -24,14 +24,14 @@ keys: −NaN < −inf < … < −0 < +0 < … < +inf < +NaN).
   and rounds the sum once to f32, which equals ``fmaf`` except where the
   f64 sum itself rounds onto an f32 rounding midpoint (≤ 1 ulp apart then).
 
-``robust_quantiles`` launches the kernel for a CUDA tensor and runs the
-plain version only for a CPU tensor.  The same function is registered as
-the custom op ``meg_decoding_tpu_torch::robust_quantiles`` (``OP``: its
-CUDA kernel is the launch, its CPU kernel the plain version, its fake
-kernel gives the output's shape), so that ``torch.export`` keeps the
-hand-written kernel inside an exported program (``serving/export.py``);
-the eager callers take the direct route.  Each launch counts once,
-whichever route reached it.
+``robust_quantiles`` calls the custom op
+``meg_decoding_tpu_torch::robust_quantiles`` (``OP``), whose CUDA kernel is
+the launch and whose CPU kernel is the plain version: it launches the
+kernel for a CUDA tensor and runs the plain version only for a CPU tensor.
+Its fake kernel gives the output's shape, so ``torch.export`` keeps the
+hand-written kernel inside an exported program (``serving/export.py``).
+Eager callers and exported programs take this one route, and each launch
+counts once.
 """
 
 from __future__ import annotations
@@ -189,12 +189,9 @@ def robust_quantiles(x2d: torch.Tensor,
     (N, T) float32 → (N, len(qs)) float32, matching
     ``np.percentile(x2d, qs, axis=1, method='linear')`` under the
     NaN-beyond-infinity total order."""
-    _check(x2d, qs)
-    if x2d.device.type == "cpu":
-        return robust_quantiles_plain(x2d, qs)
-    if not x2d.is_cuda:
+    if x2d.device.type not in ("cpu", "cuda"):
         raise ValueError(f"robust_quantiles runs on cuda or cpu, not {x2d.device}")
-    return _launch(x2d, qs)
+    return OP(x2d, [float(q) for q in qs])
 
 
 OP_NAME = "meg_decoding_tpu_torch::robust_quantiles"
@@ -202,7 +199,7 @@ OP_NAME = "meg_decoding_tpu_torch::robust_quantiles"
 
 @torch.library.custom_op(OP_NAME, mutates_args=(), device_types="cuda")
 def OP(x2d: torch.Tensor, qs: list[float]) -> torch.Tensor:
-    """``robust_quantiles`` as a registered op: the kernel on CUDA."""
+    """The registered op behind ``robust_quantiles``: the kernel on CUDA."""
     return _launch(x2d, tuple(qs))
 
 

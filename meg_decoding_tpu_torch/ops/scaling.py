@@ -11,12 +11,10 @@ Reference semantics:
 
 The percentiles come from ``ops/kernels/quantile.py``: the hand-written
 CUDA kernel for a CUDA tensor, its sort-based plain version for a CPU
-tensor.  (The JAX package's default is an XLA sort; on the card a
-``torch.sort`` would be a library call on the main path.)  With
-``quantile_impl="op"`` they come from the registered custom op
-``meg_decoding_tpu_torch::robust_quantiles`` on every device, the form a
-``torch.export`` trace keeps (under export the tensors are fake, and a
-test of their device would drop the kernel from the graph).
+tensor, both through the registered custom op
+``meg_decoding_tpu_torch::robust_quantiles``, which a ``torch.export``
+trace keeps.  (The JAX package's default is an XLA sort; on the card a
+``torch.sort`` would be a library call on the main path.)
 """
 
 from __future__ import annotations
@@ -26,7 +24,7 @@ import math
 import torch
 import torch.nn.functional as Fnn
 
-from meg_decoding_tpu_torch.ops.kernels.quantile import OP, robust_quantiles
+from meg_decoding_tpu_torch.ops.kernels.quantile import robust_quantiles
 from meg_decoding_tpu_torch.ops.kernels.window_gather import (
     pad_time_for_gather,
     window_gather,
@@ -55,23 +53,14 @@ def _percentile_sorted(xs: torch.Tensor, q: float) -> torch.Tensor:
     return xs[..., lo] * (1 - frac) + xs[..., hi] * frac
 
 
-_QUANTILE_IMPLS = ("auto", "op")
-
-
-def robust_stats(x: torch.Tensor, axis: int = -1, quantile_impl: str = "auto"
+def robust_stats(x: torch.Tensor, axis: int = -1
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-slice RobustScaler fit along ``axis``: returns ``(median, iqr)``
     with sklearn's near-zero-IQR fallback applied (``iqr < 10·eps`` → 1.0,
-    ``_handle_zeros_in_scale``).  ``x`` must be float32.  ``quantile_impl``:
-    ``"auto"`` (the kernel on CUDA, the plain version on the CPU, called
-    directly) or ``"op"`` (the same through the registered custom op)."""
-    if quantile_impl not in _QUANTILE_IMPLS:
-        raise ValueError(f"quantile_impl {quantile_impl!r} not in {_QUANTILE_IMPLS}")
+    ``_handle_zeros_in_scale``).  ``x`` must be float32."""
     x_moved = x.movedim(axis, -1)
     lead = x_moved.shape[:-1]
-    rows = x_moved.reshape(-1, x_moved.shape[-1]).contiguous()
-    qs = (OP(rows, [25.0, 50.0, 75.0]) if quantile_impl == "op"
-          else robust_quantiles(rows))
+    qs = robust_quantiles(x_moved.reshape(-1, x_moved.shape[-1]).contiguous())
     q25 = qs[:, 0].reshape(lead)
     med = qs[:, 1].reshape(lead)
     q75 = qs[:, 2].reshape(lead)
@@ -90,17 +79,16 @@ def apply_robust_stats(x: torch.Tensor, med: torch.Tensor, iqr: torch.Tensor,
     return scaled.movedim(-1, axis)
 
 
-def robust_scale(x: torch.Tensor, axis: int = -1,
-                 quantile_impl: str = "auto") -> torch.Tensor:
+def robust_scale(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """(x − median) / IQR along ``axis`` (RobustScaler fit + transform)."""
-    med, iqr = robust_stats(x, axis=axis, quantile_impl=quantile_impl)
+    med, iqr = robust_stats(x, axis=axis)
     return apply_robust_stats(x, med, iqr, axis=axis)
 
 
-def scale_and_clamp(X: torch.Tensor, clamp_lim: float, clamp: bool = True,
-                    quantile_impl: str = "auto") -> torch.Tensor:
+def scale_and_clamp(X: torch.Tensor, clamp_lim: float,
+                    clamp: bool = True) -> torch.Tensor:
     """Per-sample, per-channel robust scale over time + clamp.  X: (..., C, T)."""
-    out = robust_scale(X, axis=-1, quantile_impl=quantile_impl)
+    out = robust_scale(X, axis=-1)
     if clamp:
         out = out.clamp(-clamp_lim, clamp_lim)
     return out
@@ -131,15 +119,13 @@ def epoch_slice(x: torch.Tensor, onsets, length: int) -> torch.Tensor:
 
 
 def collate_preprocess(X: torch.Tensor, baseline_len_samp: int,
-                       clamp_lim: float, clamp: bool = True,
-                       quantile_impl: str = "auto") -> torch.Tensor:
+                       clamp_lim: float, clamp: bool = True) -> torch.Tensor:
     """The collate: baseline correction → robust scale → clamp.  X: (B, C, T)
     (replaces the reference's per-batch host sklearn refit,
-    ``gwilliams2022.py:641-662``).  ``quantile_impl`` as in
-    ``robust_stats``; the exported serving program takes ``"op"``."""
+    ``gwilliams2022.py:641-662``)."""
     if baseline_len_samp > 0:
         X = baseline_correct(X, baseline_len_samp)
-    return scale_and_clamp(X, clamp_lim, clamp, quantile_impl=quantile_impl)
+    return scale_and_clamp(X, clamp_lim, clamp)
 
 
 def collate_preprocess_cached(X: torch.Tensor, med: torch.Tensor,

@@ -63,7 +63,7 @@ def _collate_enabled(collate_cfg) -> bool:
     return bool(collate_cfg is not None and getattr(collate_cfg, "enabled", True))
 
 
-def make_serving_forward(collate_cfg=None, quantile_impl: str = "auto"):
+def make_serving_forward(collate_cfg=None):
     """Returns ``forward(model, X, subject_idxs) -> Z``: the collate chain
     (when ``collate_cfg`` is given and enabled) and the eval-mode encoder
     (the JAX forward's ``variables`` argument is the module here).  X:
@@ -75,8 +75,7 @@ def make_serving_forward(collate_cfg=None, quantile_impl: str = "auto"):
         model.eval()
         if enabled:
             X = collate_preprocess(X, collate_cfg.baseline_len_samp,
-                                   collate_cfg.clamp_lim, collate_cfg.clamp,
-                                   quantile_impl=quantile_impl)
+                                   collate_cfg.clamp_lim, collate_cfg.clamp)
         return model(X, subject_idxs)
 
     return forward
@@ -97,7 +96,7 @@ class _FunctionalForward(nn.Module):
         c = self.collate_cfg
         if c is not None:
             X = collate_preprocess(X, c.baseline_len_samp, c.clamp_lim,
-                                   c.clamp, quantile_impl="op")
+                                   c.clamp)
         return torch.func.functional_call(self._model, weights,
                                           (X, subject_idxs))
 
@@ -107,7 +106,8 @@ def _prune_noop_casts(program: torch.export.ExportedProgram) -> None:
     dtype assertions export puts before every cast (~90 each in the brain
     encoder): each is a dispatcher call a request, ~2 ms of host time per
     request on the card together, and none changes a value.  The inputs'
-    dtypes are fixed where ``ServingModel`` casts them."""
+    dtypes are fixed where ``ServingModel`` casts X and the subject ids and
+    checks the weights (``_Weights``)."""
     graph = program.graph
     for node in list(graph.nodes):
         if node.op != "call_function":
@@ -179,18 +179,68 @@ def save_artifact(out_dir: str, model: nn.Module, num_channels: int,
     return out_dir
 
 
+def _weight_specs(program: torch.export.ExportedProgram) -> dict:
+    """Name → (shape, dtype) of each weight the program takes, read from
+    its input placeholders."""
+    from torch.utils._pytree import tree_unflatten
+
+    (weights, _, _), _ = tree_unflatten(
+        list(program.graph_signature.user_inputs), program.call_spec.in_spec)
+    vals = {n.name: n.meta["val"] for n in program.graph.nodes
+            if n.op == "placeholder"}
+    return {k: (tuple(vals[n].shape), vals[n].dtype) for k, n in weights.items()}
+
+
+class _Weights(dict):
+    """The weights a program takes: every entry set is checked against the
+    program's input of that name (shape, dtype), since the program itself
+    no longer checks dtypes (``_prune_noop_casts``)."""
+
+    def __init__(self, specs: dict, weights: dict):
+        super().__init__()
+        self._specs = specs
+        if set(weights) != set(specs):
+            raise ValueError(f"weights {sorted(set(weights) ^ set(specs))}: "
+                             "not the program's names")
+        for k in specs:  # the program's order
+            self[k] = weights[k]
+
+    def __setitem__(self, name: str, w: torch.Tensor) -> None:
+        if name not in self._specs:
+            raise KeyError(f"the program takes no weight {name!r}")
+        shape, dtype = self._specs[name]
+        if tuple(w.shape) != shape or w.dtype != dtype:
+            raise ValueError(f"weights[{name!r}]: {tuple(w.shape)} {w.dtype}, "
+                             f"the program takes {shape} {dtype}")
+        super().__setitem__(name, w)
+
+    def update(self, other=(), **kw) -> None:
+        for k, v in dict(other, **kw).items():
+            self[k] = v
+
+
 class ServingModel:
     """A loaded artifact: ``__call__(X, subject_idxs) -> Z`` on its device.
     ``weights`` is the state_dict the program takes (a dict of tensors on
-    the device: replacing or scaling an entry changes what it serves)."""
+    the device, checked against the program's inputs as it or an entry is
+    set): replacing or scaling an entry changes what it serves."""
 
     def __init__(self, program: torch.export.ExportedProgram, weights: dict,
                  meta: dict, device: torch.device):
         self.program = program
+        self._specs = _weight_specs(program)
         self.weights = weights
         self.meta = meta
         self.device = device
         self._module = program.module()
+
+    @property
+    def weights(self) -> dict:
+        return self._weights
+
+    @weights.setter
+    def weights(self, weights: dict) -> None:
+        self._weights = _Weights(self._specs, weights)
 
     @property
     def platforms(self) -> tuple:
@@ -201,7 +251,8 @@ class ServingModel:
         X = torch.as_tensor(X).to(device=self.device, dtype=torch.float32)
         subs = torch.as_tensor(subject_idxs).to(device=self.device,
                                                 dtype=torch.int32)
-        return self._module(self.weights, X, subs)
+        # a plain dict: the program's input spec is a dict's
+        return self._module(dict(self.weights), X, subs)
 
 
 def load_artifact(out_dir: str, device: str | torch.device = "cuda"

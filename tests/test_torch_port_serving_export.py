@@ -175,14 +175,46 @@ def test_opcheck_robust_quantiles(shape, qs):
     assert torch.equal(got, qk.robust_quantiles_plain(x, tuple(qs)))
 
 
-def test_collate_through_the_op_equals_the_direct_route():
-    from meg_decoding_tpu_torch.ops.scaling import collate_preprocess
+def test_collate_through_the_op_equals_the_direct_route(monkeypatch):
+    """The eager collate reaches its percentiles through the registered op,
+    once, and gives what the plain version called directly gives."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from meg_decoding_tpu_torch.ops import scaling
+    from meg_decoding_tpu_torch.ops.kernels import quantile as qk
+
+    seen = []
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.append(func)
+            return func(*args, **(kwargs or {}))
 
     X = torch.from_numpy(np.random.RandomState(3).randn(5, C, T).astype(np.float32))
-    assert torch.equal(collate_preprocess(X, 5, 20.0, quantile_impl="op"),
-                       collate_preprocess(X, 5, 20.0))
-    with pytest.raises(ValueError, match="quantile_impl"):
-        collate_preprocess(X, 5, 20.0, quantile_impl="sort")
+    with Ops():
+        got = scaling.collate_preprocess(X, 5, 20.0)
+    assert seen.count(torch.ops.meg_decoding_tpu_torch.robust_quantiles.default) == 1
+    monkeypatch.setattr(scaling, "robust_quantiles", qk.robust_quantiles_plain)
+    assert torch.equal(got, scaling.collate_preprocess(X, 5, 20.0))
+
+
+def test_served_weights_are_checked_against_the_program(artifacts):
+    from meg_decoding_tpu_torch.serving import export
+
+    served = export.load_artifact(artifacts["tdir"], device="cpu")
+    w = served.weights["conv_final2.weight"]
+    with pytest.raises(ValueError, match="conv_final2.weight"):
+        served.weights["conv_final2.weight"] = w.double()
+    with pytest.raises(ValueError, match="conv_final2.weight"):
+        served.weights["conv_final2.weight"] = w[:1]
+    with pytest.raises(KeyError, match="no weight"):
+        served.weights["conv_final3.weight"] = w
+    with pytest.raises(ValueError, match="program's names"):
+        served.weights = {k: v for k, v in served.weights.items()
+                          if k != "conv_final2.weight"}
+    with pytest.raises(ValueError, match="conv_final2.weight"):
+        served.weights = dict(served.weights, **{"conv_final2.weight": w.half()})
+    assert served.weights["conv_final2.weight"] is w
 
 
 # --- the export CLI -----------------------------------------------------------
