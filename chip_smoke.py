@@ -186,6 +186,35 @@ Phases, each printed as one JSON line:
               the route's cost, then
               ``cli/train_god.py`` with ``host_resident`` (the device CLI's
               launches) and its trace;
+    data_parallel — in the speech and in the GOD part, on a one-rank
+              NCCL group through ``setup_data_parallel``: 6 fused speech
+              steps (session-sharded gather, collate, synced BN by the
+              split route, sharded CLIP loss, one flat gradient
+              all-reduce) and 6 GOD per-step steps against the
+              single-device steps on the same draws, cuDNN deterministic
+              (the first step's loss and gradient norm within 1e-5, later
+              steps' within 1e-4, every state entry within 2·n·lr: Adam
+              moves an entry whose gradient is rounding noise up to lr a
+              step), steady ms of both, exact
+              launches (``bn_bwd_stats``'s sums alone and ``bn_bwd_dx``
+              once per BN layer a step), both forms under torch.profiler
+              (wall and kernel ms a step, the collectives a step and the
+              NCCL kernels' device time), the split BN backward's dx
+              against the fused ``bn_bwd``'s and ``bn_bwd_dx`` against
+              its plain version (timed at (64, 320, 360) and
+              (64, 320, 24), f32 and bf16); then the speech train CLI for
+              one epoch with a ``distributed:`` block of one process;
+    kamitani — the Kamitani baseline on the GOD set: the CLI's ``run``
+              (SCP time-mean, 512 units, 22 channels, 200 iterations),
+              then ``feature_prediction`` card against CPU (rates equal,
+              predictions within 1e-4·max, a mask bit may differ only
+              where its weight is within 1e-4 of the unit's max), both
+              timed;
+    galleries — 1,250 PNG files of mixed GOD-like sizes (50 written
+              with ``utils/png.py``, the rest hard links to them), the
+              gallery CLI on the card with random-weight ViT-B/32
+              (images/s; a file's decoding and resize timed apart), 8 of
+              them card against CPU;
 11. ``seconds`` (each phase group's wall time), ``step_share`` and
               ``god_step_share``, the ``kernels`` line (each
               kernel's launches by path, its times at the GOD shapes under
@@ -251,6 +280,11 @@ from meg_decoding_tpu_torch.data.synthetic import (
 )
 from meg_decoding_tpu_torch.device import resolve_device
 from meg_decoding_tpu_torch.models.factory import get_model
+from meg_decoding_tpu_torch.parallel.dp import (
+    finish_distributed,
+    maybe_distributed_init,
+    setup_data_parallel,
+)
 from meg_decoding_tpu_torch.ops.kernels import batchnorm as bk
 from meg_decoding_tpu_torch.ops.kernels import build
 from meg_decoding_tpu_torch.ops.kernels import quantile as qk
@@ -2963,6 +2997,517 @@ def phase_spill_god(cfg, god_ds, seed, work, god_launches) -> dict:
     return cli["launches"]
 
 
+# --- data parallelism, the Kamitani baseline, the feature galleries --------
+
+DP_STEPS = 6          # same-draw steps of each form (the first untimed)
+DP_RTOL = 1e-5        # DP at world 1 vs one device: first-step loss, grad norm
+DP_TRAJ_RTOL = 1e-4   # every later step's loss and grad norm
+KAMITANI_ITERS = 200
+KAMITANI_RTOL = 1e-4  # card vs CPU predictions: f32 batched SVDs, two libraries
+GALLERY_SHAPES = ((375, 500), (500, 375), (333, 500), (400, 400), (281, 500))
+GALLERY_CHECK = 8
+GALLERY_DISTINCT = 50
+
+
+def dp_group(work: str, name: str):
+    """A one-rank NCCL group through the ``distributed:`` block's route,
+    and ``setup_data_parallel``'s mesh, shard_fn and replicate_fn on it."""
+    block = {"coordinator_address": "file://" + os.path.join(work, name + "_store"),
+             "num_processes": 1, "process_id": 0, "timeout_s": 300}
+    dev = maybe_distributed_init(Config({"distributed": block}), "cuda")
+    mesh, shard_fn, replicate_fn = setup_data_parallel(Config({}), dev)
+    if mesh is None or torch.distributed.get_backend() != "nccl":
+        raise AssertionError("no NCCL data-parallel mesh")
+    return mesh, shard_fn, replicate_fn
+
+
+def dp_launches() -> dict:
+    return {**all_launches(), "bn_bwd_sums_only": bk.sums_only_launches,
+            "bn_bwd_dx": bk.dx_launches}
+
+
+def dp_vs_single(run_single, run_dp, lr: float) -> dict:
+    """DP_STEPS same-draw steps of each form, cuDNN deterministic, single
+    first.  What holds (the two differ by the order of f32 sums): the
+    first step's loss and global gradient norm within DP_RTOL relative,
+    every later step's within DP_TRAJ_RTOL, and every state entry within
+    2·n·lr of the single-device run — Adam's step is lr·m̂/(√v̂ + ε), so an
+    entry whose gradient is at rounding level (a conv bias before a BN,
+    that BN's running mean, a dead unit) moves up to lr a step in a
+    direction the two runs do not share.  The largest state difference
+    over its tensor's max |p| is printed.  Returns the check and the DP
+    run's launches."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model_a, ms_a, hist_a = run_single()
+        reset_all_launches()
+        model_b, ms_b, hist_b = run_dp()
+        launches = dp_launches()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    rel = {k: [abs(a[k] - b[k]) / abs(a[k]) for a, b in zip(hist_a, hist_b)]
+           for k in ("loss", "grad_norm")}
+    p_rel = walk_err = 0.0
+    sb = model_b.state_dict()
+    for k, v in model_a.state_dict().items():
+        d = float((v.float() - sb[k].float()).abs().max())
+        walk_err = max(walk_err, d)
+        p_rel = max(p_rel, d / max(float(v.float().abs().max()), 1e-30))
+    walk = 2 * DP_STEPS * lr
+    check = {"loss_rel_err": rel["loss"], "grad_norm_rel_err": rel["grad_norm"],
+             "params_max_abs_err": walk_err, "params_max_rel_err": p_rel,
+             "limits": {"first_step": DP_RTOL, "later_steps": DP_TRAJ_RTOL,
+                        "params_abs": walk},
+             "losses_single": [h["loss"] for h in hist_a],
+             "losses_dp": [h["loss"] for h in hist_b],
+             "step_ms_single": ms_a, "step_ms_dp": ms_b,
+             "steady_step_ms_single": float(np.median(ms_a[1:])),
+             "steady_step_ms_dp": float(np.median(ms_b[1:]))}
+    ok = (all(r[0] <= DP_RTOL and max(r) <= DP_TRAJ_RTOL for r in rel.values())
+          and walk_err <= walk
+          and all(math.isfinite(h["loss"]) for h in hist_a + hist_b))
+    if not ok:
+        raise AssertionError(f"DP vs one device: {check}")
+    return check, launches
+
+
+def timed_steps(step_fn, n: int) -> tuple[list, list]:
+    """``n`` steps, each timed to a synchronize: (ms, metrics) lists."""
+    hist, ms = [], []
+    for u in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step_fn(u)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        hist.append({k: float(m[k]) for k in ("loss", "grad_norm", "skipped")})
+        if hist[-1]["skipped"] != 0.0:
+            raise AssertionError(f"step {u} skipped: {m}")
+    return ms, hist
+
+
+def profile_steps(step_fn, n: int = 3) -> dict:
+    """``n`` steps under torch.profiler (after one untimed): wall ms a step,
+    the card's kernel time a step (device events only), the host's
+    collectives a step (``nccl:*`` / ``gloo:*`` operations) and the host
+    time inside the ``c10d::`` collective operations, and the NCCL kernels
+    and their device time a step (a one-rank group may run its
+    collectives as copies, with no NCCL kernel: then 0)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for u in range(n):
+            step_fn(u)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    host, kernels, nccl_us, device_us, c10d_us = {}, 0, 0.0, 0.0, 0.0
+    for ev in prof.key_averages():
+        name = ev.key.lower()
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            dt = float(getattr(ev, "self_device_time_total", 0.0)
+                       or getattr(ev, "self_cuda_time_total", 0.0))
+            device_us += dt
+            if "nccl" in name:
+                kernels += ev.count
+                nccl_us += dt
+        elif name.startswith(("nccl:", "gloo:")):
+            host[ev.key] = ev.count / n
+        elif name.startswith("c10d::"):
+            c10d_us += float(ev.cpu_time_total)
+    return {"wall_ms_per_step": wall_ms / n,
+            "device_kernel_ms_per_step": device_us / n / 1e3,
+            "host_ops_per_step": host,
+            "host_collectives_per_step": sum(host.values()),
+            "host_c10d_ms_per_step": c10d_us / n / 1e3,
+            "nccl_kernels_per_step": kernels / n,
+            "nccl_device_us_per_step": nccl_us / n}
+
+
+def bn_split_rows(mesh, B: int, T: int, flush) -> dict:
+    """The synced BN backward's split route at (B, D2, T), f32 and bf16:
+    the sums alone, the all-reduce, ``bn_bwd_dx`` from the global sums —
+    its dx against the fused ``bn_bwd``'s (``bn_bwd_check``'s bound) and
+    against its plain version on the same sums (≤ 1 ulp of the working
+    type, max abs error printed), timed with its bound."""
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda").manual_seed(T)
+        x, g = bn_inputs(gen, B, D2, T, dtype)
+        M = B * T
+        s, ss = bk.bn_stats(x)
+        mean = s / M
+        invstd = torch.rsqrt(ss / M - mean * mean + 1e-5)
+        scale = torch.rand(D2, device="cuda", generator=gen) + 0.5
+        sg, sgx = bk.bn_bwd_stats(g, x, mean, invstd)
+        sums = mesh.all_reduce_(torch.stack([sg, sgx]))
+        dx = bk.bn_bwd_dx(g, x, scale, mean, invstd, sums, M)
+        fused = bk.bn_bwd(g, x, scale, mean, invstd)
+        plain = bk.bn_bwd_dx_plain(g, x, scale, mean, invstd, sums, M)
+        torch.cuda.synchronize()
+        vs_fused = bn_bwd_check(g, x, scale, mean, invstd, (dx, sg, sgx), fused,
+                                f"split BN backward {dtype}")
+        # the plain version on the card divides by M as a multiply by 1/M
+        # (PyTorch's division by a scalar), the kernel divides: a few f32
+        # ulps of the terms' magnitude, plus one bf16 ulp in bf16
+        d = (dx.float() - plain.float()).abs()
+        err = float(d.max())
+        xhat = (x.float() - mean[:, None]) * invstd[:, None]
+        tol = 4 * 2.0**-23 * (scale * invstd).abs()[:, None] * (
+            g.float().abs() + (sums[0].abs() / M)[:, None]
+            + xhat.abs() * (sums[1].abs() / M)[:, None])
+        if dtype == torch.bfloat16:
+            tol = tol + bf16_ulp(plain)
+        if not bool((d <= tol).all()):
+            raise AssertionError(f"bn_bwd_dx {dtype}: off its plain version "
+                                 f"by {err} ({float((d / tol).max())} of the bound)")
+        nbytes = 3 * x.numel() * x.element_size() + 7 * D2 * 4
+        bound_ms, bound_by = bound(nbytes, 10 * x.numel())
+        run = lambda xx: bk.bn_bwd_dx(g, xx, scale, mean, invstd, sums, M)
+        rows[str(dtype)] = {
+            "shape": [B, D2, T], "vs_fused_bn_bwd": vs_fused, "max_abs_err": err,
+            "tolerance": "4 f32 ulps of |scale·invstd|·(|g| + |Σg|/M + "
+                         "|x̂|·|Σg·x̂|/M), + 1 bf16 ulp in bf16",
+            "kernel_ms": time_ms(lambda: run(x), flush),
+            "run_ms": run_ms([lambda xx=xx: run(xx)
+                              for xx in copies(x, 3 * x.numel() * x.element_size())]),
+            "plain_ms": time_ms(lambda: bk.bn_bwd_dx_plain(
+                g, x, scale, mean, invstd, sums, M), flush),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    return rows
+
+
+def phase_dp_speech(cfg, ds, tr_idx, seed, work) -> dict:
+    """Data parallelism on the speech path at full width: DP_STEPS fused
+    steps through ``setup_data_parallel``'s one-rank NCCL mesh (session-
+    sharded gather, collate, synced BN by the split route, sharded CLIP
+    loss, the flat gradient all-reduce) against the fused single-device
+    step on the same draws; the collectives a step from a profiler trace;
+    the split BN backward against the fused one; then the train CLI for
+    one epoch with a ``distributed:`` block of one process.  Returns the
+    launches of the DP steps and of the CLI."""
+    dev = torch.device("cuda")
+    loc = ch_locations_2d(cfg)
+    loss_cfg = dataclasses.replace(train_speech.loss_config(cfg), grad_norms=True)
+    collate = evaluate_speech.collate_config(cfg)
+    pool = evaluate_speech.SpeechPool(ds, tr_idx, seed=seed)
+    rng = np.random.RandomState(seed + 9)
+    idx = [pool.segment_ids(rng.randint(0, len(pool), BATCH)) for _ in range(DP_STEPS)]
+    # world size 1: the shard is every session, a local draw a global one
+    sess = torch.randint(0, ds.num_sessions, (DP_STEPS, BATCH),
+                         generator=torch.Generator().manual_seed(seed + 10))
+    centres = torch.randint(C, (DP_STEPS,),
+                            generator=torch.Generator().manual_seed(seed + 11))
+    def fresh():
+        model = get_model(cfg, loc, device=dev, seed=seed,
+                          num_channels=int(ds.recordings.shape[2]))
+        opt = make_optimizer(cfg, DP_STEPS)
+        return model, opt, create_train_state(model, opt,
+                                              float(cfg.init_temperature), seed)
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    mesh, _, replicate_fn = dp_group(work, "dp_speech")
+    try:
+        def steps(mesh_or_none):
+            def run():
+                model, opt, state = fresh()
+                if mesh_or_none is not None:
+                    state = replicate_fn(state)
+                fused = make_fused_speech_step(model, opt, loss_cfg, collate, ds,
+                                               mesh=mesh_or_none)
+                box = [state]
+
+                def one(u):
+                    box[0], m = fused(box[0], idx[u], sess_ids=sess[u],
+                                      centre=int(centres[u]))
+                    return m
+                ms, hist = timed_steps(one, DP_STEPS)
+                run.step = one
+                return model, ms, hist
+            return run
+
+        single, dp = steps(None), steps(mesh)
+        check, launches = dp_vs_single(single, dp, float(cfg.lr))
+        expected = {"window_gather": 2 * DP_STEPS, "robust_quantiles": DP_STEPS,
+                    "bn_stats": BN_PER_STEP * DP_STEPS,
+                    "bn_bwd_stats": BN_PER_STEP * DP_STEPS,
+                    "bn_bwd_sums_only": BN_PER_STEP * DP_STEPS,
+                    "bn_bwd_dx": BN_PER_STEP * DP_STEPS}
+        if launches != expected:
+            raise AssertionError(f"DP speech steps launches {launches}, "
+                                 f"expected {expected}")
+        collectives = {"dp": profile_steps(dp.step),
+                       "single": profile_steps(single.step)}
+        split = bn_split_rows(mesh, BATCH, 360, flush)
+    finally:
+        finish_distributed()
+    del flush
+
+    # the main path: the train CLI with a distributed: block of one process
+    out = os.path.join(work, "dp_out")
+    tcfg = compose(CONFIGS_DIR, "config", [
+        f"cache_dir={cfg.cache_dir}", f"save_root={out}", f"seed={seed}",
+        f"batch_size={BATCH}", "epochs=1", f"updates={TRAIN_UPDATES}",
+        "run_name=dp",
+        "+distributed.coordinator_address=file://" + os.path.join(work, "dp_cli_store"),
+        "+distributed.num_processes=1", "+distributed.process_id=0"])
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        best = train_speech.run(tcfg, device="cuda")
+    finally:
+        finish_distributed()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    cli = dp_launches()
+    n_test = len(ds) - len(tr_idx)
+    pools = len(_test_pool_starts(n_test, min(n_test, BATCH),
+                                  bool(tcfg.get("test_sweep", True))))
+    want = {"window_gather": 2 * (TRAIN_UPDATES + pools),
+            "robust_quantiles": TRAIN_UPDATES + pools,
+            "bn_stats": BN_PER_STEP * TRAIN_UPDATES,
+            "bn_bwd_stats": BN_PER_STEP * TRAIN_UPDATES,
+            "bn_bwd_sums_only": BN_PER_STEP * TRAIN_UPDATES,
+            "bn_bwd_dx": BN_PER_STEP * TRAIN_UPDATES}
+    if cli != want:
+        raise AssertionError(f"DP train CLI launches {cli}, expected {want}")
+    with open(os.path.join(out, "runs", "dp", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if len(rows) != 1 or rows[0]["train_skipped"] != 0.0 \
+            or not math.isfinite(rows[0]["train_loss"]):
+        raise AssertionError(f"DP train CLI: {rows}")
+    emit({"phase": "data_parallel", "workload": "speech", "world_size": 1,
+          "backend": "nccl", "batch_size": BATCH, "steps": DP_STEPS, **check,
+          "launches": launches, "collectives": collectives,
+          "bn_split_backward": split, "train_cli_s": run_s,
+          "train_cli_launches": cli, "test_pools": pools,
+          "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
+                                             "test_loss", "test_top10")}})
+    return {"steps": launches, "cli": cli, "split": split}
+
+
+def phase_dp_god(cfg, ds, seed, work) -> dict:
+    """The GOD per-step path under the one-rank NCCL mesh
+    (``configs/config_GOD.yaml``, B = 64): DP_STEPS steps of
+    ``make_train_step(mesh=)`` on ``shard_fn``'s rows against the
+    single-device step on the same batches, the collectives a step, the
+    split BN backward at the GOD shape.  Returns the DP steps' launches."""
+    dev = torch.device("cuda")
+    cfg.num_subjects = ds.num_subjects
+    loc = ch_locations_2d(cfg, roi(cfg))
+    loss_cfg = dataclasses.replace(train_god._loss_config(cfg), grad_norms=True)
+    collate = evaluate_speech.collate_config(cfg)
+    rng = np.random.RandomState(seed + 12)
+    batches = [ds.gather(rng.randint(0, len(ds), BATCH))[:3] for _ in range(DP_STEPS)]
+    centres = torch.randint(len(loc), (DP_STEPS,),
+                            generator=torch.Generator().manual_seed(seed + 13))
+
+    def fresh():
+        model = get_model(cfg, loc, device=dev, seed=seed)
+        opt = make_optimizer(cfg, int(cfg.updates))
+        return model, opt, create_train_state(model, opt,
+                                              float(cfg.init_temperature), seed)
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    mesh, shard_fn, replicate_fn = dp_group(work, "dp_god")
+    try:
+        def steps(mesh_or_none):
+            def run():
+                model, opt, state = fresh()
+                if mesh_or_none is not None:
+                    state = replicate_fn(state)
+                step = make_train_step(model, opt, loss_cfg, collate,
+                                       mesh=mesh_or_none)
+                box = [state]
+
+                def one(u):
+                    b = batches[u] if mesh_or_none is None else shard_fn(batches[u])
+                    box[0], m = step(box[0], *b, centre=int(centres[u]))
+                    return m
+                ms, hist = timed_steps(one, DP_STEPS)
+                run.step = one
+                return model, ms, hist
+            return run
+
+        single, dp = steps(None), steps(mesh)
+        check, launches = dp_vs_single(single, dp, float(cfg.lr))
+        expected = {"window_gather": 0, "robust_quantiles": DP_STEPS,
+                    "bn_stats": BN_PER_STEP * DP_STEPS,
+                    "bn_bwd_stats": BN_PER_STEP * DP_STEPS,
+                    "bn_bwd_sums_only": BN_PER_STEP * DP_STEPS,
+                    "bn_bwd_dx": BN_PER_STEP * DP_STEPS}
+        if launches != expected:
+            raise AssertionError(f"DP GOD steps launches {launches}, "
+                                 f"expected {expected}")
+        collectives = {"dp": profile_steps(dp.step),
+                       "single": profile_steps(single.step)}
+        split = bn_split_rows(mesh, BATCH, int(ds.X.shape[2]), flush)
+    finally:
+        finish_distributed()
+    emit({"phase": "data_parallel", "workload": "god", "world_size": 1,
+          "backend": "nccl", "batch_size": BATCH, "steps": DP_STEPS, **check,
+          "launches": launches, "collectives": collectives,
+          "bn_split_backward": split})
+    return {"steps": launches, "split": split}
+
+
+def phase_kamitani(god_cfg, work) -> dict:
+    """The Kamitani baseline on the GOD set above: the CLI's ``run`` on the
+    card (SCP time-mean, 512 units × 22 channels, KAMITANI_ITERS
+    iterations, the identification rate), then ``feature_prediction`` on
+    the same inputs on the card and on the CPU: per-category rates equal,
+    predictions within KAMITANI_RTOL·max|pred|, a pruning-mask bit that
+    differs only where its weight is within KAMITANI_RTOL of the unit's
+    max |W|, both timed.
+    Returns the CLI's launches."""
+    from meg_decoding_tpu_torch.cli import kamitani_regression
+    from meg_decoding_tpu_torch.kamitani.pipeline import (
+        feature_prediction,
+        get_averaged_feature,
+        pairwise_identification_rate,
+    )
+
+    cfg = Config(dict(to_dict(god_cfg), save_root=os.path.join(work, "kamitani")))
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc, cat = kamitani_regression.run(cfg, ch_ratios=1.0, n_iter=KAMITANI_ITERS,
+                                       device="cuda")
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = all_launches()
+    train = build_god_dataset(cfg, "train", device="cuda")
+    test = build_god_dataset(cfg, "val", device="cuda")
+    args = (train.X.mean(-1).cpu().numpy(), train.Y.cpu().numpy(),
+            test.X.mean(-1).cpu().numpy(), test.Y.cpu().numpy())
+    labels = test.labels.cpu().numpy()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred, true, fit = feature_prediction(*args, n_voxel=args[0].shape[1],
+                                             n_iter=KAMITANI_ITERS, device=dev,
+                                             return_fit=True)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        avg = get_averaged_feature(pred, true, labels)
+        out[dev] = (pred, fit, pairwise_identification_rate(avg[0], avg[1],
+                                                            device=dev), s)
+    (pc, fc, rc, sc), (ph, fh, rh, sh) = out["cuda"], out["cpu"]
+    pred_err = float(np.abs(pc - ph).max() / np.abs(ph).max())
+    # a mask bit may flip between the two: a feature whose relative alpha
+    # crosses the 1e-10 threshold one iteration apart; its weight is then
+    # negligible on the side that keeps it (held: ≤ KAMITANI_RTOL of the
+    # unit's max |W|)
+    flips = np.argwhere(fc[3] != fh[3])
+    flip_w = max((max(abs(fc[0][u, 0, f]), abs(fh[0][u, 0, f]))
+                  / np.abs(fh[0][u]).max() for u, f in flips), default=0.0)
+    check = {"units": int(args[1].shape[1]), "channels": int(args[0].shape[1]),
+             "train_trials": int(args[0].shape[0]),
+             "test_trials": int(args[2].shape[0]),
+             "mask_bits": int(fc[3].size), "mask_bits_differing": len(flips),
+             "differing_bits_max_rel_weight": float(flip_w),
+             "kept_features_card": int(fc[3].sum()),
+             "kept_features_cpu": int(fh[3].sum()),
+             "pred_max_rel_err": pred_err, "limit": KAMITANI_RTOL,
+             "rates_equal": bool((rc == rh).all()),
+             "acc_card": float(rc.mean()), "acc_cpu": float(rh.mean())}
+    if not (flip_w <= KAMITANI_RTOL and check["rates_equal"]
+            and pred_err <= KAMITANI_RTOL and abs(acc - float(rc.mean())) < 1e-12):
+        raise AssertionError(f"Kamitani card vs CPU: {check}, CLI acc {acc}")
+    emit({"phase": "kamitani", "cli_s": cli_s, "cli_acc": acc,
+          "card_fit_s": sc, "cpu_fit_s": sh, **check, "launches": launches,
+          "categories": len(cat)})
+    return launches
+
+
+def phase_galleries(seed: int, work: str) -> None:
+    """The gallery CLI on 1,250 PNGs of mixed GOD-like sizes written here
+    (``utils/png.py``) with random-weight ViT-B/32 on the card: seconds and
+    images/s; then GALLERY_CHECK of them card against CPU (the uint8
+    images ≤ 1 apart on ≤ 0.1 % of pixels; the features ≤ FEATURE_RTOL)."""
+    from meg_decoding_tpu_torch.cli import create_image_features as gallery
+    from meg_decoding_tpu_torch.features import clip_features
+    from meg_decoding_tpu_torch.features.clip_model import CLIPImageEncoder
+    from meg_decoding_tpu_torch.utils.png import write_png
+
+    img_dir = os.path.join(work, "images")
+    os.makedirs(img_dir)
+    rng = np.random.RandomState(seed)
+    t0 = time.perf_counter()
+    # GALLERY_DISTINCT images written (each shape, both filters), the rest
+    # hard links to them: the CLI reads and decodes every file
+    for i in range(GOD_IMAGES):
+        path = os.path.join(img_dir, f"img{i:05d}.png")
+        if i >= GALLERY_DISTINCT:
+            os.link(os.path.join(img_dir, f"img{i % GALLERY_DISTINCT:05d}.png"), path)
+            continue
+        H, W = GALLERY_SHAPES[i % len(GALLERY_SHAPES)]
+        yy, xx = np.mgrid[0:H, 0:W]
+        base = np.stack([(yy * rng.randint(1, 4) + xx * rng.randint(1, 4)
+                          + rng.randint(0, 256)) % 256 for _ in range(3)], -1)
+        im = (base + rng.randint(0, 8, (H, W, 3))).astype(np.uint8)
+        write_png(path, im, filter_type=2 * (i % 2))
+    write_s = time.perf_counter() - t0
+    # where the CLI's time goes, on the first GALLERY_DISTINCT files:
+    # decoding on the host, then the resize on the card
+    names = sorted(os.listdir(img_dir))[:GALLERY_DISTINCT]
+    t0 = time.perf_counter()
+    decoded = [gallery._read(os.path.join(img_dir, n)) for n in names]
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(names)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for im in decoded:
+        gallery.resize_shortest_crop(im, "cuda")
+    torch.cuda.synchronize()
+    resize_ms = (time.perf_counter() - t0) * 1e3 / len(names)
+    out = os.path.join(work, "gallery.npy")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = gallery.main([img_dir, out, "random", "--device", "cuda",
+                          "--seed", str(seed)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    if feats.shape != (GOD_IMAGES, 512) or not np.isfinite(feats).all():
+        raise AssertionError(f"gallery {feats.shape}")
+    # card against CPU on a few: the images, then one model's features
+    few = os.path.join(work, "images_few")
+    os.makedirs(few)
+    for name in sorted(os.listdir(img_dir))[:GALLERY_CHECK]:
+        shutil.copy(os.path.join(img_dir, name), few)
+    card = gallery.load_image_dir(few, "cuda")
+    cpu = gallery.load_image_dir(few, "cpu")
+    diff = (card.cpu().to(torch.int16) - cpu.to(torch.int16)).abs()
+    model = clip_features.load_clip(backend="random", device="cuda", seed=seed)
+    host = CLIPImageEncoder(model.config)
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    f_card = clip_features.encode_images(model, clip_features.preprocess_images(
+        card, "cuda"))
+    f_cpu = clip_features.encode_images(host.eval(), clip_features.preprocess_images(
+        cpu, "cpu"))
+    check = {"images": GALLERY_CHECK, "pixel_max_diff": int(diff.max()),
+             "pixels_differing": float((diff > 0).float().mean()),
+             "features_max_rel_err": max_rel(f_card, f_cpu),
+             "cli_rows_max_rel_err": max_rel(torch.from_numpy(feats[:GALLERY_CHECK]),
+                                             f_card.cpu()),
+             "limits": {"pixel_max_diff": 1, "pixels_differing": 1e-3,
+                        "features": FEATURE_RTOL}}
+    if not (check["pixel_max_diff"] <= 1 and check["pixels_differing"] <= 1e-3
+            and check["features_max_rel_err"] <= FEATURE_RTOL
+            and check["cli_rows_max_rel_err"] <= FEATURE_RTOL):
+        raise AssertionError(f"galleries card vs CPU: {check}")
+    emit({"phase": "galleries", "images": GOD_IMAGES,
+          "distinct_images": GALLERY_DISTINCT,
+          "shapes": [list(s) for s in GALLERY_SHAPES], "write_s": write_s,
+          "cli_s": cli_s, "images_per_s": GOD_IMAGES / cli_s,
+          "decode_ms_per_image": decode_ms, "resize_ms_per_image": resize_ms,
+          "card_vs_cpu": check})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke run of the port")
     ap.add_argument("--seed", type=int, default=0)
@@ -3011,8 +3556,10 @@ def main(argv=None) -> int:
         del flush
         lap("presets")
         scan_speech = phase_scan_speech(cfg, ds, tr_idx, args.seed, work)
-        del ds
         lap("scan_speech")
+        dp_speech = phase_dp_speech(cfg, ds, tr_idx, args.seed, work)
+        del ds
+        lap("dp_speech")
 
         god_cfg, god_ds = phase_god_data(work, args.seed)
         flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
@@ -3025,6 +3572,10 @@ def main(argv=None) -> int:
         zoo = phase_model_zoo(god_cfg, god_ds, args.seed, flush)
         del flush
         lap("god")
+        dp_god = phase_dp_god(god_cfg, god_ds, args.seed, work)
+        lap("dp_god")
+        kamitani = phase_kamitani(god_cfg, work)
+        lap("kamitani")
 
         # the serving artifact, the export CLI, checkpoint import, host spill
         artifact_spill_paths = phase_serving_export(cfg, god_cfg, god_ds, args.seed, work)
@@ -3056,6 +3607,8 @@ def main(argv=None) -> int:
         lap("w2v_features")
         phase_clip_features(args.seed)
         lap("clip_features")
+        phase_galleries(args.seed, work)
+        lap("galleries")
         phase_gwilliams_preprocess(work, args.seed)
         lap("gwilliams_preprocess")
         brennan_embed = phase_brennan_embed_cli(work, args.seed)
@@ -3109,10 +3662,22 @@ def main(argv=None) -> int:
         for name, n in launches.items():
             if n <= 0:
                 raise AssertionError(f"{name}: no launch on the {path} path")
+    # the data-parallel paths: every kernel of the step, BN by the split route
+    dp_paths = {"dp_speech": dp_speech["steps"], "dp_speech_cli": dp_speech["cli"],
+                "dp_god": dp_god["steps"]}
+    for path, launches in dp_paths.items():
+        needed = ("bn_stats", "bn_bwd_stats", "bn_bwd_sums_only", "bn_bwd_dx",
+                  "robust_quantiles") + (("window_gather",) if "speech" in path else ())
+        for name in needed:
+            if launches[name] <= 0:
+                raise AssertionError(f"{name}: no launch on the {path} path")
+    if kamitani["window_gather"] <= 0:
+        raise AssertionError("window_gather: no launch on the kamitani path")
     paths = {"serving": serving, "training": training["launches"],
              "god_training": god_training["launches"], "god_eval": god_eval,
              **new_paths, **{k: v for k, (v, _) in brennan_paths.items()},
-             **god_extra_paths, **artifact_spill_paths}
+             **god_extra_paths, **artifact_spill_paths, **dp_paths,
+             "kamitani_cli": kamitani}
     for name in training["launches"]:
         if paths["god_training"][name] + paths["god_eval"][name] <= 0:
             raise AssertionError(f"{name}: no launch on the GOD paths")
@@ -3161,6 +3726,7 @@ def main(argv=None) -> int:
         **{name: {"B=256 bf16": at(presets["b256_bn"][name], [4 * BATCH, D2, 360]),
                   **{shape: at(rows[name], shape) for shape, rows in zoo["bn"].items()}}
            for name in ("bn_stats", "bn_bwd_stats")}}
+    dx_row = dp_speech["split"][str(torch.float32)]
     emit({"kernels": [
         {"name": "window_gather", "route": "cuda",
          "source": "meg_decoding_tpu_torch/csrc/window_gather.cu",
@@ -3217,6 +3783,24 @@ def main(argv=None) -> int:
               # bn_bwd (sums and dx) above; its sums alone beside them
               ("bn_bwd_stats", 111, ("stats_only_ms", "stats_only_run_ms",
                                      "stats_only_library_ms")))),
+        # synced BN's dx from all-reduced sums: with bn_bwd_stats's sums
+        # alone, the split route that stands for the Pallas bn_bwd_stats's
+        # custom VJP under data parallelism
+        {"name": "bn_bwd_dx", "route": "cuda",
+         "source": "meg_decoding_tpu_torch/csrc/batchnorm_stats.cu",
+         "replaces": "meg_decoding_tpu/ops/pallas/batchnorm.py:111",
+         "launches": sum(n["bn_bwd_dx"] for n in dp_paths.values()),
+         "launches_by_path": {p: n["bn_bwd_dx"] for p, n in dp_paths.items()},
+         "max_abs_err": dx_row["max_abs_err"], "ms": dx_row["kernel_ms"],
+         "run_ms": dx_row["run_ms"], "plain_ms": dx_row["plain_ms"],
+         "bound_ms": dx_row["bound_ms"], "bound_by": dx_row["bound_by"],
+         "library_ms": None, "shape": dx_row["shape"],
+         "god": {k: dp_god["split"][str(torch.float32)][k]
+                 for k in ("shape", "max_abs_err", "kernel_ms", "run_ms",
+                           "plain_ms", "bound_ms")},
+         "more_shapes": {"bf16": {k: dp_speech["split"][str(torch.bfloat16)][k]
+                                  for k in ("shape", "max_abs_err", "kernel_ms",
+                                            "run_ms", "plain_ms", "bound_ms")}}},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,9 @@ from meg_decoding_tpu_torch.data.brennan import (
 from meg_decoding_tpu_torch.data.gwilliams import (
     GwilliamsPacked,
     build_gwilliams_dataset,
+    device_major_sessions,
+    draw_local_sessions,
+    gather_speech_batch,
     load_gwilliams_cache,
 )
 from meg_decoding_tpu_torch.data.layout import ch_locations_2d
@@ -63,7 +66,18 @@ class SpeechPool:
     reference's random pairing — a Gwilliams segment with a random
     subject-session, a Brennan chunk with a random subject — drawn from a
     seeded ``torch.Generator``: ``gather(idx) → (X, Y, subject_idxs)``;
-    ``gather(idx, generator)`` draws from the given generator instead."""
+    ``gather(idx, generator)`` draws from the given generator instead.
+
+    Under data parallelism (``mesh`` set, JAX ``_SpeechLoader``'s mesh
+    branch, ``cli/train_speech.py:70-140``) ``idx`` is a global batch, the
+    same on every rank, and the draw is the global batch's.  A batch that
+    divides the world size gives this rank's rows: gathered from its
+    session shard (a session-sharded Gwilliams split), cut on the host
+    with the sharded run's device-major session draw (a spilled split,
+    ``device_major_sessions``), or a Brennan batch's rows.  Another batch
+    (a test set smaller than the world size, a direct call) is padded
+    cyclically to a multiple, gathered so, and given whole on every rank,
+    trimmed."""
 
     def __init__(self, ds: GwilliamsPacked | BrennanPacked, indices=None,
                  seed: int = 0):
@@ -71,6 +85,8 @@ class SpeechPool:
         self.indices = None if indices is None else np.asarray(indices)
         self.generator = torch.Generator().manual_seed(int(seed))
         self.num_subjects = ds.num_subjects
+        self.mesh = None
+        self._sharded_gather = None
 
     def __len__(self):
         return len(self.ds) if self.indices is None else len(self.indices)
@@ -92,10 +108,46 @@ class SpeechPool:
             else self.indices[np.asarray(idx)]
 
     def gather(self, idx, generator: torch.Generator | None = None):
-        X, Y, subs, _ = self.ds.gather(
-            self.segment_ids(idx),
-            generator=self.generator if generator is None else generator)
+        gen = self.generator if generator is None else generator
+        if self.mesh is not None:
+            return self._gather_dp(self.segment_ids(idx), gen)
+        X, Y, subs, _ = self.ds.gather(self.segment_ids(idx), generator=gen)
         return X, Y, subs
+
+    def _gather_dp(self, ids: np.ndarray, gen: torch.Generator):
+        mesh, m = self.mesh, len(ids)
+        n = mesh.world_size
+        whole = m % n != 0
+        ids = np.resize(ids, m + (-m) % n)
+        b = len(ids) // n
+        mine = slice(mesh.rank * b, (mesh.rank + 1) * b)
+        if isinstance(self.ds, GwilliamsPacked) and self.ds.session_shard:
+            if self._sharded_gather is None:
+                from meg_decoding_tpu_torch.train.scan_loop import (
+                    _make_sharded_gather,
+                )
+
+                self._sharded_gather = _make_sharded_gather(mesh, self.ds)
+            out = self._sharded_gather(ids, draw_local_sessions(
+                gen, len(ids), n, len(self.ds.session_subject)))
+            if whole:
+                return tuple(mesh.all_gather(t)[:m] for t in out)
+            return out
+        if isinstance(self.ds, GwilliamsPacked) and whole:
+            # spilled: the sharded run's sessions, cut on the host
+            X, Y, subs, _ = gather_speech_batch(self.ds, ids, generator=gen,
+                                                device_major=n)
+        elif isinstance(self.ds, GwilliamsPacked):
+            S = self.ds.num_sessions
+            sess = device_major_sessions(draw_local_sessions(gen, len(ids), n, S),
+                                         n, S)
+            X, Y, subs, _ = gather_speech_batch(self.ds, ids[mine],
+                                                sess_ids=sess[mine])
+        else:
+            X, Y, subs, _ = self.ds.gather(ids, generator=gen)
+            if not whole:
+                X, Y, subs = X[mine], Y[mine], subs[mine]
+        return (X[:m], Y[:m], subs[:m]) if whole else (X, Y, subs)
 
 
 def find_gwilliams_cache(cfg) -> str:

@@ -28,12 +28,18 @@ through the prefetch (``prefetch: N``, 2 by default), as JAX
 ``use_wandb: true`` logs to wandb as well when the module and its
 credentials are there, else to the JSONL alone (``utils/logging.py``).
 
-Not ported yet, and refused: multi-host training and data parallelism
-over several GPUs (pass ``data_parallel=false`` to train on one of them).
+Data parallelism (JAX ``:61``, ``:88-91``, ``:121-170``): under a process
+group — a ``distributed:`` block, torchrun, or the processes this CLI
+starts itself when more than one GPU is visible (``--nproc N`` asks for N
+on any device) — every rank builds the whole GOD set (GOD-sized sets have
+nothing to shard) and trains on its rows of each global batch, per step
+or in the whole-epoch form (``parallel/dp.py``).  Rank 0 alone writes the
+log and the checkpoints.
 
 Run: ``python -m meg_decoding_tpu_torch.cli.train_god
 [--config-path configs] [--config-name config_GOD] [--device cuda]
-key=value …``
+[--nproc N] key=value …``, or ``torchrun --nproc_per_node=N -m
+meg_decoding_tpu_torch.cli.train_god …``.
 """
 
 from __future__ import annotations
@@ -53,6 +59,11 @@ from meg_decoding_tpu_torch.data.sampling import god_cv_split
 from meg_decoding_tpu_torch.device import resolve_device
 from meg_decoding_tpu_torch.models.factory import get_model
 from meg_decoding_tpu_torch.objectives.retrieval import cosine_similarity_matrix
+from meg_decoding_tpu_torch.parallel.dp import (
+    maybe_distributed_init,
+    run_cli,
+    setup_data_parallel,
+)
 from meg_decoding_tpu_torch.train.checkpoint import CheckpointManager
 from meg_decoding_tpu_torch.train.loop import (
     fit,
@@ -73,17 +84,6 @@ from meg_decoding_tpu_torch.utils.logging import RunLogger
 __all__ = ["run"]
 
 
-def _refuse_unported(cfg, dev: torch.device) -> None:
-    if cfg.get("distributed", False):
-        raise NotImplementedError(
-            "distributed: multi-host training is not ported yet")
-    if (dev.type == "cuda" and torch.cuda.device_count() > 1
-            and cfg.get("data_parallel", True)):
-        raise NotImplementedError(
-            "data parallelism over several GPUs is not ported yet; pass "
-            "data_parallel=false to train on one")
-
-
 def _loss_config(cfg) -> LossConfig:
     return LossConfig(
         kind=cfg.select("loss.kind", "clip"),
@@ -99,8 +99,10 @@ def _loss_config(cfg) -> LossConfig:
 
 def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
     """Train per ``cfg``; returns the epoch row with the best test top-10."""
-    dev = resolve_device(device)
-    _refuse_unported(cfg, dev)
+    dev = maybe_distributed_init(cfg, resolve_device(device))
+    mesh, shard_fn, replicate_fn = setup_data_parallel(cfg, dev)
+    n = 1 if mesh is None else mesh.world_size
+    writer = mesh is None or mesh.rank == 0
     seed = int(cfg.get("seed", 0))
     save_root = cfg.get("save_root", "runs_out")
     os.makedirs(save_root, exist_ok=True)
@@ -142,35 +144,41 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
     # the schedule counts `updates` steps as an epoch, also with
     # use_sampler: false, as the JAX trainer does (cli/train_god.py:114-115)
     optimizer = make_optimizer(cfg, updates)
-    state = create_train_state(
+    state = replicate_fn(create_train_state(
         model, optimizer,
-        init_temperature=float(cfg.get("init_temperature", 5.1)), seed=seed)
+        init_temperature=float(cfg.get("init_temperature", 5.1)), seed=seed))
     train_step = make_train_step(model, optimizer, loss_cfg, collate_cfg,
-                                 gallery=gallery, gallery_self_sim=gallery_self_sim)
+                                 gallery=gallery, gallery_self_sim=gallery_self_sim,
+                                 mesh=mesh)
     eval_step = make_eval_step(model, loss_cfg, collate_cfg, gallery=gallery,
-                               gallery_self_sim=gallery_self_sim)
+                               gallery_self_sim=gallery_self_sim, mesh=mesh)
 
-    logger = RunLogger(save_root, run_name=cfg.get("run_name"),
-                       use_wandb=bool(cfg.get("use_wandb", False)),
-                       wandb_cfg=cfg.get("wandb"))
-    logger.dump_config(cfg)
-    ckpt = CheckpointManager(os.path.join(save_root, "ckpt"))
+    logger = None
+    if writer:
+        logger = RunLogger(save_root, run_name=cfg.get("run_name"),
+                           use_wandb=bool(cfg.get("use_wandb", False)),
+                           wandb_cfg=cfg.get("wandb"))
+        logger.dump_config(cfg)
+    ckpt = CheckpointManager(os.path.join(save_root, "ckpt"), writer=writer)
     state, start_epoch = resume_if_requested(
-        cfg, ckpt, state, save_root, steps_per_epoch(cfg, len(train_set)))
+        cfg, ckpt, state, save_root, steps_per_epoch(cfg, len(train_set), n))
     if (cfg.get("use_scan_epochs", False) and not with_labels
             and not cfg.get("host_resident", False)):
         # the whole-epoch form; the label losses and the spill path take
         # the per-step driver
         scan_epoch = make_scan_epoch(model, optimizer, loss_cfg, collate_cfg,
                                      train_set, updates=updates,
-                                     batch_size=int(cfg.batch_size))
+                                     batch_size=max(int(cfg.batch_size) // n * n, n),
+                                     mesh=mesh)
         _, best = fit_scan(cfg, train_set, test_set, state, scan_epoch,
                            eval_step, logger, ckpt, seed=seed,
-                           start_epoch=start_epoch)
+                           start_epoch=start_epoch, batch_multiple=n,
+                           shard_fn=shard_fn)
         return best
     _, best = fit(cfg, train_set, test_set, state, train_step, eval_step,
                   logger, ckpt, seed=seed, start_epoch=start_epoch,
-                  with_labels=with_labels)
+                  with_labels=with_labels, shard_fn=shard_fn,
+                  batch_multiple=n)
     return best
 
 
@@ -179,10 +187,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--config-path", default="configs")
     ap.add_argument("--config-name", default="config_GOD")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--nproc", type=int, default=0,
+                    help="start this many ranks of one group (default: one "
+                         "per GPU when more than one is visible)")
     ap.add_argument("overrides", nargs="*", help="key=value config overrides")
     args = ap.parse_args(argv)
     cfg = compose(args.config_path, args.config_name, args.overrides)
-    return run(cfg, device=args.device)
+    return run_cli("meg_decoding_tpu_torch.cli.train_god", args, cfg, run)
 
 
 if __name__ == "__main__":

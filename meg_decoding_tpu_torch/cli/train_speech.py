@@ -33,11 +33,20 @@ are gathered on the host and streamed to the card by ``fit``'s prefetch
 ``use_wandb: true`` logs to wandb as well when the module and its
 credentials are there, else to the JSONL alone (``utils/logging.py``).
 
-Not ported yet, and refused: multi-host training and data parallelism
-over several GPUs (pass ``data_parallel=false`` to train on one of them).
+Data parallelism (JAX ``:261``, ``:295-357``, ``:419-443``): under a
+process group — a ``distributed:`` block, torchrun, or the processes this
+CLI starts itself when more than one GPU is visible (``--nproc N`` asks
+for N on any device) — every rank trains on its rows of each global batch
+(``parallel/dp.py``).  A Gwilliams split is built on the host and
+session-sharded onto the ranks (``shard_gwilliams_splits``); a spilled one
+stays on the host and replays the sharded run's session draw; Brennan is
+built whole on every rank and sharded by rows.  Rank 0 alone writes the
+log and the checkpoints; every rank reads a resume.
 
 Run: ``python -m meg_decoding_tpu_torch.cli.train_speech
-[--config-path configs] [--config-name config] [--device cuda] key=value …``
+[--config-path configs] [--config-name config] [--device cuda] [--nproc N]
+key=value …``, or ``torchrun --nproc_per_node=N -m
+meg_decoding_tpu_torch.cli.train_speech …``.
 """
 
 from __future__ import annotations
@@ -56,6 +65,11 @@ from meg_decoding_tpu_torch.data.gwilliams import GwilliamsPacked, to_host
 from meg_decoding_tpu_torch.data.layout import ch_locations_2d
 from meg_decoding_tpu_torch.device import resolve_device
 from meg_decoding_tpu_torch.models.factory import get_model
+from meg_decoding_tpu_torch.parallel.dp import (
+    maybe_distributed_init,
+    run_cli,
+    setup_data_parallel,
+)
 from meg_decoding_tpu_torch.train.checkpoint import CheckpointManager
 from meg_decoding_tpu_torch.train.loop import (
     fit,
@@ -66,6 +80,7 @@ from meg_decoding_tpu_torch.train.loop import (
 from meg_decoding_tpu_torch.train.scan_loop import (
     make_fused_speech_step,
     make_gwilliams_scan_epoch,
+    shard_gwilliams_splits,
 )
 from meg_decoding_tpu_torch.train.schedules import make_optimizer
 from meg_decoding_tpu_torch.train.state import create_train_state
@@ -79,19 +94,11 @@ from meg_decoding_tpu_torch.utils.logging import RunLogger
 __all__ = ["run", "loss_config", "spill_speech_splits"]
 
 
-def _refuse_unported(cfg, dev: torch.device) -> None:
+def _check_dataset(cfg) -> None:
     if cfg.dataset not in ("Gwilliams2022", "Brennan2018"):
         raise NotImplementedError(
             f"dataset {cfg.dataset!r} is not a speech dataset "
             "(Gwilliams2022, Brennan2018)")
-    if cfg.get("distributed", False):
-        raise NotImplementedError(
-            "distributed: multi-host training is not ported yet")
-    if (dev.type == "cuda" and torch.cuda.device_count() > 1
-            and cfg.get("data_parallel", True)):
-        raise NotImplementedError(
-            "data parallelism over several GPUs is not ported yet; pass "
-            "data_parallel=false to train on one")
 
 
 class _FusedPool:
@@ -132,15 +139,36 @@ def loss_config(cfg) -> LossConfig:
                       temp_trainable=bool(cfg.get("temp_trainable", True)))
 
 
+def shard_speech_splits(mesh, train_set, test_set) -> None:
+    """Session-shard both pools' Gwilliams splits onto this rank, in place
+    (a shallow pair wraps one split; sentence and deep splits share their
+    recordings, sharded once), and give both pools the mesh."""
+    if (isinstance(train_set.ds, GwilliamsPacked)
+            and not train_set.ds.host_resident):
+        if test_set.ds is train_set.ds:
+            train_set.ds = test_set.ds = shard_gwilliams_splits(mesh, train_set.ds)[0]
+        else:
+            train_set.ds, test_set.ds = shard_gwilliams_splits(
+                mesh, train_set.ds, test_set.ds)
+    train_set.mesh = test_set.mesh = mesh
+
+
 def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
     """Train per ``cfg``; returns the epoch row with the best test top-10."""
-    dev = resolve_device(device)
-    _refuse_unported(cfg, dev)
+    _check_dataset(cfg)
+    dev = maybe_distributed_init(cfg, resolve_device(device))
+    mesh, _, replicate_fn = setup_data_parallel(cfg, dev)
+    n = 1 if mesh is None else mesh.world_size
+    writer = mesh is None or mesh.rank == 0
     seed = int(cfg.get("seed", 0))
     save_root = cfg.get("save_root", "runs_out")
     os.makedirs(save_root, exist_ok=True)
 
-    train_set, test_set = load_speech_splits(cfg, seed, dev)
+    gwilliams = cfg.dataset == "Gwilliams2022"
+    # under a mesh a Gwilliams split is built on the host and only each
+    # rank's session shard goes to its device
+    train_set, test_set = load_speech_splits(
+        cfg, seed, "cpu" if mesh is not None and gwilliams else dev)
     cfg.num_subjects = train_set.num_subjects
     if cfg.get("host_resident", False):
         spill_speech_splits(train_set, test_set)
@@ -155,20 +183,23 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
     # the schedule counts `updates` steps as an epoch, also with
     # use_sampler: false, as the JAX trainer does (cli/train_speech.py:323)
     optimizer = make_optimizer(cfg, updates)
-    state = create_train_state(
+    state = replicate_fn(create_train_state(
         model, optimizer,
-        init_temperature=float(cfg.get("init_temperature", 5.1)), seed=seed)
+        init_temperature=float(cfg.get("init_temperature", 5.1)), seed=seed))
+    if mesh is not None:
+        shard_speech_splits(mesh, train_set, test_set)
     cache_stats = bool(cfg.get("cache_collate_stats", False))
-    eval_step = make_eval_step(model, loss_cfg, collate_cfg)
+    eval_step = make_eval_step(model, loss_cfg, collate_cfg, mesh=mesh)
 
-    logger = RunLogger(save_root, run_name=cfg.get("run_name"),
-                       use_wandb=bool(cfg.get("use_wandb", False)),
-                       wandb_cfg=cfg.get("wandb"))
-    logger.dump_config(cfg)
-    ckpt = CheckpointManager(os.path.join(save_root, "ckpt"))
+    logger = None
+    if writer:
+        logger = RunLogger(save_root, run_name=cfg.get("run_name"),
+                           use_wandb=bool(cfg.get("use_wandb", False)),
+                           wandb_cfg=cfg.get("wandb"))
+        logger.dump_config(cfg)
+    ckpt = CheckpointManager(os.path.join(save_root, "ckpt"), writer=writer)
     state, start_epoch = resume_if_requested(
-        cfg, ckpt, state, save_root, steps_per_epoch(cfg, len(train_set)))
-    gwilliams = cfg.dataset == "Gwilliams2022"
+        cfg, ckpt, state, save_root, steps_per_epoch(cfg, len(train_set), n))
     if (gwilliams and cfg.get("use_scan_epochs", False)
             and train_set.indices is None):
         # the whole-epoch form, on a sentence/deep Gwilliams split (the
@@ -176,23 +207,26 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
         # take the per-step driver)
         scan_epoch = make_gwilliams_scan_epoch(
             model, optimizer, loss_cfg, collate_cfg, train_set.ds,
-            updates=updates, batch_size=int(cfg.batch_size),
-            cache_collate_stats=cache_stats)
+            updates=updates, batch_size=max(int(cfg.batch_size) // n * n, n),
+            cache_collate_stats=cache_stats, mesh=mesh)
         _, best = fit_scan(cfg, train_set, test_set, state, scan_epoch,
                            eval_step, logger, ckpt, seed=seed,
-                           start_epoch=start_epoch)
+                           start_epoch=start_epoch, batch_multiple=n)
         return best
     if gwilliams and bool(cfg.get("fuse_gather", True)):
         fused = make_fused_speech_step(model, optimizer, loss_cfg,
                                        collate_cfg, train_set.ds,
-                                       cache_collate_stats=cache_stats)
+                                       cache_collate_stats=cache_stats,
+                                       mesh=mesh)
         train_set_for_fit = _FusedPool(train_set)
         step = lambda state, seg, gen: fused(state, seg, generator=gen)
     else:
         train_set_for_fit = train_set
-        step = make_train_step(model, optimizer, loss_cfg, collate_cfg)
+        step = make_train_step(model, optimizer, loss_cfg, collate_cfg,
+                               mesh=mesh)
     _, best = fit(cfg, train_set_for_fit, test_set, state, step, eval_step,
-                  logger, ckpt, seed=seed, start_epoch=start_epoch)
+                  logger, ckpt, seed=seed, start_epoch=start_epoch,
+                  batch_multiple=n)
     return best
 
 
@@ -201,10 +235,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--config-path", default="configs")
     ap.add_argument("--config-name", default="config")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--nproc", type=int, default=0,
+                    help="start this many ranks of one group (default: one "
+                         "per GPU when more than one is visible)")
     ap.add_argument("overrides", nargs="*", help="key=value config overrides")
     args = ap.parse_args(argv)
     cfg = compose(args.config_path, args.config_name, args.overrides)
-    return run(cfg, device=args.device)
+    return run_cli("meg_decoding_tpu_torch.cli.train_speech", args, cfg, run)
 
 
 if __name__ == "__main__":

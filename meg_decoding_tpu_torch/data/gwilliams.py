@@ -21,6 +21,14 @@ from the card); its batches are then sliced on the host
 and keeps its RobustScaler fit, so the cached collate
 (``ops/scaling.py:collate_preprocess_cached``) needs no percentiles per
 step.
+
+Under data parallelism the recordings are sharded over sessions
+(``pad_sessions``, then ``train/scan_loop.py:shard_gwilliams_splits``):
+each rank holds S_local = S_pad / n sessions, and ``local_shard_gather``
+pairs its rows of a batch with sessions of its own shard.  The session
+draw is device-major (rank r's rows draw from shard r), as JAX's
+(``:396-463``); ``device_major_sessions`` maps such a draw to global
+sessions, so a host-resident split replays the sharded run's batches.
 """
 
 from __future__ import annotations
@@ -47,7 +55,9 @@ __all__ = ["GwilliamsPacked", "load_gwilliams_cache", "parse_sessions",
            "drop_overlapping_words", "gather_speech_batch",
            "draw_sessions", "to_host", "compute_collate_stats",
            "collate_stats_chunk",
-           "collate_stats_rows", "preprocess_recordings"]
+           "collate_stats_rows", "preprocess_recordings", "pad_sessions",
+           "local_shard_gather", "device_major_sessions",
+           "draw_local_sessions"]
 
 NUM_TASKS = 4
 SWEEP_CHUNK = 512  # windows per chunk of the collate-stats sweep, as JAX
@@ -161,6 +171,10 @@ class GwilliamsPacked:
     session_subject: (n_sessions,) int64 subject index of each session.
     seq_len: segment length in samples (360).
     host_resident: the tensors live in host memory (``to_host``).
+    session_shard: (rank, world size) when recordings and meg_onsets hold
+      only that rank's shard of the padded sessions
+      (``train/scan_loop.py:shard_gwilliams_splits``); session_subject is
+      then the whole padded table.
     """
 
     recordings: torch.Tensor
@@ -173,6 +187,7 @@ class GwilliamsPacked:
     num_subjects: int
     _seg_table: np.ndarray | None = None  # lazily built, immutable per split
     host_resident: bool = False
+    session_shard: tuple[int, int] | None = None
 
     def __len__(self):
         return int(self.n_words.sum())
@@ -230,17 +245,31 @@ def draw_sessions(ds: GwilliamsPacked, n: int,
 
 def gather_speech_batch(ds: GwilliamsPacked, segment_ids: np.ndarray,
                         sess_ids=None, generator: torch.Generator | None = None,
-                        y_dtype: torch.dtype | None = None):
+                        y_dtype: torch.dtype | None = None,
+                        device_major: int | None = None):
     """Batch = segments by global id + one session each (the reference's
     random subject-session pairing, ``__getitem__`` :130-143).
 
     Sessions come from ``sess_ids`` when given, else are drawn uniformly
-    with ``generator`` (``draw_sessions``).  ``y_dtype`` casts Y inside the
-    gather (see ``_gather_batch``).  On a host-resident split
-    (``to_host``) the windows are host slices from the same draw
-    (``_gather_batch_host``).  Returns
-    ``(X, Y, subject_idxs, segment_ids)``."""
+    with ``generator`` (``draw_sessions``); with ``device_major = n`` and
+    a batch that divides n, drawn as an n-rank session-sharded gather
+    draws them (``draw_local_sessions`` → ``device_major_sessions``), so a
+    host-resident split under data parallelism gathers what the sharded
+    device run gathers.  ``y_dtype`` casts Y inside the gather (see
+    ``_gather_batch``).  On a host-resident split (``to_host``) the
+    windows are host slices from the same draw (``_gather_batch_host``).
+    Returns ``(X, Y, subject_idxs, segment_ids)``."""
+    if ds.session_shard is not None:
+        raise ValueError("a session-sharded split gathers per shard "
+                         "(local_shard_gather)")
     seg = ds.segment_table()[np.asarray(segment_ids)]
+    if sess_ids is None and device_major is not None \
+            and len(seg) % device_major == 0:
+        if generator is None:
+            raise ValueError("pass sess_ids or a torch.Generator to draw them")
+        sess_ids = device_major_sessions(
+            draw_local_sessions(generator, len(seg), device_major,
+                                ds.num_sessions), device_major, ds.num_sessions)
     if sess_ids is None:
         sess_ids = draw_sessions(ds, len(seg), generator)
     if ds.host_resident:
@@ -260,6 +289,81 @@ def gather_speech_batch(ds: GwilliamsPacked, segment_ids: np.ndarray,
         ds.session_subject, task_ids, i_in_task, sess_ids, ds.seq_len,
         y_dtype=y_dtype)
     return X, Y, subs, np.asarray(segment_ids)
+
+
+def pad_sessions(ds: GwilliamsPacked, multiple: int) -> GwilliamsPacked:
+    """The split with its sessions padded to a multiple of ``multiple`` by
+    repeating sessions cyclically (JAX ``pad_sessions``, ``:361-394``), so
+    that they shard evenly over the ranks.  A repeated session is drawn
+    with probability 2/S_pad instead of 1/S (PARITY.md): the pairing is a
+    training-time augmentation."""
+    S = ds.num_sessions
+    pad = (-S) % multiple
+    if pad == 0:
+        return ds
+    take = torch.from_numpy(np.concatenate([np.arange(S), np.arange(pad) % S]))
+
+    def rows(t):
+        return t.index_select(0, take.to(t.device))
+
+    return dataclasses.replace(
+        ds, recordings=rows(ds.recordings), meg_onsets=rows(ds.meg_onsets),
+        session_subject=rows(ds.session_subject), _seg_table=None)
+
+
+def draw_local_sessions(generator: torch.Generator, batch: int, n_dev: int,
+                        n_sessions: int) -> torch.Tensor:
+    """The session draw of a global batch under ``n_dev`` ranks: ``batch``
+    indices into the rank's own shard, uniform in [0, S_local) with
+    S_local = ceil(S / n_dev), device-major (rank r uses entries
+    [r·b, (r+1)·b)).  Every rank makes the same draw from its copy of the
+    seeded ``generator``."""
+    S_local = -(-n_sessions // n_dev)
+    return torch.randint(0, S_local, (batch,), generator=generator)
+
+
+def device_major_sessions(local_sessions, n_dev: int,
+                          n_sessions: int) -> np.ndarray:
+    """The global sessions a device-major draw of shard-local sessions
+    (``draw_local_sessions``; JAX draws them per device from a folded key,
+    ``:442-463``) stands for: rank d's entry l is padded session
+    d·S_local + l, and a padded id p ≥ S aliases session (p − S) mod S, as
+    ``pad_sessions`` repeats them.  Lets a host-resident split replay the
+    batches of a session-sharded run."""
+    local = np.asarray(local_sessions, dtype=np.int64)
+    S_local = -(-n_sessions // n_dev)
+    b = len(local) // n_dev
+    padded = np.repeat(np.arange(n_dev) * S_local, b) + local
+    return np.where(padded < n_sessions, padded,
+                    (padded - n_sessions) % n_sessions)
+
+
+def local_shard_gather(idx_local, sess_local, rec_local, meg_onsets_local,
+                       y_stream, speech_onsets, session_subject, seg_table,
+                       seq_len: int, rank: int, y_dtype=None,
+                       stats_local=None):
+    """This rank's half of the sharded batch gather (JAX
+    ``local_shard_gather``, ``:396-440``): recordings and meg_onsets are
+    the rank's session shard (S_local, …), the rest whole.  ``idx_local``
+    (b,) global segment ids and ``sess_local`` (b,) shard-local sessions
+    (tensors on the shard's device); ``seg_table`` the (N, 2) (task,
+    word) table.  Two launches of ``window_gather`` on the shard.  Returns
+    ``(X, Y, subject_idxs)`` and, with ``stats_local`` (this shard's
+    ``compute_collate_stats`` table), the batch's (b, 2C) stats rows."""
+    S_local, NT, C, T = rec_local.shape
+    rows = seg_table[idx_local]
+    task_ids, i_in_task = rows[:, 0], rows[:, 1]
+    rec_ids = sess_local * NT + task_ids
+    x_onsets = meg_onsets_local[sess_local, task_ids, i_in_task]
+    X = window_gather(rec_local.reshape(S_local * NT, C, T), rec_ids, x_onsets,
+                      seq_len)
+    Y = window_gather(y_stream, task_ids, speech_onsets[task_ids, i_in_task],
+                      seq_len, out_dtype=y_dtype)
+    subs = session_subject[rank * S_local + sess_local]
+    if stats_local is not None:
+        W = meg_onsets_local.shape[-1]
+        return X, Y, subs, stats_local[rec_ids * W + i_in_task]
+    return X, Y, subs
 
 
 def to_host(ds: GwilliamsPacked, buffer_cache: dict | None = None
@@ -342,7 +446,7 @@ def collate_stats_chunk(recordings: torch.Tensor, rec_ids: torch.Tensor,
 
 
 def compute_collate_stats(ds: GwilliamsPacked, baseline_len_samp: int,
-                          chunk: int = SWEEP_CHUNK) -> torch.Tensor:
+                          chunk: int = SWEEP_CHUNK, mesh=None) -> torch.Tensor:
     """The epoch-invariant RobustScaler fit of every window a batch can
     hold, as a flat (S·NT·W, 2C) table on the dataset's device: row
     ``(s·NT + t)·W + w`` is session s, task t, word w; [:, :C] median,
@@ -356,7 +460,15 @@ def compute_collate_stats(ds: GwilliamsPacked, baseline_len_samp: int,
     ``n_words`` fit the zero onset's window and are never read.  The JAX
     package pads each half to 128 lanes for the TPU's tiling
     (``stats_lane_pad``); the card needs no padding, so the table is
-    ~0.6 of JAX's."""
+    ~0.6 of JAX's.
+
+    With ``mesh``, ``ds`` must be session-sharded for it
+    (``shard_gwilliams_splits``): each rank sweeps its own shard, and its
+    table holds its S_local·NT·W rows, indexed per shard as
+    ``local_shard_gather`` reads them (JAX's table sharded over rows)."""
+    if mesh is not None and ds.session_shard != (mesh.rank, mesh.world_size):
+        raise ValueError("compute_collate_stats(mesh=) needs the split "
+                         "session-sharded over that mesh")
     S, NT, C, _ = ds.recordings.shape
     W = int(ds.meg_onsets.shape[2])
     total = S * NT * W

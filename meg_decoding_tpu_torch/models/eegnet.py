@@ -83,7 +83,10 @@ def _batch_norm(bn: FusedBatchNorm, h: torch.Tensor) -> torch.Tensor:
 
 
 def _dropout(h: torch.Tensor, rate: float, mask: torch.Tensor | None,
-             generator: torch.Generator | None) -> torch.Tensor:
+             generator: torch.Generator | None, mesh=None) -> torch.Tensor:
+    """Dropout with a mask drawn from ``generator`` (a CPU generator, the
+    same draws on every rank); under a data-parallel ``mesh`` the draw is
+    the global batch's and this rank takes its rows of it."""
     if rate == 0.0:
         return h
     keep = 1.0 - rate
@@ -93,7 +96,12 @@ def _dropout(h: torch.Tensor, rate: float, mask: torch.Tensor | None,
         if generator is None:
             raise ValueError("a training forward with dropout needs the "
                              "masks or a torch.Generator to draw them")
-        u = torch.rand(h.shape, generator=generator)
+        if mesh is None:
+            u = torch.rand(h.shape, generator=generator)
+        else:
+            b = h.shape[0]
+            u = torch.rand((b * mesh.world_size, *h.shape[1:]),
+                           generator=generator)[mesh.rank * b:(mesh.rank + 1) * b]
         mask = (u < keep).to(h.device, non_blocking=True)
     return torch.where(mask, h / keep, torch.zeros_like(h))
 
@@ -116,6 +124,7 @@ class EEGNet(nn.Module):
         self.k1, self.k2, self.p1, self.p2 = k1, k2, p1, p2
         self.dr1, self.dr2 = dr1, dr2
         self.F1, self.D = F1, D
+        self.mesh = None  # data-parallel mesh (models/layers.py:set_data_parallel)
         self.conv1 = _conv_weight(F1, 1, 1, k1, device, generator)
         self.bn1 = _bn(F1, device)
         self.conv2 = _conv_weight(D * F1, 1, num_channels, 1, device, generator)
@@ -146,14 +155,14 @@ class EEGNet(nn.Module):
         h = F.elu(_batch_norm(self.bn2, h))
         h = F.avg_pool2d(h, (1, self.p1))
         if train:
-            h = _dropout(h, self.dr1, m1, generator)
+            h = _dropout(h, self.dr1, m1, generator, self.mesh)
         h = F.conv2d(F.pad(h, _same_pad(self.k2)), self.conv3_dw,
                      groups=self.D * self.F1)
         h = F.conv2d(h, self.conv3_pw)                    # (B, F2, 1, T')
         h = F.elu(_batch_norm(self.bn3, h))
         h = F.avg_pool2d(h, (1, self.p2))
         if train:
-            h = _dropout(h, self.dr2, m2, generator)
+            h = _dropout(h, self.dr2, m2, generator, self.mesh)
         # flax flattens NHWC (B, 1, T', F2): T' major, F2 minor
         return self.classifier(h.permute(0, 2, 3, 1).reshape(h.shape[0], -1))
 

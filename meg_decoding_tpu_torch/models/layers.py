@@ -38,6 +38,7 @@ __all__ = [
     "SubjectLayers",
     "FusedBatchNorm",
     "commit_running_stats",
+    "set_data_parallel",
     "Conv1x1",
     "Conv1d",
     "ConvBlock",
@@ -151,7 +152,9 @@ class FusedBatchNorm(nn.Module):
     Training mode: batch statistics through ``batch_norm_train`` (biased
     variance, which ``nn.BatchNorm1d`` would not store), and the running
     update ``m·ra + (1 − m)·batch`` kept in ``proposed`` until
-    ``commit_running_stats`` writes it."""
+    ``commit_running_stats`` writes it.  With ``mesh`` set
+    (``set_data_parallel``, as ``SyncBatchNorm`` holds a process group) the
+    statistics are over every rank's batch."""
 
     def __init__(self, num_features: int, momentum: float = 0.99,
                  epsilon: float = 1e-5, dtype: torch.dtype | None = None,
@@ -167,11 +170,12 @@ class FusedBatchNorm(nn.Module):
         # (mean, var) running statistics of the last training forward, not
         # yet committed
         self.proposed: tuple[torch.Tensor, torch.Tensor] | None = None
+        self.mesh = None  # a core/mesh.py DataMesh: synced statistics
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             y, mean, var = batch_norm_train(x, self.scale, self.bias,
-                                            self.epsilon)
+                                            self.epsilon, self.mesh)
             m = self.momentum
             with torch.no_grad():
                 self.proposed = (m * self.mean + (1.0 - m) * mean,
@@ -195,6 +199,17 @@ def commit_running_stats(model: nn.Module, ok: torch.Tensor) -> None:
             mod.mean.copy_(torch.where(ok, new_mean, mod.mean))
             mod.var.copy_(torch.where(ok, new_var, mod.var))
             mod.proposed = None
+
+
+def set_data_parallel(model: nn.Module, mesh) -> nn.Module:
+    """Give the data-parallel mesh (None: one device again) to every
+    submodule of ``model`` that takes one: each ``FusedBatchNorm`` (synced
+    statistics) and EEGNet (dropout masks drawn over the global batch).
+    Returns the model."""
+    for mod in model.modules():
+        if hasattr(mod, "mesh"):
+            mod.mesh = mesh
+    return model
 
 
 def _torch_uniform_(t: torch.Tensor, fan_in: int,

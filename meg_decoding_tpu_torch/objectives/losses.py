@@ -19,6 +19,7 @@ from meg_decoding_tpu_torch.objectives.clip import _normalize
 __all__ = [
     "mse_loss",
     "same_label_loss",
+    "same_label_loss_sharded",
     "classification_logits",
     "clip_like_classification_loss",
     "smooth_category_targets",
@@ -43,6 +44,27 @@ def same_label_loss(Z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     mask = (labels[:, None] == labels[None, :]) & ~eye
     d2 = ((Z[:, None, :] - Z[None, :, :]) ** 2).mean(dim=-1)  # (B, B)
     count = torch.clamp(mask.sum(), min=1)
+    return torch.where(mask, d2, torch.zeros_like(d2)).sum() / count
+
+
+def same_label_loss_sharded(Z_local: torch.Tensor, labels_local: torch.Tensor,
+                            mesh) -> torch.Tensor:
+    """This rank's share of ``same_label_loss`` over the global batch of a
+    data-parallel ``mesh``: the pairs whose first member is one of this
+    rank's rows, against every row of every rank (Z all-gathered with
+    autograd), over the global count of equal-label pairs.  The shares
+    sum to the global loss."""
+    b = Z_local.shape[0]
+    Zf = Z_local.reshape(b, -1)
+    Z_all = mesh.all_gather(Zf)
+    labels_all = mesh.all_gather(labels_local)
+    B = labels_all.shape[0]
+    rows = mesh.rank * b + torch.arange(b, device=Zf.device)
+    not_self = rows[:, None] != torch.arange(B, device=Zf.device)[None, :]
+    mask = (labels_local[:, None] == labels_all[None, :]) & not_self
+    count = torch.clamp((labels_all[:, None] == labels_all[None, :]).sum() - B,
+                        min=1)
+    d2 = ((Zf[:, None, :] - Z_all[None, :, :]) ** 2).mean(dim=-1)  # (b, B)
     return torch.where(mask, d2, torch.zeros_like(d2)).sum() / count
 
 

@@ -13,13 +13,20 @@ The port's activations are NCW ``(B, C, T)``, so the channel is dim 1 and
 the sums run over dims 0 and 2 (the JAX kernels take ``(M, C)`` with the
 channel last).  Inputs are f32 or bf16; the sums are f32.
 
-``bn_stats``, ``bn_bwd_stats`` and ``bn_bwd`` launch their kernel for a
+``bn_bwd_dx`` is that dx from sums and a count the caller gives: synced
+BatchNorm under data parallelism all-reduces ``bn_bwd_stats``'s sums over
+the ranks and takes dx from the global sums with M the global B·T
+(``ops/batchnorm.py``), where the fused ``bn_bwd`` cannot serve (its dx
+needs sums that are not yet global).
+
+``bn_stats``, ``bn_bwd_stats``, ``bn_bwd`` and ``bn_bwd_dx`` launch their kernel for a
 CUDA tensor and run the plain version only for a CPU tensor.  The plain
 versions are the ``'xla'`` branch math of the JAX package's ``_fwd_stats``
 / ``_bn_bwd``.  ``bn_bwd``'s launches count under ``"bn_bwd_stats"``: its
 kernel is the one that replaces the Pallas ``bn_bwd_stats`` on the train
 path.  ``sums_only_launches`` counts ``bn_bwd_stats``'s launches alone, so
-that a caller can tell the two apart.
+that a caller can tell the two apart; ``dx_launches`` counts
+``bn_bwd_dx``'s.
 """
 
 from __future__ import annotations
@@ -29,8 +36,8 @@ import ctypes
 import torch
 
 __all__ = ["bn_stats", "bn_stats_plain", "bn_bwd_stats", "bn_bwd_stats_plain",
-           "bn_bwd", "bn_bwd_plain", "launches", "sums_only_launches",
-           "reset_launches"]
+           "bn_bwd", "bn_bwd_plain", "bn_bwd_dx", "bn_bwd_dx_plain",
+           "launches", "sums_only_launches", "dx_launches", "reset_launches"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _I32_MAX = 2**31 - 1
@@ -39,13 +46,16 @@ _I32_MAX = 2**31 - 1
 launches = {"bn_stats": 0, "bn_bwd_stats": 0}
 # of launches["bn_bwd_stats"], those of bn_bwd_stats (the sums without dx)
 sums_only_launches = 0
+# launches of bn_bwd_dx (dx from given sums: synced BatchNorm)
+dx_launches = 0
 
 
 def reset_launches() -> None:
-    global sums_only_launches
+    global sums_only_launches, dx_launches
     for k in launches:
         launches[k] = 0
     sums_only_launches = 0
+    dx_launches = 0
 
 
 def bn_stats_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -72,7 +82,20 @@ def bn_bwd_plain(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
     x's dtype computed in f32, the sums (C,) f32.  gmean and gvar are the
     cotangents of the batch mean and variance, or None."""
     sg, sgx = bn_bwd_stats_plain(g, x, mean, invstd)
-    M = x.numel() // x.shape[1]
+    dx = bn_bwd_dx_plain(g, x, scale, mean, invstd, torch.stack([sg, sgx]),
+                         x.numel() // x.shape[1], gmean, gvar)
+    return dx, sg, sgx
+
+
+def bn_bwd_dx_plain(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
+                    mean: torch.Tensor, invstd: torch.Tensor,
+                    sums: torch.Tensor, M: int,
+                    gmean: torch.Tensor | None = None,
+                    gvar: torch.Tensor | None = None) -> torch.Tensor:
+    """dx of the BatchNorm backward from given sums (2, C) = [Σg, Σg·x̂]
+    over M values a channel (JAX's ``_bn_bwd``, ``:231-236``), in x's
+    dtype, computed in f32."""
+    sg, sgx = sums[0], sums[1]
     xc = x.to(torch.float32) - mean[:, None]
     xhat = xc * invstd[:, None]
     dx = (scale * invstd)[:, None] * (g.to(torch.float32) - (sg / M)[:, None]
@@ -81,10 +104,16 @@ def bn_bwd_plain(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
         dx = dx + gmean[:, None] / M
     if gvar is not None:
         dx = dx + gvar[:, None] * 2.0 * xc / M
-    return dx.to(x.dtype), sg, sgx
+    return dx.to(x.dtype)
 
 
-_N_PTR = {"bn_stats_launch": 2, "bn_bwd_stats_launch": 5, "bn_bwd_launch": 9}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "bn_stats_launch": [_P] * 2 + [_I] * 4 + [_P],
+    "bn_bwd_stats_launch": [_P] * 5 + [_I] * 4 + [_P],
+    "bn_bwd_launch": [_P] * 9 + [_I] * 4 + [_P],
+    "bn_bwd_dx_launch": [_P] * 9 + [_I] * 3 + [ctypes.c_float, _I, _P],
+}
 
 
 def _fn(name: str):
@@ -93,8 +122,7 @@ def _fn(name: str):
     fn = getattr(load_library("batchnorm_stats"), name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * _N_PTR[name] + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[name]
     return fn
 
 
@@ -202,3 +230,33 @@ def bn_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
         raise RuntimeError(f"bn_bwd kernel launch failed: CUDA error {err}")
     launches["bn_bwd_stats"] += 1
     return dx, out[0], out[1]
+
+
+def bn_bwd_dx(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
+              mean: torch.Tensor, invstd: torch.Tensor, sums: torch.Tensor,
+              M: int, gmean: torch.Tensor | None = None,
+              gvar: torch.Tensor | None = None) -> torch.Tensor:
+    """dx of the BatchNorm backward from given sums: g, x (B, C, T) of one
+    dtype (f32/bf16); scale, mean and invstd (C,) f32; ``sums`` (2, C) f32
+    = [Σg, Σg·x̂] over M values a channel (every rank's, all-reduced);
+    gmean and gvar (C,) f32 or None.  dx in x's dtype."""
+    global dx_launches
+    on_cpu = _check("bn_bwd_dx", x, g)
+    _check_channels("bn_bwd_dx", x, scale=scale, mean=mean, invstd=invstd,
+                    gmean=gmean, gvar=gvar, sums0=sums[0], sums1=sums[1])
+    if not M > 0:
+        raise ValueError(f"bn_bwd_dx: M must be positive, got {M}")
+    if on_cpu:
+        return bn_bwd_dx_plain(g, x, scale, mean, invstd, sums, M, gmean, gvar)
+    B, C, T = x.shape
+    vecs = [None if t is None else t.contiguous()
+            for t in (scale, mean, invstd, gmean, gvar, sums)]
+    dx = torch.empty_like(x)
+    err = _fn("bn_bwd_dx_launch")(
+        g.data_ptr(), x.data_ptr(), *map(_ptr, vecs), dx.data_ptr(), B, C, T,
+        float(M), int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bn_bwd_dx kernel launch failed: CUDA error {err}")
+    dx_launches += 1
+    return dx

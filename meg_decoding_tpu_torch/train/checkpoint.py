@@ -30,9 +30,15 @@ _LOAD_ERRORS = (RuntimeError, EOFError, OSError, pickle.UnpicklingError)
 
 
 class CheckpointManager:
-    def __init__(self, ckpt_dir: str):
+    """``writer=False``: restores only, and ``save`` writes nothing — every
+    data-parallel rank but 0 reads a resume and leaves the writing to
+    rank 0."""
+
+    def __init__(self, ckpt_dir: str, writer: bool = True):
         self.ckpt_dir = os.path.abspath(ckpt_dir)
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        self.writer = writer
+        if writer:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
 
     def _path(self, name: str) -> str:
         return os.path.join(self.ckpt_dir, name + ".pt")
@@ -41,6 +47,8 @@ class CheckpointManager:
         """Write ``<name>.new.pt`` fully, then rotate ``<name>.pt`` →
         ``<name>.old.pt`` and ``.new`` → ``<name>.pt``.  The previous
         complete checkpoint is never touched until the new one is on disk."""
+        if not self.writer:
+            return
         new, cur, old = (self._path(name + ".new"), self._path(name),
                          self._path(name + ".old"))
         with open(new, "wb") as f:

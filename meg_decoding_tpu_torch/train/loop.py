@@ -19,6 +19,14 @@ Every random draw of an epoch comes from a ``torch.Generator`` seeded from
 (seed, epoch, …), never from state carried across epochs, so a resumed run
 samples exactly the batches a continuous run would have.  Steps return
 device tensors; the host reads them once per epoch.
+
+Under data parallelism (JAX ``fit(shard_fn=, batch_multiple=)``) every rank
+runs this loop with the same seed, so it draws the same global batches;
+batch and test-pool sizes are rounded down to a multiple of the world
+size, a packed set's batch goes through ``shard_fn`` (this rank's rows),
+a pool shards itself, and a test set smaller than the world size is
+scored whole on every rank.  Rank 0 alone logs and writes checkpoints: the
+other ranks get no logger and a ``CheckpointManager(writer=False)``.
 """
 
 from __future__ import annotations
@@ -90,35 +98,61 @@ def _test_pool_starts(n: int, pool: int, sweep: bool) -> list[int]:
 
 
 def _eval_test_pools(cfg, test_set, eval_step, state, test_size: int,
-                     seed: int, epoch: int, with_labels: bool) -> dict:
+                     seed: int, epoch: int, with_labels: bool,
+                     shard_fn: Callable | None = None,
+                     sharded: bool | None = None) -> dict:
     """Epoch test pass: every pool of ``test_size`` segments of the shuffled
     test split is scored and the metrics averaged (``test_sweep: false``
     scores one pool, as the reference does).  A ``PackedDataset`` pool is a
-    plain gather; any other draws its sessions from a derived generator.
-    A host-resident pool's batch is copied to the state's device."""
+    plain gather (then ``shard_fn``'s rows of it); any other draws its
+    sessions from a derived generator (a session-sharded pool gives this
+    rank's rows itself).  A host-resident pool's batch is copied to the
+    state's device.  ``sharded`` (data parallelism only) tells the eval
+    step whether the batch is this rank's rows or the whole pool."""
     n = len(test_set)
     dev = state.step.device
     perm = torch.randperm(n, generator=derived_generator(seed, epoch, _TEST)).numpy()
     sweep = bool(cfg.get("test_sweep", True))
+    kw = {} if sharded is None else {"sharded": sharded}
     hist = []
     for j, s in enumerate(_test_pool_starts(n, test_size, sweep)):
         idx = perm[s:s + test_size]
         if isinstance(test_set, PackedDataset):
             batch = test_set.gather(idx)
+            if shard_fn is not None:
+                batch = shard_fn(batch)
         else:
             batch = test_set.gather(
                 idx, generator=derived_generator(seed, epoch, _TEST, j + 1))
         batch = to_device(batch, dev)
         labels = batch[3] if with_labels else None
-        m, _ = eval_step(*batch[:3], state.temp.detach(), labels)
+        m, _ = eval_step(*batch[:3], state.temp.detach(), labels, **kw)
         hist.append(m)
     return _mean_metrics(hist)
 
 
+def _round(n: int, multiple: int) -> int:
+    """``n`` rounded down to a multiple of ``multiple``, at least one."""
+    return max((n // multiple) * multiple, multiple)
+
+
+def _test_sharding(test_size: int, batch_multiple: int):
+    """``(test_size, sharded)``: the pool size rounded down to a multiple of
+    the world size, sharded; or, for a test set too small for that, the
+    pool whole on every rank (JAX ``train/loop.py:129-133``).  ``sharded``
+    is None on one device."""
+    if batch_multiple == 1:
+        return test_size, None
+    if test_size // batch_multiple > 0:
+        return (test_size // batch_multiple) * batch_multiple, True
+    return test_size, False
+
+
 def fit(cfg, train_set, test_set, state, train_step: Callable,
-        eval_step: Callable, logger: RunLogger,
+        eval_step: Callable, logger: RunLogger | None,
         ckpt: CheckpointManager | None = None, seed: int = 0,
-        start_epoch: int = 0, with_labels: bool = False):
+        start_epoch: int = 0, with_labels: bool = False,
+        shard_fn: Callable | None = None, batch_multiple: int = 1):
     """Run the training loop; returns ``(state, best_metrics)``.
 
     With a ``PackedDataset`` ``train_set`` (GOD), each batch is
@@ -140,12 +174,18 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
     batches reach the state's device through ``prefetch_to_device`` with
     ``cfg.prefetch`` batches in flight (2 by default; 0 copies each batch
     in the loop).  With ``cfg.profile_dir`` the train steps of epoch
-    ``cfg.profile_epoch`` (1 by default, as JAX) are traced into it."""
+    ``cfg.profile_epoch`` (1 by default, as JAX) are traced into it.
+
+    Data parallelism: ``batch_multiple`` is the world size (batch and pool
+    sizes are rounded down to multiples of it) and ``shard_fn`` takes this
+    rank's rows of a packed set's batch (a pool shards itself); ``logger``
+    is None on every rank but 0."""
     epochs = int(cfg.epochs)
-    batch_size = min(int(cfg.batch_size), len(train_set))
+    batch_size = _round(min(int(cfg.batch_size), len(train_set)), batch_multiple)
     use_sampler = bool(cfg.get("use_sampler", True))
     updates = int(cfg.get("updates", max(len(train_set) // batch_size, 1)))
-    test_size = min(len(test_set), int(cfg.get("test_size", batch_size)))
+    test_size, sharded = _test_sharding(
+        min(len(test_set), int(cfg.get("test_size", batch_size))), batch_multiple)
     best_top10, best_metrics = -1.0, {}
     timer = StepTimer()
     packed = isinstance(train_set, PackedDataset)
@@ -168,6 +208,8 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
                 with timer.phase("gather"):
                     if packed:
                         batch = train_set.gather(idx)[:4 if with_labels else 3]
+                        if shard_fn is not None:
+                            batch = shard_fn(batch)
                     else:
                         batch = train_set.gather(
                             idx, generator=derived_generator(
@@ -193,7 +235,7 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
         best_top10, best_metrics = _end_epoch(
             cfg, test_set, eval_step, state, test_size, seed, epoch,
             with_labels, tm, timer.means_ms(), logger, ckpt, best_top10,
-            best_metrics)
+            best_metrics, shard_fn if sharded else None, sharded)
         timer.reset()
 
     return state, best_metrics
@@ -201,8 +243,9 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
 
 def _end_epoch(cfg, test_set, eval_step, state, test_size: int, seed: int,
                epoch: int, with_labels: bool, tm: dict, extra: dict,
-               logger: RunLogger, ckpt: CheckpointManager | None,
-               best_top10: float, best_metrics: dict):
+               logger: RunLogger | None, ckpt: CheckpointManager | None,
+               best_top10: float, best_metrics: dict,
+               shard_fn: Callable | None = None, sharded: bool | None = None):
     """An epoch's end, in ``fit`` and ``fit_scan``: abort before the
     checkpoint when every step was skipped or the loss is not finite, else
     the test pools, the log row, model_last and (on a better test top-10)
@@ -222,12 +265,14 @@ def _end_epoch(cfg, test_set, eval_step, state, test_size: int, seed: int,
             f"{tm.get('loss')} — state NOT checkpointed; restore "
             "model_last and lower the learning rate")
     test_metrics = _eval_test_pools(cfg, test_set, eval_step, state,
-                                    test_size, seed, epoch, with_labels)
+                                    test_size, seed, epoch, with_labels,
+                                    shard_fn, sharded)
     em = {f"test_{k}": float(v) for k, v in test_metrics.items()}
     row = {"epoch": epoch, **{f"train_{k}": v for k, v in tm.items()},
            **em, **extra}
-    logger.log(row)
-    logger.summary(epoch, epochs, row)
+    if logger is not None:
+        logger.log(row)
+        logger.summary(epoch, epochs, row)
 
     improved = em.get("test_top10", -1.0) > best_top10
     if improved:
@@ -241,16 +286,20 @@ def _end_epoch(cfg, test_set, eval_step, state, test_size: int, seed: int,
 
 
 def fit_scan(cfg, train_set, test_set, state, scan_epoch: Callable,
-             eval_step: Callable, logger: RunLogger,
+             eval_step: Callable, logger: RunLogger | None,
              ckpt: CheckpointManager | None = None, seed: int = 0,
-             start_epoch: int = 0):
+             start_epoch: int = 0, batch_multiple: int = 1,
+             shard_fn: Callable | None = None):
     """Epoch driver over a whole-epoch form (``train/scan_loop.py``): one
     ``scan_epoch(state, generator)`` call an epoch, its generator on the
     state's device seeded from (seed, epoch), the metrics read once, then
     the test pools, the log and the checkpoints as in ``fit`` (and its
-    aborts).  Returns ``(state, best_metrics)``."""
+    aborts).  ``batch_multiple`` and ``shard_fn`` as in ``fit`` (the test
+    pools).  Returns ``(state, best_metrics)``."""
     epochs = int(cfg.epochs)
-    test_size = min(len(test_set), int(cfg.get("test_size", cfg.batch_size)))
+    test_size, sharded = _test_sharding(
+        min(len(test_set), int(cfg.get("test_size", cfg.batch_size))),
+        batch_multiple)
     dev = state.step.device
     best_top10, best_metrics = -1.0, {}
     for epoch in range(start_epoch, epochs):
@@ -259,14 +308,16 @@ def fit_scan(cfg, train_set, test_set, state, scan_epoch: Callable,
         tm = {k: float(v) for k, v in means.items()}
         best_top10, best_metrics = _end_epoch(
             cfg, test_set, eval_step, state, test_size, seed, epoch, False,
-            tm, {}, logger, ckpt, best_top10, best_metrics)
+            tm, {}, logger, ckpt, best_top10, best_metrics,
+            shard_fn if sharded else None, sharded)
     return state, best_metrics
 
 
-def steps_per_epoch(cfg, n_train: int) -> int:
+def steps_per_epoch(cfg, n_train: int, batch_multiple: int = 1) -> int:
     """Update steps per epoch, matching ``fit``'s batching: the fixed
-    ``updates`` with ``use_sampler``, else ``n_train // batch_size``."""
-    bs = max(min(int(cfg.batch_size), n_train), 1)
+    ``updates`` with ``use_sampler``, else ``n_train // batch_size`` (the
+    batch rounded down to a multiple of ``batch_multiple``)."""
+    bs = _round(max(min(int(cfg.batch_size), n_train), 1), batch_multiple)
     if bool(cfg.get("use_sampler", True)):
         return int(cfg.get("updates", max(n_train // bs, 1)))
     return max(n_train // bs, 1)

@@ -379,7 +379,9 @@ def test_god_clis_refuse_unported_paths(god_setup, tmp_path):
     from meg_decoding_tpu_torch.cli import evaluate_god, train_god
 
     # host_resident and use_wandb are ported (tests/test_torch_port_spill.py)
-    with pytest.raises(NotImplementedError, match="multi-host"):
+    # data parallelism is ported (tests/test_torch_port_data_parallel.py);
+    # a distributed: block without its rendezvous keys is refused
+    with pytest.raises(ValueError, match="coordinator_address"):
         train_god.run(_cli_cfg(god_setup, tmp_path, epochs=1, distributed=True),
                       device="cpu")
     # error_analysis is ported (tests/test_torch_port_eval_analysis.py);

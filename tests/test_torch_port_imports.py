@@ -90,13 +90,16 @@ def test_every_module_imports_with_jax_blocked():
 def test_entry_points_refuse_cuda_without_a_gpu(monkeypatch, tmp_path):
     from meg_decoding_tpu_torch.cli import (
         build_gwilliams_cache,
+        create_image_features,
         evaluate_god,
         export_model,
+        kamitani_regression,
         main,
         serving_benchmark,
         train_god,
         train_speech,
     )
+    from meg_decoding_tpu_torch.kamitani import pipeline as kamitani
     from meg_decoding_tpu_torch.data.prefetch import prefetch_to_device
     from meg_decoding_tpu_torch.serving.export import load_artifact
     from meg_decoding_tpu_torch.cli.evaluate_speech import run
@@ -138,6 +141,11 @@ def test_entry_points_refuse_cuda_without_a_gpu(monkeypatch, tmp_path):
         lambda: serving_benchmark.main(["--batches", "1"]),
         lambda: load_artifact(str(tmp_path)),
         lambda: prefetch_to_device(iter([])),
+        lambda: kamitani_regression.run(god_cfg),
+        lambda: kamitani_regression.main([f"data_root={tmp_path}"]),
+        lambda: kamitani.feature_prediction(np.zeros((4, 3)), np.zeros((4, 2)),
+                                            np.zeros((2, 3)), np.zeros((2, 2))),
+        lambda: create_image_features.main([str(tmp_path), str(tmp_path / "f.npy")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

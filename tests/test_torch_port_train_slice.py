@@ -316,7 +316,9 @@ def test_train_cli_refuses_unported_paths(train_setup, tmp_path):
     from meg_decoding_tpu_torch.cli.train_speech import run
 
     # host_resident and use_wandb are ported (tests/test_torch_port_spill.py)
-    with pytest.raises(NotImplementedError, match="multi-host"):
+    # data parallelism is ported (tests/test_torch_port_data_parallel.py);
+    # a distributed: block without its rendezvous keys is refused
+    with pytest.raises(ValueError, match="coordinator_address"):
         run(_cli_cfg(train_setup, tmp_path, epochs=1, distributed=True),
             device="cpu")
     # Brennan without its embedding stream embeds the audio (wav2vec2);
