@@ -30,15 +30,15 @@ credentials are there, else to the JSONL alone (``utils/logging.py``).
 
 Data parallelism (JAX ``:61``, ``:88-91``, ``:121-170``): under a process
 group — a ``distributed:`` block, torchrun, or the processes this CLI
-starts itself when more than one GPU is visible (``--nproc N`` asks for N
-on any device) — every rank builds the whole GOD set (GOD-sized sets have
+starts itself, one a GPU, when more than one GPU is visible — every rank
+builds the whole GOD set (GOD-sized sets have
 nothing to shard) and trains on its rows of each global batch, per step
 or in the whole-epoch form (``parallel/dp.py``).  Rank 0 alone writes the
 log and the checkpoints.
 
 Run: ``python -m meg_decoding_tpu_torch.cli.train_god
 [--config-path configs] [--config-name config_GOD] [--device cuda]
-[--nproc N] key=value …``, or ``torchrun --nproc_per_node=N -m
+key=value …``, or ``torchrun --nproc_per_node=N -m
 meg_decoding_tpu_torch.cli.train_god …``.
 """
 
@@ -187,9 +187,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--config-path", default="configs")
     ap.add_argument("--config-name", default="config_GOD")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--nproc", type=int, default=0,
-                    help="start this many ranks of one group (default: one "
-                         "per GPU when more than one is visible)")
     ap.add_argument("overrides", nargs="*", help="key=value config overrides")
     args = ap.parse_args(argv)
     cfg = compose(args.config_path, args.config_name, args.overrides)

@@ -35,16 +35,16 @@ credentials are there, else to the JSONL alone (``utils/logging.py``).
 
 Data parallelism (JAX ``:261``, ``:295-357``, ``:419-443``): under a
 process group — a ``distributed:`` block, torchrun, or the processes this
-CLI starts itself when more than one GPU is visible (``--nproc N`` asks
-for N on any device) — every rank trains on its rows of each global batch
-(``parallel/dp.py``).  A Gwilliams split is built on the host and
+CLI starts itself, one a GPU, when more than one GPU is visible — every
+rank trains on its rows of each global batch (``parallel/dp.py``).  A
+Gwilliams split is built on the host and
 session-sharded onto the ranks (``shard_gwilliams_splits``); a spilled one
 stays on the host and replays the sharded run's session draw; Brennan is
 built whole on every rank and sharded by rows.  Rank 0 alone writes the
 log and the checkpoints; every rank reads a resume.
 
 Run: ``python -m meg_decoding_tpu_torch.cli.train_speech
-[--config-path configs] [--config-name config] [--device cuda] [--nproc N]
+[--config-path configs] [--config-name config] [--device cuda]
 key=value …``, or ``torchrun --nproc_per_node=N -m
 meg_decoding_tpu_torch.cli.train_speech …``.
 """
@@ -235,9 +235,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--config-path", default="configs")
     ap.add_argument("--config-name", default="config")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--nproc", type=int, default=0,
-                    help="start this many ranks of one group (default: one "
-                         "per GPU when more than one is visible)")
     ap.add_argument("overrides", nargs="*", help="key=value config overrides")
     args = ap.parse_args(argv)
     cfg = compose(args.config_path, args.config_name, args.overrides)

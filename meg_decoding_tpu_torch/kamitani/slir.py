@@ -12,7 +12,7 @@ batch of independent problems at once — JAX ``vmap``s it over the output
 units, here the units are a leading batch axis of every tensor.  Each
 iteration is a few batched matmuls and one batched pseudo-inverse on the
 device (``torch.linalg.pinv``, f32, with JAX's cutoff of 10·max(M, N)·eps
-relative to the largest singular value).  G + I is symmetric positive
+of the working type relative to the largest singular value).  G + I is symmetric positive
 definite, so a Cholesky solve is the same mathematics; the pinv follows
 JAX's rounding.  No Pallas kernel lies here: library linear algebra is the
 route on both sides.
@@ -30,13 +30,14 @@ __all__ = ["slir_fit", "slir_predict", "SparseLinearRegression"]
 
 def _pinv(a: torch.Tensor) -> torch.Tensor:
     n = max(a.shape[-2:])
-    return torch.linalg.pinv(a, rtol=10.0 * n * float(np.finfo(np.float32).eps))
+    return torch.linalg.pinv(a, rtol=10.0 * n * torch.finfo(a.dtype).eps)
 
 
 @torch.no_grad()
 def slir_fit(X, Y, n_iter: int = 200, minval: float = 1e-15,
              prune_mode: int = 1, prune_threshold: float = 1e-10,
-             device: str | torch.device | None = None):
+             device: str | torch.device | None = None,
+             dtype: torch.dtype = torch.float32):
     """ARD regression with masked pruning.
 
     X: (…, N, D) features; Y: (…, N, L) targets (tensors or numpy; the
@@ -46,13 +47,15 @@ def slir_fit(X, Y, n_iter: int = 200, minval: float = 1e-15,
     persistent mask (dimensions whose relative alpha, or relative weight
     for ``prune_mode`` 2, falls to ``prune_threshold`` are frozen out;
     ``prune_mode`` 0 prunes nothing).  The primal (D×D) branch when
-    N ≥ D, the dual (N×N, Woodbury) branch when N < D."""
+    N ≥ D, the dual (N×N, Woodbury) branch when N < D.  ``dtype`` is the
+    working precision: float32 as JAX's fit, float64 for a reference run
+    without its rounding."""
     dev = resolve_device(device) if device is not None else (
         X.device if torch.is_tensor(X) else torch.device("cpu"))
     X = torch.as_tensor(np.asarray(X) if not torch.is_tensor(X) else X,
-                        dtype=torch.float32, device=dev).transpose(-1, -2)
+                        dtype=dtype, device=dev).transpose(-1, -2)
     Y = torch.as_tensor(np.asarray(Y) if not torch.is_tensor(Y) else Y,
-                        dtype=torch.float32, device=dev).transpose(-1, -2)
+                        dtype=dtype, device=dev).transpose(-1, -2)
     D, N = X.shape[-2:]
     L = Y.shape[-2]
     Xt = X.transpose(-1, -2)                                  # (…, N, D)
@@ -66,7 +69,7 @@ def slir_fit(X, Y, n_iter: int = 200, minval: float = 1e-15,
     sumYY = (Y * Y).sum(dim=(-1, -2))
     use_dual = N < D
     XXT = None if use_dual else X @ Xt                        # (…, D, D)
-    eye = torch.eye(N if use_dual else D, device=dev)
+    eye = torch.eye(N if use_dual else D, dtype=dtype, device=dev)
 
     def solve(Am):
         """Posterior weights and gains for prior variances Am (pruned

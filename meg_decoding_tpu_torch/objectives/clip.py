@@ -114,11 +114,14 @@ def _metrics(mesh, share: torch.Tensor, hits: dict, b_global: int) -> dict:
             **{k: buf[1 + i] / b_global for i, k in enumerate(keys)}}
 
 
-def clip_loss_local_rows(x_local, y_local, temp, mesh, reduction: str = "mean",
-                         top_ks=None, impl: str = "factored"):
-    """This rank's share of the sharded CLIP loss (JAX
-    ``clip_loss_local_rows``).  x_local, y_local: (B_local, …), the same
-    B_local on every rank; ``mesh`` a ``core/mesh.py:DataMesh``.
+def clip_loss_sharded(x_local, y_local, temp, mesh, reduction: str = "mean",
+                      top_ks=None, impl: str = "factored"):
+    """This rank's share of the CLIP loss over a batch split across the
+    ranks of ``mesh`` (JAX ``clip_loss_sharded``, which wraps
+    ``clip_loss_local_rows`` in ``shard_map``; here every process already
+    holds its own rows, so the two are one function).  x_local, y_local:
+    (B_local, …), the same B_local on every rank; ``mesh`` a
+    ``core/mesh.py:DataMesh``.
 
     Returns the share, differentiable wrt x_local, y_local (through the
     all-gather of y) and temp; with ``top_ks`` (e.g. (1, 10)),
@@ -163,11 +166,14 @@ def clip_loss_local_rows(x_local, y_local, temp, mesh, reduction: str = "mean",
     return share, _metrics(mesh, share, hits, b_local * n)
 
 
+clip_loss_local_rows = clip_loss_sharded  # JAX's name for the per-shard body
+
+
 def clip_loss_local_rows_gathered(x_local, y_local, temp, mesh,
                                   reduction: str = "mean"):
     """The both-gather variant (all-gather x AND y, two (B_local,
     B_global) matmuls), kept as the comparison baseline of
-    ``clip_loss_local_rows``; returns this rank's share."""
+    ``clip_loss_sharded``; returns this rank's share."""
     n, b_local = mesh.world_size, x_local.shape[0]
     x_local = _normalize(x_local.reshape(b_local, -1))
     y_local = _normalize(y_local.reshape(b_local, -1))
@@ -184,13 +190,3 @@ def clip_loss_local_rows_gathered(x_local, y_local, temp, mesh,
     if reduction == "mean":
         share = share / (b_local * n)
     return share
-
-
-def clip_loss_sharded(x_local, y_local, temp, mesh, reduction: str = "mean",
-                      top_ks=None, impl: str = "factored"):
-    """The CLIP loss over a batch split across the ranks of ``mesh`` (JAX
-    ``clip_loss_sharded``, which wraps ``clip_loss_local_rows`` in
-    ``shard_map``; here every process already holds its own rows, so it is
-    ``clip_loss_local_rows``).  B must divide the world size."""
-    return clip_loss_local_rows(x_local, y_local, temp, mesh,
-                                reduction=reduction, top_ks=top_ks, impl=impl)

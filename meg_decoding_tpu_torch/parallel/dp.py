@@ -185,13 +185,13 @@ def finish_distributed() -> None:
 
 def run_cli(module: str, args, cfg, run):
     """A train CLI's main after parsing (``args``: config_path,
-    config_name, device, nproc, overrides): start ``args.nproc`` ranks of
-    ``python -m module`` (or one a GPU, ``wants_launch``) unless the config
-    already names a group, else ``run(cfg, device=…)`` here and leave the
-    group after it.  Returns run's result ({} for the launching
-    process); a failed rank's exit code ends the launcher."""
-    nproc = args.nproc or wants_launch(cfg, args.device)
-    if nproc and not cfg.get("distributed"):
+    config_name, device, overrides): start one rank of ``python -m
+    module`` a GPU when ``wants_launch`` says so, else ``run(cfg,
+    device=…)`` here and leave the group after it.  Returns run's result
+    ({} for the launching process); a failed rank's exit code ends the
+    launcher."""
+    nproc = wants_launch(cfg, args.device)
+    if nproc:
         rc = launch_ranks(module, ["--config-path", args.config_path,
                                    "--config-name", args.config_name,
                                    "--device", args.device, *args.overrides],

@@ -429,25 +429,35 @@ def test_train_cli_scan_epochs_resume_in_the_group(dp):
         np.testing.assert_array_equal(v, r1["state"][k], err_msg=k)
 
 
-def test_train_speech_nproc_launches_one_group(train_setup, tmp_path):
-    """``--nproc 2`` starts two ranks of one group (the CLI's own launch,
-    as it does for more than one visible GPU): one log row an epoch, a
-    checkpoint, exit 0."""
+def test_train_speech_nproc_launches_one_group(train_setup, tmp_path, monkeypatch):
+    """The CLI's own launch, as it starts one rank a GPU when more than
+    one is visible (``wants_launch`` made to say 2 here, on the CPU): two
+    ranks of one group, one log row an epoch, a checkpoint, and nothing
+    trained in the launching process."""
     import yaml
 
+    from meg_decoding_tpu_torch.cli import train_speech
     from meg_decoding_tpu_torch.core.config import to_dict
+    from meg_decoding_tpu_torch.parallel import dp as dp_mod
 
     cfg = to_dict(_cli_cfg(train_setup, tmp_path, epochs=1, run_name="np",
                            test_size=4))
     with open(tmp_path / "dp.yaml", "w") as f:
         yaml.safe_dump(cfg, f)
-    env = {**os.environ, "OMP_NUM_THREADS": "1"}
-    proc = subprocess.run(
-        [sys.executable, "-m", "meg_decoding_tpu_torch.cli.train_speech",
-         "--device", "cpu", "--nproc", "2", "--config-path", str(tmp_path),
-         "--config-name", "dp"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=DEADLINE_S)
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    launch = dp_mod.launch_ranks
+    calls = []
+
+    def launch_with_deadline(module, argv, n):
+        calls.append(n)
+        return launch(module, argv, n, timeout_s=DEADLINE_S)
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.chdir(ROOT)
+    monkeypatch.setattr(dp_mod, "wants_launch", lambda cfg, device: 2)
+    monkeypatch.setattr(dp_mod, "launch_ranks", launch_with_deadline)
+    assert train_speech.main(["--device", "cpu", "--config-path", str(tmp_path),
+                              "--config-name", "dp"]) == {}
+    assert calls == [2]
     with open(tmp_path / "out" / "runs" / "np" / "metrics.jsonl") as f:
         assert len(f.readlines()) == 1
     assert (tmp_path / "out" / "ckpt" / "model_last.pt").exists()

@@ -22,6 +22,16 @@ Tolerances, each with its reason:
   after 200 iterations differs between the packages by percents (measured
   up to 46× at one of 12 seeds and modes), on the CPU alike; the pruning
   decisions agree;
+* ``slir_fit``, dual branch in float64 (JAX's source with its working
+  type read as float64, under x64; the port with ``dtype=float64``), the
+  witness that the f32 gap is rounding: after 1 / 20 / 200 iterations the
+  masks exactly, W within 1e-11 / 1e-7 / 1e-4 of max|W|, A within 1e-11 /
+  1e-5 / 1e-2 of max A, SY rtol 1e-11 / 1e-5 / 1e-2.  Measured at these
+  inputs: 1e-13 after one iteration, ≤ 1e-9 / 3e-7 / 3e-7 after 20,
+  ≤ 8e-6 / 2.5e-3 / 1.9e-3 after 200 — the gap grows from the last bit
+  at the rate of the iteration's own sensitivity (moving one entry of X
+  by one ulp moves the port's own result by 6e-7 / 1e-4 / 1.4e-3 after
+  200 iterations at ``prune_mode`` 0);
 * the pipeline's predictions rtol 1e-3 (as W); the category-wise rates and
   the CLI's accuracy exactly (they count comparisons, and no correlation
   lies within rounding of another).
@@ -110,6 +120,49 @@ def test_slir_fit_matches_jax(branch, prune_mode):
                                    atol=1e-3 * np.abs(jW1).max())
     if prune_mode > 0:  # the irrelevant features are pruned
         assert 0 < int(got[3].sum()) < D
+
+
+def _jax_slir_fit_f64():
+    """JAX's ``slir_fit`` with float64 as its working type: the module's
+    source with ``jnp.float32`` read as ``jnp.float64``, to be called
+    under ``jax.enable_x64`` (the package itself is not touched)."""
+    import inspect
+    import types
+
+    from meg_decoding_tpu.kamitani import slir as jslir
+
+    src = inspect.getsource(jslir).replace("jnp.float32", "jnp.float64")
+    mod = types.ModuleType("slir_float64")
+    exec(compile(src, jslir.__file__, "exec"), mod.__dict__)
+    return mod.slir_fit
+
+
+@pytest.mark.parametrize("prune_mode", [0, 1, 2])
+def test_slir_fit_dual_branch_matches_jax_in_float64(prune_mode):
+    import jax
+
+    from meg_decoding_tpu_torch.kamitani.slir import slir_fit
+
+    jfit = _jax_slir_fit_f64()
+    X, Y = (a.astype(np.float64) for a in _sparse_problem(14, 30, 2, seed=3))
+    for n_iter, w_tol, a_tol, sy_tol in ((1, 1e-11, 1e-11, 1e-11),
+                                         (20, 1e-7, 1e-5, 1e-5),
+                                         (200, 1e-4, 1e-2, 1e-2)):
+        with jax.enable_x64(True):
+            want = [np.asarray(t) for t in jfit(X, Y, n_iter=n_iter,
+                                                prune_mode=prune_mode)]
+        got = [t.numpy() for t in slir_fit(X, Y, n_iter=n_iter,
+                                           prune_mode=prune_mode, device="cpu",
+                                           dtype=torch.float64)]
+        (W, A, SY, mask), (jW, jA, jSY, jmask) = got, want
+        msg = f"n_iter={n_iter}"
+        assert W.dtype == jW.dtype == np.float64, msg
+        np.testing.assert_array_equal(mask, jmask, err_msg=msg)
+        np.testing.assert_allclose(W, jW, rtol=0, atol=w_tol * np.abs(jW).max(),
+                                   err_msg=msg)
+        np.testing.assert_allclose(A, jA, rtol=0, atol=a_tol * np.abs(jA).max(),
+                                   err_msg=msg)
+        np.testing.assert_allclose(SY, jSY, rtol=sy_tol, err_msg=msg)
 
 
 def test_slir_fit_batched_over_units_matches_jax_vmap():
