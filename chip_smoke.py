@@ -35,9 +35,13 @@ Phases, each printed as one JSON line:
               before each) of the kernel, the plain version and one PyTorch
               library call where there is one, and the kernel's device time
               per call in a run of 64 back-to-back calls on inputs cold in
-              the L2 (``run_ms``).  The Pallas ``bn_bwd_stats`` row is the
-              train path's kernel, ``bn_bwd`` (sums and dx in one launch);
-              its sums alone (``bn_bwd_stats``) are timed beside it;
+              the L2 (``run_ms``), and the host's time a call of the
+              kernel's wrapper and of the library call (``host_us``).  The
+              Pallas ``bn_bwd_stats`` row is the train path's kernel,
+              ``bn_bwd`` (sums and dx in one launch); its sums alone
+              (``bn_bwd_stats``) are timed beside it.  ``bn_stats`` names
+              its route (per_channel, cluster, short) in each row, and runs
+              each route on a grid of shapes (``bn_stats_routes``);
 4. serving  — a synthetic 27-subject cache, 4 requests of 64 raw windows
               through ``serving/forward.py`` (Z checked finite, of shape
               (64, 1024, 360), and against the same model on the CPU), then
@@ -202,11 +206,13 @@ Phases, each printed as one JSON line:
               launches (``bn_bwd_stats``'s sums alone and ``bn_bwd_dx``
               once per BN layer a step), both forms under torch.profiler
               (wall and kernel ms a step, the collectives a step and the
-              NCCL kernels' device time), the split BN backward's dx
-              against the fused ``bn_bwd``'s and ``bn_bwd_dx`` against
-              its plain version (timed at (64, 320, 360) and
-              (64, 320, 24), f32 and bf16); then the speech train CLI for
-              one epoch with a ``distributed:`` block of one process;
+              NCCL kernels' device time), the loose entries by tensor
+              (count, share, |g| beside the tensor's, |Δg|/|g|), the split
+              BN backward's dx bit-identical to the fused ``bn_bwd``'s and
+              ``bn_bwd_dx`` against its plain version (timed, with its host
+              time beside the library's, at (64, 320, 360) and (64, 320,
+              24), f32 and bf16); then the speech train CLI for one epoch
+              with a ``distributed:`` block of one process;
     kamitani — the Kamitani baseline on the GOD set: the CLI's ``run``
               (SCP time-mean, 512 units, 22 channels, 200 iterations),
               then ``feature_prediction`` card against CPU (rates equal,
@@ -231,7 +237,9 @@ and spill paths each run with
 every launch count set to 0 just before and read just after; the run fails
 unless each kernel launched on the speech paths and on the GOD paths, every
 kernel on each preset, scan, model-zoo, unfused and training entry-point
-path, the long-row path on each Brennan build and CLI (with and without
+path, ``bn_stats``' per_channel route on the speech and GOD training
+paths, its cluster route on EEGNet's and its short route on
+Seq2Static's, the long-row path on each Brennan build and CLI (with and without
 the embedding), the BN kernels in Brennan training, the gather and the
 percentiles on each GOD evaluation, the percentiles on each artifact,
 export and import path, and the percentiles and BN kernels on both spill
@@ -337,6 +345,19 @@ PRESETS = ("throughput", "throughput_exact")  # configs/*.yaml, as published
 PRESET_UPDATES, PRESET_STEPS = 4, 6
 SCAN_UPDATES = 4
 EEGNET_BN = 3              # bn1, bn2, bn3
+# the run_ms in µs that PERF.md §6 records for the kernels these replaced
+# (one CTA per channel for bn_stats, the first bn_bwd_dx; NVIDIA H100 80GB
+# HBM3, 700 W), printed beside this run's
+PARENT_RUN_US = {
+    ("bn_stats", (64, 320, 360), "torch.float32"): "13.1-13.5",
+    ("bn_stats", (64, 320, 24), "torch.float32"): "3.9-4.0",
+    ("bn_stats", (64, 16, 528), "torch.float32"): "7.3-7.5",
+    ("bn_stats", (256, 320, 360), "torch.bfloat16"): "23.5-24.3",
+    ("bn_bwd_dx", (64, 320, 360), "torch.float32"): "33.9-34.5",
+    ("bn_bwd_dx", (64, 320, 360), "torch.bfloat16"): "17.4-17.6",
+    ("bn_bwd_dx", (64, 320, 24), "torch.float32"): "4.6-4.7",
+    ("bn_bwd_dx", (64, 320, 24), "torch.bfloat16"): "3.8-4.0",
+}
 
 
 def emit(obj) -> None:
@@ -347,19 +368,27 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 30) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs, the L2 cache
     flushed (a 256 MB memset) before each so every run reads cold.  A time
     of one launch: it includes the launch and the events themselves."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    return time_ms_turns([fn], flush, reps)[0]
+
+
+def time_ms_turns(fns, flush: torch.Tensor, reps: int = 30) -> list:
+    """``time_ms`` of each of ``fns``, their runs taken in turns (a, b, a,
+    b, …) so that each sees the card and the host in the same state."""
+    for fn in fns:
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, ts in zip(fns, times):
+            flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end))
+    return [float(np.median(ts)) for ts in times]
 
 
 def run_ms(fns, n: int = 64, reps: int = 5) -> float:
@@ -388,6 +417,25 @@ def run_ms(fns, n: int = 64, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / n)
     return float(np.median(times))
+
+
+def host_us(fn, n: int = 1000, batch: int = 100) -> float:
+    """Host time per call of ``fn`` in µs: the host clock over ``n``
+    back-to-back calls with no synchronise among them, divided by ``n``.
+    The calls go in batches of ``batch``, each queued behind a sleep kernel
+    longer than the batch takes to queue, so that the device never holds
+    the host back (the synchronise between batches is not timed)."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(n // batch):
+        torch.cuda._sleep(4 * 10**7)  # >= 20 ms at <= 2 GHz
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / (n // batch * batch) * 1e6
 
 
 def copies(x: torch.Tensor, nbytes: int) -> list:
@@ -626,7 +674,8 @@ def bn_check(x: torch.Tensor, g: torch.Tensor, cotangents: bool = False) -> dict
     twice and the two launches bit-identical (no atomics): the statistics
     per channel |kernel − plain| ≤ 1e-5·Σ|term| (f32 sums taken in another
     order); bn_bwd's dx within ``bn_bwd_check``'s bound, with the mean and
-    var cotangents when ``cotangents``."""
+    var cotangents when ``cotangents``, and ``bn_bwd_dx`` from bn_bwd's
+    sums equal to its dx bit for bit."""
     shape = tuple(x.shape)
     C = x.shape[1]
     M = x.numel() // C
@@ -667,6 +716,12 @@ def bn_check(x: torch.Tensor, g: torch.Tensor, cotangents: bool = False) -> dict
     if not (torch.equal(dx.view(bits), dx2.view(bits)) and torch.equal(sg, sg2)
             and torch.equal(sgx, sgx2)):
         raise AssertionError(f"bn_bwd {shape} {x.dtype}: two launches differ")
+    # bn_bwd_dx from the fused kernel's own sums: its dx bit for bit
+    split = bk.bn_bwd_dx(g, x, scale, mean, invstd, torch.stack([sg, sgx]), M,
+                         *cots)
+    if not torch.equal(split.view(bits), dx.view(bits)):
+        raise AssertionError(f"bn_bwd_dx {shape} {x.dtype}: not the fused "
+                             "bn_bwd's dx")
     for k, v in bn_bwd_check(g, x, scale, mean, invstd, bwd[0],
                              bk.bn_bwd_plain(g, x, scale, mean, invstd, *cots),
                              f"bn_bwd {shape} {x.dtype}").items():
@@ -717,14 +772,19 @@ def bn_rows(x, g, flush, phase: str) -> dict:
     lib_bwd = library_time(lambda: torch.ops.aten.native_batch_norm_backward(
         g, x, scale, None, None, mean, invstd, True, 1e-5,
         [True, True, True]), flush)
+    var_mean = lambda: torch.var_mean(x, dim=(0, 2), correction=0)
+    route = bk._bn_stats_route(x)[2]
     rows = {
         "bn_stats": {
+            "stats_route": route,
             "max_abs_err": max(err["sum_x"], err["sum_x2"]),
             "kernel_ms": time_ms(lambda: bk.bn_stats(x), flush),
             "run_ms": run_ms([lambda x=x: bk.bn_stats(x) for x in xs]),
+            "host_us": host_us(lambda: bk.bn_stats(x)),
             "plain_ms": time_ms(lambda: bk.bn_stats_plain(x), flush),
-            "library_ms": time_ms(lambda: torch.var_mean(
-                x, dim=(0, 2), correction=0), flush),
+            "library_ms": time_ms(var_mean, flush),
+            "library_host_us": host_us(var_mean),
+            "parent_run_us": PARENT_RUN_US.get(("bn_stats", tuple(x.shape), str(dtype))),
             "library_batch_norm_stats_ms": lib_stats[0],
             "library_batch_norm_stats_refused": lib_stats[1],
             "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]},
@@ -762,13 +822,76 @@ def bn_rows(x, g, flush, phase: str) -> dict:
     return rows
 
 
+STATS_GRID_C = (1, 7, 16, 21, 32, 131, 133, 263, 264, D2)
+STATS_GRID_T = (24, 37, 528)
+
+
+def bn_stats_routes() -> dict:
+    """``bn_stats`` on each of its routes at every shape of a grid: B = 64,
+    C of STATS_GRID_C (the route rule's bounds at 132 and 264 channels on
+    an H100 among them), T of STATS_GRID_T (short, unaligned and long
+    rows), f32 and bf16, then bases one element past a 16-byte boundary
+    and the speech step's (64, 320, 360).  Every route forced in turn: two
+    launches bit-identical, each sum within 1e-5 of Σ|term| of the plain
+    version; the launcher's own pick bit-identical to its route forced;
+    at the speech step's shape the pick is per_channel, the parent's
+    kernel and launch unchanged.  Returns the pick by shape and the
+    largest error of each route."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dtypes = (torch.float32, torch.bfloat16)
+    cases = [(Cc, T, dt, 0) for Cc in STATS_GRID_C for T in STATS_GRID_T
+             for dt in dtypes]
+    cases += [(Cc, T, dt, 1) for Cc in (16, D2) for T in (24, 528)
+              for dt in dtypes]
+    cases += [(D2, 360, dt, 0) for dt in dtypes]
+    picks, worst = {}, dict.fromkeys(bk.STATS_ROUTES, 0.0)
+    for Cc, T, dtype, offset in cases:
+        x, _ = bn_inputs(gen, BATCH, Cc, T, dtype, offset)
+        what = f"{BATCH}x{Cc}x{T} {dtype}" + (" base+1" if offset else "")
+        xf = x.float()
+        want = bk.bn_stats_plain(x)
+        tol = (1e-5 * xf.abs().sum((0, 2)), 1e-5 * (xf * xf).sum((0, 2)))
+        got = {}
+        for route in bk.STATS_ROUTES:
+            a, b = bk._bn_stats_route(x, route), bk._bn_stats_route(x, route)
+            torch.cuda.synchronize()
+            for k in range(2):
+                if not torch.equal(a[k], b[k]):
+                    raise AssertionError(f"bn_stats {route} {what}: two "
+                                         "launches differ")
+                d = (a[k] - want[k]).abs()
+                if not bool((d <= tol[k]).all()):
+                    raise AssertionError(f"bn_stats {route} {what}: off by "
+                                         f"{float((d / tol[k]).max())} of "
+                                         "its bound")
+                worst[route] = max(worst[route], float(d.max()))
+            got[route] = a
+        pick = bk._bn_stats_route(x)[2]
+        auto = bk.bn_stats(x)
+        if not all(torch.equal(auto[k], got[pick][k]) for k in range(2)):
+            raise AssertionError(f"bn_stats {what}: the launcher's pick "
+                                 f"{pick} differs from that route forced")
+        picks[what] = pick
+    for dtype in dtypes:
+        if picks[f"{BATCH}x{D2}x360 {dtype}"] != "per_channel":
+            raise AssertionError("bn_stats: the speech step's shape left the "
+                                 "per_channel route")
+    return {"picks": picks, "max_abs_err": worst,
+            "tolerance": "1e-5 of sum |term| per channel; bit-identical "
+                         "across two launches and to the route forced"}
+
+
 def phase_bn_kernels(flush) -> dict:
     """The BN kernels at the speech training step's shape (64, 320, 360) in
-    f32 and bf16, timed (``bn_rows``), and at shapes off the main paths."""
+    f32 and bf16, timed (``bn_rows``), ``bn_stats`` on each route across a
+    grid of shapes (``bn_stats_routes``), and the BN kernels at shapes off
+    the main paths."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     out = {str(dtype): bn_rows(*bn_inputs(gen, BATCH, D2, 360, dtype), flush,
                                "kernels")
            for dtype in (torch.float32, torch.bfloat16)}
+    out["routes"] = bn_stats_routes()
+    emit({"phase": "kernels", "kernel": "bn_stats", "routes": out["routes"]})
     # off the main paths' shapes: C of 21, T = 37 (rows not 16-byte
     # aligned: the element-wise loop), B·T below one CTA's thread count, a
     # base address 4 bytes past a 16-byte boundary, one channel, B = 65 (not
@@ -968,8 +1091,10 @@ def phase_training(cfg, ds, tr_idx, seed, work) -> dict:
                                              "test_loss", "test_top1",
                                              "test_top10")},
           "test_pools": pools, "launches": launches,
+          "bn_stats_routes": dict(bk.stats_route_launches),
           "bn_bwd_sums_only_launches": bk.sums_only_launches})
-    return {"launches": launches, "steady_step_ms": float(np.median(step_ms[1:]))}
+    return {"launches": launches, "stats_routes": dict(bk.stats_route_launches),
+            "steady_step_ms": float(np.median(step_ms[1:]))}
 
 
 GOD_EVAL_KEYS = {"val_top1", "val_top10", "zeroshot_top1", "zeroshot_top10",
@@ -1146,9 +1271,10 @@ def phase_god_training(cfg, ds, seed) -> dict:
               "train_loss", "train_skipped", "train_top1", "train_top10",
               "test_loss", "test_top1", "test_top10", "t_gather_ms",
               "t_step_ms")},
-          "launches": launches,
+          "launches": launches, "bn_stats_routes": dict(bk.stats_route_launches),
           "bn_bwd_sums_only_launches": bk.sums_only_launches})
-    return {"launches": launches, "steady_step_ms": float(np.median(step_ms[1:]))}
+    return {"launches": launches, "stats_routes": dict(bk.stats_route_launches),
+            "steady_step_ms": float(np.median(step_ms[1:]))}
 
 
 def phase_god_eval(cfg) -> dict:
@@ -1567,7 +1693,7 @@ def phase_model_zoo(god_cfg, god_ds, seed, flush) -> dict:
     generator, the same on both); then the BN kernels at EEGNet's three
     shapes and Seq2Static's five.  Returns each CLI's launch counts."""
     dev = torch.device("cuda")
-    launches_by_model, rows = {}, {}
+    launches_by_model, routes_by_model, rows = {}, {}, {}
     for name, window_end, n_bn in (("eegnet", None, EEGNET_BN),
                                    ("brain_endcoder_seq2static", 0.6, BN_PER_STEP)):
         zcfg = Config(to_dict(god_cfg))
@@ -1629,10 +1755,12 @@ def phase_model_zoo(god_cfg, god_ds, seed, flush) -> dict:
                 math.isfinite(best["train_loss"]) and math.isfinite(best["test_loss"])):
             raise AssertionError(f"{name} CLI: {best}")
         launches_by_model[name] = launches
+        routes_by_model[name] = dict(bk.stats_route_launches)
         emit({"phase": "model_zoo", "model": name, "T": int(ds.X.shape[2]),
               "card_vs_cpu": check, "rel_err_limit": 1e-4,
               "first_step_ms": first_ms, "train_cli_s": run_s,
               "updates": updates, "test_pools": pools, "launches": launches,
+              "bn_stats_routes": routes_by_model[name],
               "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
                                                  "test_loss", "test_top10",
                                                  "t_step_ms")}})
@@ -1649,7 +1777,27 @@ def phase_model_zoo(god_cfg, god_ds, seed, flush) -> dict:
                                      flush, "model_zoo")
     for Tt in (23, 11, 5, 2):
         bn_check(*bn_inputs(gen, BATCH, D2, Tt, torch.float32), cotangents=True)
-    return {"launches": launches_by_model, "bn": rows}
+    # bn_stats' short route against per_channel forced at the Seq2Static
+    # shapes that take it (T = 48, and the unaligned 23 and 11): device time
+    # a call in a run of each, the two routes' runs taken in turns, 3 times
+    short_vs = {}
+    for Tt in (48, 23, 11):
+        x, _ = bn_inputs(gen, BATCH, D2, Tt, torch.float32)
+        n = x.numel()
+        xs = copies(x, n * 4)
+        runs = {"per_channel": [], "short": []}
+        for _ in range(3):
+            for route, ts in runs.items():
+                ts.append(run_ms([lambda x=x, r=route: bk._bn_stats_route(x, r)
+                                  for x in xs]))
+        short_vs[f"{BATCH}x{D2}x{Tt}"] = {
+            "pick": bk._bn_stats_route(x)[2],
+            **{f"{route}_run_ms": ts for route, ts in runs.items()},
+            "bound_ms": bound(n * 4 + 2 * D2 * 4, 3 * n)[0]}
+    emit({"phase": "model_zoo", "kernel": "bn_stats",
+          "short_vs_per_channel": short_vs})
+    return {"launches": launches_by_model, "stats_routes": routes_by_model,
+            "bn": rows, "short_vs_per_channel": short_vs}
 
 
 # Brennan2018 at the scale of the real dataset: 33 usable subjects × 60
@@ -3038,6 +3186,7 @@ def dp_launches() -> dict:
 NOISE_ONLY = re.compile(r"conv\d+\.(conv[01]\.bias|bn[01]\.mean)$")
 NOISE_COLUMN = "spatial_attention.z_re"
 STATE_RTOL, STATE_ATOL = 1e-4, 1e-5
+LOOSE_WHOLE = 0.99  # a tensor this loose counts as loose as a whole
 GRAD_RTOL = 1e-4  # the first step's gradients, of each tensor's max |g|
 
 
@@ -3096,7 +3245,7 @@ def state_check(got: dict, want: dict, grads_got: list, grads_want: list,
         if first_at is None or share > first:
             first, first_at = share, k
     n_named = n_grad = strict_share = loose_share = max_abs = 0.0
-    bad = []
+    bad, loose = [], []
     for k, w in want.items():
         w, g = w.float(), got[k].float()
         d = (g - w).abs()
@@ -3104,8 +3253,15 @@ def state_check(got: dict, want: dict, grads_got: list, grads_want: list,
         named = by_name(k, d)
         noise = named.clone()
         if k in grads_want[0]:
+            at_first = None
             for gw, gg in zip(grads_want, grads_got):
                 noise |= gw[k].abs() < amp * (gg[k] - gw[k]).abs()
+                if at_first is None:
+                    at_first = noise & ~named
+            by_grad = noise & ~named
+            if bool(by_grad.any()):
+                loose.append(loose_entries(k, by_grad, at_first, grads_want,
+                                           grads_got))
         n_named += int(named.sum())
         n_grad += int((noise & ~named).sum())
         share = d / torch.where(noise, walk, STATE_RTOL * w.abs() + STATE_ATOL)
@@ -3122,7 +3278,37 @@ def state_check(got: dict, want: dict, grads_got: list, grads_want: list,
             "loose_by_name": int(n_named), "loose_by_gradient": int(n_grad),
             "params_max_abs_err": max_abs,
             "strict_max_share": strict_share, "loose_max_share": loose_share,
-            "off_bound": sorted(bad, reverse=True)[:8]}
+            "off_bound": sorted(bad, reverse=True)[:8],
+            "loose_by_tensor": sorted(loose, key=lambda r: -r["loose"]),
+            "whole_tensors_loose": [r["tensor"] for r in loose
+                                    if r["share"] >= LOOSE_WHOLE]}
+
+
+def loose_entries(k: str, sel: torch.Tensor, at_first: torch.Tensor,
+                  grads_want: list, grads_got: list) -> dict:
+    """Tensor ``k``'s entries that the gradient rule lets loose (``sel``):
+    their count and share of the tensor, how many were loose at the first
+    step already (both runs at one state: the computation's own rounding),
+    and their |g| at the first step (max, median) beside the tensor's, with
+    the runs' largest relative difference in g over the steps, |Δg|/|g|:
+    Adam turns that share into a step difference of about lr·|Δg|/|g|, so
+    entries whose |g| sits far below the tensor's typical one amplify
+    rounding; loose entries with the tensor's typical |g| do not."""
+    g0 = grads_want[0][k].float().abs()
+    rel = torch.zeros_like(g0)
+    for gw, gg in zip(grads_want, grads_got):
+        rel = torch.maximum(rel, (gg[k] - gw[k]).float().abs()
+                            / gw[k].float().abs().clamp_min(1e-30))
+    n = int(sel.sum())
+    return {"tensor": k, "loose": n, "share": n / sel.numel(),
+            "loose_at_first_step": int(at_first.sum()),
+            "loose_max_abs_g": float(g0[sel].max()),
+            "loose_median_abs_g": float(g0[sel].median()),
+            "tensor_max_abs_g": float(g0.max()),
+            "tensor_median_abs_g": float(g0.median()),
+            "loose_median_rel_dg": float(rel[sel].median()),
+            "other_median_rel_dg": (float(rel[~sel].median())
+                                    if bool((~sel).any()) else None)}
 
 
 def dp_vs_single(run_single, run_dp, lr: float) -> dict:
@@ -3223,9 +3409,12 @@ def profile_steps(step_fn, n: int = 3) -> dict:
 def bn_split_rows(mesh, B: int, T: int, flush) -> dict:
     """The synced BN backward's split route at (B, D2, T), f32 and bf16:
     the sums alone, the all-reduce, ``bn_bwd_dx`` from the global sums —
-    its dx against the fused ``bn_bwd``'s (``bn_bwd_check``'s bound) and
-    against its plain version on the same sums (≤ 1 ulp of the working
-    type, max abs error printed), timed with its bound."""
+    its dx bit-identical across two launches and to the fused ``bn_bwd``'s
+    (one rank: the same sums), within ``bn_bwd_check``'s bound of it, and
+    against its plain version on the same sums (a few f32 ulps of the
+    terms, max abs error printed); timed with its bound (its single launches
+    in turns with the library's), its host time a call beside the
+    library's."""
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         gen = torch.Generator(device="cuda").manual_seed(T)
@@ -3238,9 +3427,18 @@ def bn_split_rows(mesh, B: int, T: int, flush) -> dict:
         sg, sgx = bk.bn_bwd_stats(g, x, mean, invstd)
         sums = mesh.all_reduce_(torch.stack([sg, sgx]))
         dx = bk.bn_bwd_dx(g, x, scale, mean, invstd, sums, M)
+        again = bk.bn_bwd_dx(g, x, scale, mean, invstd, sums, M)
         fused = bk.bn_bwd(g, x, scale, mean, invstd)
         plain = bk.bn_bwd_dx_plain(g, x, scale, mean, invstd, sums, M)
         torch.cuda.synchronize()
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        # one rank: the global sums are the fused kernel's, and dx_of and
+        # dx_coef are one code, so the two dx agree bit for bit
+        if not (torch.equal(dx.view(bits), again.view(bits))
+                and torch.equal(dx.view(bits), fused[0].view(bits))):
+            raise AssertionError(f"bn_bwd_dx {dtype} {tuple(x.shape)}: not "
+                                 "bit-identical across two launches and to "
+                                 "the fused bn_bwd's dx")
         vs_fused = bn_bwd_check(g, x, scale, mean, invstd, (dx, sg, sgx), fused,
                                 f"split BN backward {dtype}")
         # the plain version on the card divides by M as a multiply by 1/M
@@ -3267,17 +3465,23 @@ def bn_split_rows(mesh, B: int, T: int, flush) -> dict:
         lib = lambda: torch.batch_norm_backward_elemt(
             g, x, mean, invstd, scale, sums[0], sum_dy_xmu, count)
         lib_diff = float((lib().float() - dx.float()).abs().max())
+        kernel_ms, library_ms = time_ms_turns([lambda: run(x), lib], flush)
         rows[str(dtype)] = {
-            "shape": [B, D2, T], "vs_fused_bn_bwd": vs_fused, "max_abs_err": err,
+            "shape": [B, D2, T], "vs_fused_bn_bwd": vs_fused,
+            "bit_identical_to_fused_dx": True, "max_abs_err": err,
             "tolerance": "4 f32 ulps of |scale·invstd|·(|g| + |Σg|/M + "
                          "|x̂|·|Σg·x̂|/M), + 1 bf16 ulp in bf16",
-            "kernel_ms": time_ms(lambda: run(x), flush),
+            "kernel_ms": kernel_ms,
             "run_ms": run_ms([lambda xx=xx: run(xx)
                               for xx in copies(x, 3 * x.numel() * x.element_size())]),
+            "host_us": host_us(lambda: run(x)),
             "plain_ms": time_ms(lambda: bk.bn_bwd_dx_plain(
                 g, x, scale, mean, invstd, sums, M), flush),
-            "library_ms": time_ms(lib, flush), "library_max_abs_diff": lib_diff,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "library_ms": library_ms, "library_host_us": host_us(lib),
+            "library_max_abs_diff": lib_diff,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "parent_run_us": PARENT_RUN_US.get(("bn_bwd_dx", (B, D2, T),
+                                                str(dtype)))}
     return rows
 
 
@@ -3643,7 +3847,8 @@ def main(argv=None) -> int:
 
         flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
         measured = phase_kernels(ds, flush)
-        bn = phase_bn_kernels(flush)[str(torch.float32)]
+        bn_all = phase_bn_kernels(flush)
+        bn = bn_all[str(torch.float32)]
         del flush
         lap("kernels")
         serving = phase_serving(cfg, ds, tr_idx, args.seed)
@@ -3774,6 +3979,24 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{name}: no launch on the {path} path")
     if kamitani["window_gather"] <= 0:
         raise AssertionError("window_gather: no launch on the kamitani path")
+    # bn_stats' routes on the paths that must take them: the speech step's
+    # (64, 320, 360) and GOD's (64, 320, 24) one CTA a channel, EEGNet's
+    # bn1 (64, 16, 528) the cluster route and its bn2/bn3 one CTA a
+    # channel, Seq2Static's T = 48 and unaligned T = 23 and 11 the short
+    # route
+    route_paths = {"training": (training["stats_routes"], ("per_channel",)),
+                   "god_training": (god_training["stats_routes"],
+                                    ("per_channel",)),
+                   "zoo_eegnet": (zoo["stats_routes"]["eegnet"],
+                                  ("cluster", "per_channel")),
+                   "zoo_brain_endcoder_seq2static": (
+                       zoo["stats_routes"]["brain_endcoder_seq2static"],
+                       ("short", "per_channel"))}
+    for path, (routes, needed) in route_paths.items():
+        for route in needed:
+            if routes[route] <= 0:
+                raise AssertionError(f"bn_stats {route}: no launch on the "
+                                     f"{path} path")
     paths = {"serving": serving, "training": training["launches"],
              "god_training": god_training["launches"], "god_eval": god_eval,
              **new_paths, **{k: v for k, (v, _) in brennan_paths.items()},
@@ -3803,7 +4026,8 @@ def main(argv=None) -> int:
           "steady_step_ms": god_training["steady_step_ms"],
           "share": god_per_step / god_training["steady_step_ms"]})
     at_god = lambda r: {k: r[k] for k in ("max_abs_err", "kernel_ms", "run_ms",
-                                          "plain_ms", "library_ms")}
+                                          "plain_ms", "library_ms",
+                                          "stats_route", "host_us") if k in r}
     god_rows = {
         "window_gather": dict(at_god(god["gather"]), shape=god["gather"]["shape"],
                               bound_ms=god["gather"]["bound_us"] / 1e3),
@@ -3816,7 +4040,8 @@ def main(argv=None) -> int:
     def at(r, shape):
         return {"shape": shape, "ms": r["kernel_ms"], "run_ms": r["run_ms"],
                 "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
-                "bound_ms": r["bound_ms"] if "bound_ms" in r else r["bound_us"] / 1e3}
+                "bound_ms": r["bound_ms"] if "bound_ms" in r else r["bound_us"] / 1e3,
+                **({"stats_route": r["stats_route"]} if "stats_route" in r else {})}
     cg, cq = presets["chunk_gather"], presets["chunk_quantiles"]
     bl = brennan_k["subject-wise"]
     more = {
@@ -3828,8 +4053,9 @@ def main(argv=None) -> int:
                   **{shape: at(rows[name], shape) for shape, rows in zoo["bn"].items()}}
            for name in ("bn_stats", "bn_bwd_stats")}}
     dx_row = dp_speech["split"][str(torch.float32)]
-    dx_keys = ("shape", "max_abs_err", "kernel_ms", "run_ms", "plain_ms",
-               "library_ms", "library_max_abs_diff", "bound_ms")
+    dx_keys = ("shape", "max_abs_err", "kernel_ms", "run_ms", "host_us",
+               "plain_ms", "library_ms", "library_host_us",
+               "library_max_abs_diff", "bound_ms")
     emit({"kernels": [
         {"name": "window_gather", "route": "cuda",
          "source": "meg_decoding_tpu_torch/csrc/window_gather.cu",
@@ -3880,9 +4106,14 @@ def main(argv=None) -> int:
            "bound_by": bn[name]["bound_by"],
            "library_ms": bn[name]["library_ms"],
            "god": god_rows[name], "more_shapes": more[name],
+           **({"stats_route": bn[name]["stats_route"],
+               "launches_by_route": {p: r for p, (r, _) in route_paths.items()},
+               "routes_grid_max_abs_err": bn_all["routes"]["max_abs_err"]}
+              if name == "bn_stats" else {}),
            **{k: bn[name][k] for k in extra}}
           for name, line, extra in (
-              ("bn_stats", 69, ("library_batch_norm_stats_ms",)),
+              ("bn_stats", 69, ("library_batch_norm_stats_ms", "host_us",
+                                "library_host_us")),
               # bn_bwd (sums and dx) above; its sums alone beside them
               ("bn_bwd_stats", 111, ("stats_only_ms", "stats_only_run_ms",
                                      "stats_only_library_ms")))),
@@ -3898,6 +4129,7 @@ def main(argv=None) -> int:
          "run_ms": dx_row["run_ms"], "plain_ms": dx_row["plain_ms"],
          "bound_ms": dx_row["bound_ms"], "bound_by": dx_row["bound_by"],
          "library_ms": dx_row["library_ms"], "shape": dx_row["shape"],
+         "host_us": dx_row["host_us"], "library_host_us": dx_row["library_host_us"],
          "god": {k: dp_god["split"][str(torch.float32)][k] for k in dx_keys},
          "more_shapes": {
              "bf16": {k: dp_speech["split"][str(torch.bfloat16)][k] for k in dx_keys},

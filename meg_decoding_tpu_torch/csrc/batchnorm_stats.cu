@@ -30,24 +30,47 @@
 //
 // The TPU kernels walk row blocks in order and carry the sums in a VMEM
 // output from one grid step to the next.  Hopper blocks run in no order, so
-// here one CTA owns one channel: in NCW a channel is B rows of T contiguous
-// values, which the CTA's threads stride over with 16-byte loads when every
-// row starts 16-byte aligned (T·sizeof(elem) % 16 == 0 and aligned bases),
-// else element by element.  A fixed-order reduction (warp shuffles, then the
-// warps' partial sums in shared memory, added by one thread in warp order)
-// finishes the sums: no atomics, so two launches on the same input give
-// bit-identical sums and dx.  Loads stop at the end of each row, so nothing
-// past the tensor is read and the TPU kernels' masking of padding rows has
-// no counterpart here.
+// here a channel's sums belong to one CTA or one thread-block cluster: in
+// NCW a channel is B rows of T contiguous values, which the threads stride
+// over with 16-byte loads when every row starts 16-byte aligned
+// (T·sizeof(elem) % 16 == 0 and aligned bases), else element by element.
+// A fixed-order reduction (warp shuffles, then the warps' partial sums in
+// shared memory, then a cluster's CTAs in rank order) finishes the sums: no
+// atomics, so two launches on the same input give bit-identical sums and
+// dx.  Loads stop at the end of each row, so nothing past the tensor is
+// read and the TPU kernels' masking of padding rows has no counterpart.
 //
-// Alternatives measured for bn_stats at (64, 320, 360) on an H100 SXM, all
-// slower there than one CTA per channel (PERF.md): a thread-block cluster
-// of 2, 4 or 8 CTAs per channel summed through distributed shared memory,
-// 1,280 plain CTAs, row-tiled walks, fewer threads per CTA, and 2 to 4
-// 16-byte loads in flight per thread.  The cluster split is faster only
-// with fewer channels than two CTAs per SM (C = 1 or 24), which no ported
-// model has (every ConvBlock's BN is 320 wide).
-//
+// bn_stats takes one of three routes, picked by stats_route from the
+// channel count C and a channel's n = B·T/V loads (V values a load, or one
+// element a load where rows are not 16-byte aligned), with the SM count
+// read once:
+// - cluster (n > kThreads·kStatsUnroll and C under two CTAs per SM, as
+//   EEGNet's bn1 (64, 16, 528), where one CTA per channel left 16 of 132
+//   SMs working): a thread-block cluster of k = 2…8 CTAs per channel, so
+//   that C·k CTAs cover the SMs; each thread keeps up to kStatsUnroll loads
+//   in flight, and each CTA writes its sums into rank 0's shared memory
+//   (distributed shared memory), which adds them in cluster-rank order.
+//   One launch, no float atomics.  Rank 0 reading the sums from the other
+//   CTAs' shared memory after a second barrier was slower.
+// - short (kThreads < n <= kThreads·kStatsUnroll, as Seq2Static's T = 48
+//   f32 and its unaligned T = 23 and 11): one CTA per channel as narrow as
+//   the channel needs, ⌈n / u⌉ threads rounded up to a warp for the least
+//   u loads a thread, all u in flight at once where one CTA of kThreads
+//   would take them one after another.
+// - per_channel (every other shape: the speech step's (64, 320, 360) f32
+//   and bf16, the presets' (256, 320, 360) bf16, GOD's (64, 320, 24) and
+//   EEGNet's bn2/bn3, n <= kThreads): one CTA of kThreads per channel, one
+//   load in flight per thread.  Measured slower than it at (64, 320, 360)
+//   (PERF.md): a cluster of 2, 4 or 8 CTAs per channel, 1,280 plain CTAs,
+//   row-tiled walks, fewer threads per CTA, 2 to 4 loads in flight per
+//   thread.  At n <= kThreads (one load a thread) a narrower CTA, a serial
+//   or a tree sum of the warps, a warp per channel (8 or 16 loads a lane)
+//   and the cluster route, measured on drafts of this source, were no
+//   faster: there the launch and one round trip to device memory set the
+//   time, not the idle threads.
+// The cluster and short routes walk a thread's loads without a division
+// and end with a shuffle tree over the warps' sums.
+
 // bn_bwd keeps g and x out of a second trip through device memory: dx
 // needs both sums, which need all of the channel, so a plain pair of
 // kernels reads g and x twice (59 MB more at the training shape in f32).
@@ -68,12 +91,6 @@
 //   there and device memory see them about once: reckoned from the sizes,
 //   not traced.  Where they do not fit, the second walk goes back to device
 //   memory: two passes.
-// bn_bwd_dx is elementwise: one CTA per (channel, block of rows), the
-// channel's dx constants computed once a CTA, 16-byte loads and stores when
-// rows are aligned.  It reads g and x and writes dx once: 88.5 MB at the
-// training shape in f32 -> 26.4 us bound (bytes), like bn_bwd, which the
-// split route (sums, all-reduce, dx) replaces under a process group.
-//
 // Per call in a run of 64 at (64, 320, 360) on an NVIDIA H100 80GB HBM3 at
 // 700 W: f32 38.7-39.9 us (bound 26.4), bf16 20.9-21.3 us (bound 13.2)
 // (chip_smoke.py, run_ms).  Designs measured on drafts of this source and
@@ -84,11 +101,28 @@
 // register kernel on clusters of 2 or 4, or double-buffered; the two-walk
 // kernel for f32 (45-49 us), unrolled, persistent or with an evict-last
 // policy on its first walk; and bf16 in registers (26-30 us).
+//
+// bn_bwd_dx is elementwise and streams: it reads g and x and writes dx
+// once, 88.5 MB at the training shape in f32 -> 26.4 us bound (bytes), like
+// bn_bwd, which the split route (sums, all-reduce, dx) replaces under a
+// process group.  CTA (c, tile) takes one tile of channel c's loads; each
+// thread issues its dx_loads(V) loads of g and of x (evict-first: each
+// line is read once) before it reads the channel's constants, so their
+// round trip overlaps the stream, walks its rows without a division and
+// stores dx evict-first.  The tiles a channel are the fewest that keep a
+// thread within its loads, or more where C channels leave SMs idle, up to
+// one wave of kDxBlocksPerSm CTAs on every SM.  Tried on drafts of this
+// source and not kept: 32 values a thread (2 CTAs an SM), 8 values (8 CTAs an SM), 6
+// CTAs an SM (registers spill), 128-thread CTAs, plain loads and stores,
+// 4 bf16 loads a thread (registers spill), and a walk of the whole tensor
+// in memory order with each load's constants computed per load.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 #include <algorithm>
 #include <type_traits>
@@ -105,6 +139,28 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBwdThreads = 512;
 constexpr int kBwdWarps = kBwdThreads / 32;
 constexpr int kBwdMaxSlots = 12;
+
+// bn_stats' cluster and short routes: the loads a thread keeps in flight,
+// and the most CTAs a cluster gives one channel (the portable cluster size).
+constexpr int kStatsUnroll = 4;
+constexpr int kMaxCluster = 8;
+
+// bn_bwd_dx: threads per CTA, the values a thread takes (all its loads in
+// flight at once), and the CTAs an SM holds at once (its launch bound: at
+// most 64 registers a thread).
+constexpr int kDxThreads = 256;
+constexpr int kDxElems = 16;
+constexpr int kDxBlocksPerSm = 4;
+constexpr int kMaxGridY = 65535;
+
+// bn_bwd_dx's loads of each of g and x a thread: kDxElems values in 16-byte
+// loads, or 4 single elements where rows are not 16-byte aligned (16 would
+// spill past the 64 registers).
+__host__ __device__ constexpr int dx_loads(int V) {
+  return V == 1 ? 4 : kDxElems / V;
+}
+
+namespace cg = cooperative_groups;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -145,9 +201,40 @@ __device__ __forceinline__ void unpack(const uint4& q, float (&v)[8]) {
   }
 }
 
+__device__ __forceinline__ void unpack(const float& e, float (&v)[1]) {
+  v[0] = e;
+}
+
+__device__ __forceinline__ void unpack(const __nv_bfloat16& e, float (&v)[1]) {
+  v[0] = __bfloat162float(e);
+}
+
 template <int V, typename E>
 __device__ __forceinline__ void load16(const E* p, float (&v)[V]) {
   unpack(ld16(p), v);
+}
+
+// The raw bits of V values at p (one 16-byte load, or V == 1 one element),
+// unpacked later, so that a thread issues all its loads before it uses one.
+// CS: a streaming 16-byte load (ld.global.cs, evict first).
+template <typename E, int V>
+struct Raw {
+  using type = uint4;
+};
+template <typename E>
+struct Raw<E, 1> {
+  using type = E;
+};
+
+template <int V, bool CS = false, typename E>
+__device__ __forceinline__ typename Raw<E, V>::type ldraw(const E* p) {
+  if constexpr (V == 1) {
+    return *p;
+  } else if constexpr (CS) {
+    return __ldcs(reinterpret_cast<const uint4*>(p));
+  } else {
+    return ld16(p);
+  }
 }
 
 // V values at p: one 16-byte load, or (V == 1) one element.  CS: a
@@ -222,6 +309,36 @@ __device__ __forceinline__ void block_sum2(float& a, float& b) {
   }
 }
 
+// Sums a and b over the CTA's blockDim.x / 32 warps (blockDim.x a multiple
+// of 32) in a fixed order: each warp's shuffle-down tree, then warp 0's
+// shuffle-down tree over the warps' sums.  Thread 0 holds the result.
+__device__ __forceinline__ void block_sum2_tree(float& a, float& b) {
+  __shared__ float sa[32];
+  __shared__ float sb[32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_down_sync(kFull, a, o);
+    b += __shfl_down_sync(kFull, b, o);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) {
+    sa[warp] = a;
+    sb[warp] = b;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nw = blockDim.x >> 5;
+    a = lane < nw ? sa[lane] : 0.f;
+    b = lane < nw ? sb[lane] : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      a += __shfl_down_sync(kFull, a, o);
+      b += __shfl_down_sync(kFull, b, o);
+    }
+  }
+}
+
+// bn_stats, per_channel route.
 template <typename E>
 __global__ void __launch_bounds__(kThreads)
     bn_stats_kernel(const E* __restrict__ x, float* __restrict__ out, int B,
@@ -454,45 +571,304 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-// dx from given sums (2, C) = [Σg, Σg·x̂] and p.M: CTA (c, y) walks rows
-// [y·rows, (y + 1)·rows) of channel c, V values a load.
-constexpr int kDxThreads = 256;
-constexpr int kDxElems = 4096;  // about this many elements a CTA
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
+}
+
+int pow2_floor(int64_t v) {
+  int p = 1;
+  while (p <= INT_MAX / 2 && 2 * (int64_t)p <= v) p *= 2;
+  return p;
+}
+
+// --- bn_stats: the cluster and short routes ---------------------------------
+
+// Σx and Σx² of one channel's loads first, first + stride, … < n, the
+// channel being rows of tv loads, row r at xc + r·rs elements; the loads U
+// at a time, issued together, then added in the walk's order.
+template <int U, int V, typename E>
+__device__ __forceinline__ void stats_walk(const E* __restrict__ xc,
+                                           int64_t rs, int tv, int n,
+                                           int first, int stride, float& s,
+                                           float& ss) {
+  const int drow = stride / tv, dcol = stride - drow * tv;
+  int row = first / tv, col = first - row * tv;
+  for (int64_t i = first; i < n; i += (int64_t)U * stride) {
+    typename Raw<E, V>::type r[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if ((int64_t)u * stride < n - i) {
+        r[u] = ldraw<V>(xc + row * rs + (int64_t)col * V);
+      }
+      if (u + 1 < U) step_on(row, col, drow, dcol, tv);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if ((int64_t)u * stride < n - i) {
+        float v[V];
+        unpack(r[u], v);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          s += v[e];
+          ss = fmaf(v[e], v[e], ss);
+        }
+      }
+    }
+    step_on(row, col, drow, dcol, tv);
+  }
+}
+
+// The cluster barrier in halves: arrive without ordering memory, and wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" : : : "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" : : : "memory");
+}
+
+// Cluster route: grid C·k, clusters of k; the cluster's CTA of rank r
+// takes channel blockIdx.x / k's loads r·kThreads + t, then k·kThreads on,
+// and writes its two sums into rank 0's shared memory, which adds the k
+// pairs in rank order.  The first barrier (every CTA of the cluster has
+// started, so rank 0's shared memory exists) is arrived at before the
+// loads and waited for after them.
+template <typename E, int V, int U>
+__global__ void __launch_bounds__(kThreads)
+    bn_stats_cluster_kernel(const E* __restrict__ x, float* __restrict__ out,
+                            int B, int C, int T, int k) {
+  __shared__ float parts[2 * kMaxCluster];
+  cluster_arrive_relaxed();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = (int)cluster.block_rank();
+  const int c = blockIdx.x / k, tv = T / V;
+  float s = 0.f, ss = 0.f;
+  stats_walk<U, V>(x + (int64_t)c * T, (int64_t)C * T, tv, B * tv,
+                   r * kThreads + (int)threadIdx.x, k * kThreads, s, ss);
+  block_sum2_tree(s, ss);
+  cluster_wait();
+  if (threadIdx.x == 0) {
+    float* dst = cluster.map_shared_rank(parts, 0);
+    dst[2 * r] = s;
+    dst[2 * r + 1] = ss;
+  }
+  cluster.sync();  // the k pairs are in rank 0's shared memory
+  if (r == 0 && threadIdx.x == 0) {
+    float a = 0.f, b = 0.f;
+    for (int q = 0; q < k; ++q) {
+      a += parts[2 * q];
+      b += parts[2 * q + 1];
+    }
+    out[c] = a;
+    out[C + c] = b;
+  }
+}
+
+// Short route: CTA c of blockDim.x threads (a multiple of 32) on channel
+// c's loads t, t + blockDim.x, …
+template <typename E, int V, int U>
+__global__ void __launch_bounds__(kThreads)
+    bn_stats_short_kernel(const E* __restrict__ x, float* __restrict__ out,
+                          int B, int C, int T) {
+  const int c = blockIdx.x, tv = T / V;
+  float s = 0.f, ss = 0.f;
+  stats_walk<U, V>(x + (int64_t)c * T, (int64_t)C * T, tv, B * tv,
+                   (int)threadIdx.x, (int)blockDim.x, s, ss);
+  block_sum2_tree(s, ss);
+  if (threadIdx.x == 0) {
+    out[c] = s;
+    out[C + c] = ss;
+  }
+}
+
+enum StatsRoute { kPerChannel = 0, kCluster = 1, kShort = 2 };
+
+// A channel's loads: B·T/V when rows are 16-byte aligned (vec), else B·T.
+int64_t stats_loads(int B, int T, int V, bool vec) {
+  return (int64_t)B * (vec ? T / V : T);
+}
+
+// The launcher's rule, from a channel's n loads: past kStatsUnroll loads a
+// thread of a CTA, the cluster route when there are fewer channels than
+// two CTAs per SM, else one CTA per channel; between one and kStatsUnroll
+// loads a thread, the short route, which keeps them all in flight; at
+// most one load a thread, one CTA per channel (measured as fast as a
+// narrower CTA there, PERF.md).
+int stats_route(int C, int64_t n, int sms) {
+  if (n > (int64_t)kThreads * kStatsUnroll) {
+    return C < 2 * sms ? kCluster : kPerChannel;
+  }
+  return n > kThreads ? kShort : kPerChannel;
+}
+
+// CTAs a channel on the cluster route: enough for C·k to reach two CTAs
+// per SM, no more than a CTA of kThreads loads a channel, within 2…8.
+int cluster_size(int C, int64_t n, int sms) {
+  const int k = std::min(pow2_floor(2 * sms / C), pow2_floor(n / kThreads));
+  return std::max(2, std::min(kMaxCluster, k));
+}
+
+// Loads a thread at most: n over `threads` threads, within 1…kStatsUnroll.
+int loads_per_thread(int64_t n, int64_t threads) {
+  return (int)std::min<int64_t>(
+      kStatsUnroll, std::max<int64_t>(1, (n + threads - 1) / threads));
+}
+
+// Threads of a short-route CTA: ⌈n / u⌉ rounded up to a warp, for the
+// least u <= kStatsUnroll loads a thread that keeps it within kThreads.
+int short_width(int64_t n) {
+  const int u = loads_per_thread(n, kThreads);
+  return (int)std::min<int64_t>(kThreads, ((n + u - 1) / u + 31) / 32 * 32);
+}
+
+// f(std::integral_constant<int, U>) for U the least of 1, 2, 4 >= u.
+template <typename F>
+cudaError_t with_unroll(int u, F&& f) {
+  if (u <= 1) return f(std::integral_constant<int, 1>());
+  if (u <= 2) return f(std::integral_constant<int, 2>());
+  return f(std::integral_constant<int, 4>());
+}
 
 template <typename E, int V>
-__global__ void __launch_bounds__(kDxThreads)
+cudaError_t launch_stats_v(const E* x, float* out, int B, int C, int T,
+                           int64_t n, int route, cudaStream_t s) {
+  if (route == kCluster) {
+    const int k = cluster_size(C, n, sm_count());
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(C * k);
+    cfg.blockDim = dim3(kThreads);
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = k;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = with_unroll(
+        loads_per_thread(n, (int64_t)k * kThreads), [&](auto u) {
+          return cudaLaunchKernelEx(
+              &cfg, bn_stats_cluster_kernel<E, V, decltype(u)::value>, x,
+              out, B, C, T, k);
+        });
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // clear it, so no later launch reports it
+      return e;
+    }
+  } else if (route == kShort) {
+    const int w = short_width(n);
+    with_unroll(loads_per_thread(n, w), [&](auto u) {
+      bn_stats_short_kernel<E, V, decltype(u)::value><<<C, w, 0, s>>>(
+          x, out, B, C, T);
+      return cudaSuccess;
+    });
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <typename E>
+cudaError_t launch_stats(const E* x, float* out, int B, int C, int T,
+                         int route, int* taken, cudaStream_t s) {
+  constexpr int V = Vec<E>::n;
+  const int vec = (T % V == 0) && aligned16(x);
+  const int64_t n = stats_loads(B, T, V, vec);
+  if (route < 0) route = stats_route(C, n, sm_count());
+  if (taken != nullptr) *taken = route;
+  if (route == kPerChannel) {
+    bn_stats_kernel<E><<<C, kThreads, 0, s>>>(x, out, B, C, T, vec);
+    return cudaGetLastError();
+  }
+  return vec ? launch_stats_v<E, V>(x, out, B, C, T, n, route, s)
+             : launch_stats_v<E, 1>(x, out, B, C, T, n, route, s);
+}
+
+// --- bn_bwd_dx ---------------------------------------------------------------
+
+// dx from given sums (2, C) = [Σg, Σg·x̂] and p.M.  CTA (c, tile) of grid
+// (C, tiles) takes loads [tile·len, min(n, (tile + 1)·len)) of channel c's
+// n; thread t the loads tile·len + t + u·kDxThreads (u < U = dx_loads(V)),
+// its g and x all issued before the channel's constants are read.
+template <typename E, int V>
+__global__ void __launch_bounds__(kDxThreads, kDxBlocksPerSm)
     bn_bwd_dx_kernel(const E* __restrict__ g, const E* __restrict__ x,
                      E* __restrict__ dx, const float* __restrict__ sums,
-                     BwdArgs p, int rows) {
-  const int c = blockIdx.x, C = p.C, T = p.T, tv = T / V;
-  const int b0 = blockIdx.y * rows;
-  const int n = (min(p.B, b0 + rows) - b0) * tv;
-  const DxCoef k = dx_coef(p, c, sums[c], sums[C + c]);
-  for (int i = threadIdx.x; i < n; i += kDxThreads) {
-    const int row = b0 + i / tv, col = i - (i / tv) * tv;
-    const int64_t o = ((int64_t)row * C + c) * T + (int64_t)col * V;
-    float gv[V], xv[V], d[V];
-    loadv<V>(g + o, gv);
-    loadv<V>(x + o, xv);
+                     BwdArgs p, int len) {
+  constexpr int U = dx_loads(V);
+  const int c = blockIdx.x, tv = p.T / V;
+  const int i0 = blockIdx.y * len;
+  // this thread's loads are u·kDxThreads < left
+  const int left = min(p.B * tv - i0, len) - (int)threadIdx.x;
+  const int first = i0 + (int)threadIdx.x;
+  const int drow = kDxThreads / tv, dcol = kDxThreads - drow * tv;
+  const int64_t rs = (int64_t)p.C * p.T, base = (int64_t)c * p.T;
+  int row = first / tv, col = first - row * tv;
+  typename Raw<E, V>::type gr[U], xr[U];
+  int64_t off[U];
 #pragma unroll
-    for (int e = 0; e < V; ++e) d[e] = dx_of(gv[e], xv[e], k);
-    storev<V>(dx + o, d);
+  for (int u = 0; u < U; ++u) {
+    off[u] = row * rs + base + (int64_t)col * V;
+    if (u * kDxThreads < left) {
+      gr[u] = ldraw<V, true>(g + off[u]);
+      xr[u] = ldraw<V, true>(x + off[u]);
+    }
+    if (u + 1 < U) step_on(row, col, drow, dcol, tv);
   }
+  const DxCoef k = dx_coef(p, c, sums[c], sums[p.C + c]);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (u * kDxThreads < left) {
+      float gv[V], xv[V], d[V];
+      unpack(gr[u], gv);
+      unpack(xr[u], xv);
+#pragma unroll
+      for (int e = 0; e < V; ++e) d[e] = dx_of(gv[e], xv[e], k);
+      storev<V, true>(dx + off[u], d);
+    }
+  }
+}
+
+// Tiles a channel of n loads, U a thread: the fewest that keep a thread
+// within U loads, or, where C channels leave SMs idle, as many as fill one
+// wave of kDxBlocksPerSm CTAs an SM, but no tile under kDxThreads loads.
+// The tiles are the grid's y (channels its x, up to 2^31 - 1), which takes
+// at most kMaxGridY: a channel of more than kMaxGridY·kDxThreads·U loads
+// (B·T over 268 M values in f32) is refused with cudaErrorInvalidValue.
+int dx_tiles(int64_t n, int C, int sms, int U) {
+  const int64_t per = (int64_t)kDxThreads * U;
+  const int64_t least = (n + per - 1) / per;
+  const int64_t most = (n + kDxThreads - 1) / kDxThreads;
+  const int64_t fill = (int64_t)sms * kDxBlocksPerSm / C;
+  return (int)std::max(least, std::min(fill, most));
 }
 
 template <typename E>
 cudaError_t launch_dx(const void* g, const void* x, void* dx,
                       const float* sums, const BwdArgs& p, cudaStream_t s) {
   constexpr int V = Vec<E>::n;
-  const int rows = std::max(1, std::min(p.B, kDxElems / p.T));
-  const dim3 grid(p.C, (p.B + rows - 1) / rows);
+  const bool vec =
+      p.T % V == 0 && aligned16(g) && aligned16(x) && aligned16(dx);
+  const int n = p.B * (vec ? p.T / V : p.T);
+  const int tiles = dx_tiles(n, p.C, sm_count(), dx_loads(vec ? V : 1));
+  if (tiles > kMaxGridY) return cudaErrorInvalidValue;
+  const int len = (int)(((int64_t)n + tiles - 1) / tiles);
+  const dim3 grid(p.C, tiles);
   const E* ge = static_cast<const E*>(g);
   const E* xe = static_cast<const E*>(x);
   E* de = static_cast<E*>(dx);
-  if (p.T % V == 0 && aligned16(g) && aligned16(x) && aligned16(dx)) {
-    bn_bwd_dx_kernel<E, V><<<grid, kDxThreads, 0, s>>>(ge, xe, de, sums, p, rows);
+  if (vec) {
+    bn_bwd_dx_kernel<E, V><<<grid, kDxThreads, 0, s>>>(ge, xe, de, sums, p,
+                                                        len);
   } else {
-    bn_bwd_dx_kernel<E, 1><<<grid, kDxThreads, 0, s>>>(ge, xe, de, sums, p, rows);
+    bn_bwd_dx_kernel<E, 1><<<grid, kDxThreads, 0, s>>>(ge, xe, de, sums, p,
+                                                        len);
   }
   return cudaGetLastError();
 }
@@ -518,13 +894,8 @@ cudaError_t launch_l2(const E* g, const E* x, E* dx, const BwdArgs& p,
 
 cudaError_t launch_reg(const float* g, const float* x, float* dx,
                        const BwdArgs& p, cudaStream_t s) {
-  static const int sms = [] {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n;
-  }();
-  bn_bwd_reg_kernel<<<std::min(p.C, sms), kBwdThreads, 0, s>>>(g, x, dx, p);
+  bn_bwd_reg_kernel<<<std::min(p.C, sm_count()), kBwdThreads, 0, s>>>(g, x,
+                                                                      dx, p);
   return cudaGetLastError();
 }
 
@@ -557,23 +928,22 @@ cudaError_t bwd(const void* g, const void* x, void* dx, const BwdArgs& p,
 }  // namespace
 
 // x (B, C, T) contiguous on the device, f32 (bf16 == 0) or bf16 (bf16 == 1);
-// out (2, C) f32.  Launches on `stream` and returns cudaGetLastError()
-// (cudaErrorInvalidValue for a shape the kernel does not take).
+// out (2, C) f32.  route: -1 the launcher's pick (stats_route), else 0
+// per_channel, 1 cluster, 2 short (any route takes any shape); the route
+// launched goes to *taken (unless taken is null).  Launches on `stream` and
+// returns cudaGetLastError(), or the cluster launch's own error
+// (cudaErrorInvalidValue for a shape or route the kernels do not take).
 extern "C" int bn_stats_launch(const void* x, void* out, int B, int C, int T,
-                               int bf16, void* stream) {
+                               int bf16, int route, void* stream, int* taken) {
   if (!shape_ok(B, C, T)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int V = bf16 ? Vec<__nv_bfloat16>::n : Vec<float>::n;
-  const int vec = (T % V == 0) && aligned16(x);
-  if (bf16) {
-    bn_stats_kernel<__nv_bfloat16><<<C, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<float*>(out), B, C,
-        T, vec);
-  } else {
-    bn_stats_kernel<float><<<C, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(out), B, C, T, vec);
-  }
-  return static_cast<int>(cudaGetLastError());
+  float* o = static_cast<float*>(out);
+  const cudaError_t e =
+      bf16 ? launch_stats(static_cast<const __nv_bfloat16*>(x), o, B, C, T,
+                          route, taken, s)
+           : launch_stats(static_cast<const float*>(x), o, B, C, T, route,
+                          taken, s);
+  return static_cast<int>(e);
 }
 
 // BatchNorm backward: g, x and dx (B, C, T) contiguous, one type (f32 or

@@ -32,6 +32,14 @@ Tolerances, each with its reason:
   at the rate of the iteration's own sensitivity (moving one entry of X
   by one ulp moves the port's own result by 6e-7 / 1e-4 / 1.4e-3 after
   200 iterations at ``prune_mode`` 0);
+* ``slir_fit``'s noise fallback in float64 (primal branch, N > D): Y
+  in the span of one column of X that carries nearly all of X's variance,
+  so from the second iteration on the quick estimate SY = (ΣY² − ΣW·YX) /
+  (L·N) cancels to ~4e-8 of SY0 (asserted on JAX's own state: below the
+  1e-6 at which both packages switch to the residual form).  There the
+  residual Y − W·X cancels the same ~7.4 digits, so f64 keeps ~8: SY rtol
+  1e-8, A within 1e-8 of max A, W (no such cancellation) within 1e-12 of
+  max|W|, the masks exactly.  Measured 2.3e-11 / 2.3e-11 / 1e-16;
 * the pipeline's predictions rtol 1e-3 (as W); the category-wise rates and
   the CLI's accuracy exactly (they count comparisons, and no correlation
   lies within rounding of another).
@@ -163,6 +171,43 @@ def test_slir_fit_dual_branch_matches_jax_in_float64(prune_mode):
         np.testing.assert_allclose(A, jA, rtol=0, atol=a_tol * np.abs(jA).max(),
                                    err_msg=msg)
         np.testing.assert_allclose(SY, jSY, rtol=sy_tol, err_msg=msg)
+
+
+@pytest.mark.parametrize("prune_mode", [0, 1])
+def test_slir_fit_noise_fallback_matches_jax_in_float64(prune_mode):
+    import jax
+
+    from meg_decoding_tpu_torch.kamitani.slir import slir_fit
+
+    jfit = _jax_slir_fit_f64()
+    N, D, L = 8192, 32, 2
+    rng = np.random.RandomState(0)
+    X = 1e-2 * rng.randn(N, D)
+    X[:, 0] = rng.choice([-1.0, 1.0], N)
+    Y = np.outer(X[:, 0], [1.0, -2.0])  # in the span of X
+    SY0 = (Y * Y).mean()
+    with jax.enable_x64(True):
+        W1 = np.asarray(jfit(X, Y, n_iter=1, prune_mode=prune_mode)[0])
+        # the quick estimate the second iteration takes, from JAX's state
+        # after the first (the W that iteration computes)
+        quick = ((Y * Y).sum() - (W1 * (Y.T @ X)).sum()) / (L * N)
+        assert 0 < quick / SY0 < 1e-6, quick / SY0
+        for n_iter in (2, 5, 50):
+            want = [np.asarray(t) for t in jfit(X, Y, n_iter=n_iter,
+                                                prune_mode=prune_mode)]
+            got = [t.numpy() for t in slir_fit(X, Y, n_iter=n_iter,
+                                               prune_mode=prune_mode,
+                                               device="cpu",
+                                               dtype=torch.float64)]
+            (W, A, SY, mask), (jW, jA, jSY, jmask) = got, want
+            msg = f"n_iter={n_iter}"
+            assert jSY / SY0 < 1e-6, msg  # the fallback's own, small noise
+            np.testing.assert_array_equal(mask, jmask, err_msg=msg)
+            np.testing.assert_allclose(W, jW, rtol=0,
+                                       atol=1e-12 * np.abs(jW).max(), err_msg=msg)
+            np.testing.assert_allclose(A, jA, rtol=0,
+                                       atol=1e-8 * np.abs(jA).max(), err_msg=msg)
+            np.testing.assert_allclose(SY, jSY, rtol=1e-8, err_msg=msg)
 
 
 def test_slir_fit_batched_over_units_matches_jax_vmap():
