@@ -40,7 +40,7 @@ Phases, each printed as one JSON line:
               Pallas ``bn_bwd_stats`` row is the train path's kernel,
               ``bn_bwd`` (sums and dx in one launch); its sums alone
               (``bn_bwd_stats``) are timed beside it.  ``bn_stats`` names
-              its route (per_channel, cluster, short) in each row, and runs
+              its route (per_channel, cluster) in each row, and runs
               each route on a grid of shapes (``bn_stats_routes``);
 4. serving  — a synthetic 27-subject cache, 4 requests of 64 raw windows
               through ``serving/forward.py`` (Z checked finite, of shape
@@ -238,7 +238,7 @@ every launch count set to 0 just before and read just after; the run fails
 unless each kernel launched on the speech paths and on the GOD paths, every
 kernel on each preset, scan, model-zoo, unfused and training entry-point
 path, ``bn_stats``' per_channel route on the speech and GOD training
-paths, its cluster route on EEGNet's and its short route on
+paths, its cluster route on EEGNet's and per_channel on
 Seq2Static's, the long-row path on each Brennan build and CLI (with and without
 the embedding), the BN kernels in Brennan training, the gather and the
 percentiles on each GOD evaluation, the percentiles on each artifact,
@@ -1777,27 +1777,8 @@ def phase_model_zoo(god_cfg, god_ds, seed, flush) -> dict:
                                      flush, "model_zoo")
     for Tt in (23, 11, 5, 2):
         bn_check(*bn_inputs(gen, BATCH, D2, Tt, torch.float32), cotangents=True)
-    # bn_stats' short route against per_channel forced at the Seq2Static
-    # shapes that take it (T = 48, and the unaligned 23 and 11): device time
-    # a call in a run of each, the two routes' runs taken in turns, 3 times
-    short_vs = {}
-    for Tt in (48, 23, 11):
-        x, _ = bn_inputs(gen, BATCH, D2, Tt, torch.float32)
-        n = x.numel()
-        xs = copies(x, n * 4)
-        runs = {"per_channel": [], "short": []}
-        for _ in range(3):
-            for route, ts in runs.items():
-                ts.append(run_ms([lambda x=x, r=route: bk._bn_stats_route(x, r)
-                                  for x in xs]))
-        short_vs[f"{BATCH}x{D2}x{Tt}"] = {
-            "pick": bk._bn_stats_route(x)[2],
-            **{f"{route}_run_ms": ts for route, ts in runs.items()},
-            "bound_ms": bound(n * 4 + 2 * D2 * 4, 3 * n)[0]}
-    emit({"phase": "model_zoo", "kernel": "bn_stats",
-          "short_vs_per_channel": short_vs})
     return {"launches": launches_by_model, "stats_routes": routes_by_model,
-            "bn": rows, "short_vs_per_channel": short_vs}
+            "bn": rows}
 
 
 # Brennan2018 at the scale of the real dataset: 33 usable subjects × 60
@@ -3982,8 +3963,7 @@ def main(argv=None) -> int:
     # bn_stats' routes on the paths that must take them: the speech step's
     # (64, 320, 360) and GOD's (64, 320, 24) one CTA a channel, EEGNet's
     # bn1 (64, 16, 528) the cluster route and its bn2/bn3 one CTA a
-    # channel, Seq2Static's T = 48 and unaligned T = 23 and 11 the short
-    # route
+    # channel, Seq2Static's one CTA a channel
     route_paths = {"training": (training["stats_routes"], ("per_channel",)),
                    "god_training": (god_training["stats_routes"],
                                     ("per_channel",)),
@@ -3991,7 +3971,7 @@ def main(argv=None) -> int:
                                   ("cluster", "per_channel")),
                    "zoo_brain_endcoder_seq2static": (
                        zoo["stats_routes"]["brain_endcoder_seq2static"],
-                       ("short", "per_channel"))}
+                       ("per_channel",))}
     for path, (routes, needed) in route_paths.items():
         for route in needed:
             if routes[route] <= 0:

@@ -40,10 +40,9 @@
 // dx.  Loads stop at the end of each row, so nothing past the tensor is
 // read and the TPU kernels' masking of padding rows has no counterpart.
 //
-// bn_stats takes one of three routes, picked by stats_route from the
-// channel count C and a channel's n = B·T/V loads (V values a load, or one
-// element a load where rows are not 16-byte aligned), with the SM count
-// read once:
+// bn_stats takes one of two routes, picked by stats_route from the channel
+// count C and a channel's n = B·T/V loads (V values a load, or one element
+// a load where rows are not 16-byte aligned), with the SM count read once:
 // - cluster (n > kThreads·kStatsUnroll and C under two CTAs per SM, as
 //   EEGNet's bn1 (64, 16, 528), where one CTA per channel left 16 of 132
 //   SMs working): a thread-block cluster of k = 2…8 CTAs per channel, so
@@ -52,24 +51,23 @@
 //   (distributed shared memory), which adds them in cluster-rank order.
 //   One launch, no float atomics.  Rank 0 reading the sums from the other
 //   CTAs' shared memory after a second barrier was slower.
-// - short (kThreads < n <= kThreads·kStatsUnroll, as Seq2Static's T = 48
-//   f32 and its unaligned T = 23 and 11): one CTA per channel as narrow as
-//   the channel needs, ⌈n / u⌉ threads rounded up to a warp for the least
-//   u loads a thread, all u in flight at once where one CTA of kThreads
-//   would take them one after another.
 // - per_channel (every other shape: the speech step's (64, 320, 360) f32
-//   and bf16, the presets' (256, 320, 360) bf16, GOD's (64, 320, 24) and
-//   EEGNet's bn2/bn3, n <= kThreads): one CTA of kThreads per channel, one
-//   load in flight per thread.  Measured slower than it at (64, 320, 360)
-//   (PERF.md): a cluster of 2, 4 or 8 CTAs per channel, 1,280 plain CTAs,
-//   row-tiled walks, fewer threads per CTA, 2 to 4 loads in flight per
-//   thread.  At n <= kThreads (one load a thread) a narrower CTA, a serial
-//   or a tree sum of the warps, a warp per channel (8 or 16 loads a lane)
-//   and the cluster route, measured on drafts of this source, were no
-//   faster: there the launch and one round trip to device memory set the
-//   time, not the idle threads.
-// The cluster and short routes walk a thread's loads without a division
-// and end with a shuffle tree over the warps' sums.
+//   and bf16, the presets' (256, 320, 360) bf16, GOD's (64, 320, 24),
+//   EEGNet's bn2/bn3 and Seq2Static's T = 48 … 2): one CTA of kThreads per
+//   channel, one load in flight per thread.  Measured slower than it at
+//   (64, 320, 360) (PERF.md): a cluster of 2, 4 or 8 CTAs per channel,
+//   1,280 plain CTAs, row-tiled walks, fewer threads per CTA, 2 to 4 loads
+//   in flight per thread.  At n <= kThreads (one load a thread) a narrower
+//   CTA, a serial or a tree sum of the warps, a warp per channel (8 or 16
+//   loads a lane) and the cluster route were no faster: there the launch
+//   and one round trip to device memory set the time, not the idle
+//   threads.  Between one and kStatsUnroll loads a thread, one CTA per
+//   channel as narrow as the channel needs with all its loads in flight
+//   was as fast at (64, 320, 48) f32 and 0.2-0.3 us (5 %) faster at the
+//   unaligned (64, 320, 23) and (64, 320, 11) on an NVIDIA H100 80GB HBM3
+//   at 700 W (PERF.md): too little for a third route.
+// The cluster route walks a thread's loads without a division and ends
+// with a shuffle tree over the warps' sums.
 
 // bn_bwd keeps g and x out of a second trip through device memory: dx
 // needs both sums, which need all of the channel, so a plain pair of
@@ -140,8 +138,8 @@ constexpr int kBwdThreads = 512;
 constexpr int kBwdWarps = kBwdThreads / 32;
 constexpr int kBwdMaxSlots = 12;
 
-// bn_stats' cluster and short routes: the loads a thread keeps in flight,
-// and the most CTAs a cluster gives one channel (the portable cluster size).
+// bn_stats' cluster route: the loads a thread keeps in flight, and the
+// most CTAs a cluster gives one channel (the portable cluster size).
 constexpr int kStatsUnroll = 4;
 constexpr int kMaxCluster = 8;
 
@@ -587,7 +585,7 @@ int pow2_floor(int64_t v) {
   return p;
 }
 
-// --- bn_stats: the cluster and short routes ---------------------------------
+// --- bn_stats: the cluster route ----------------------------------------
 
 // Σx and Σx² of one channel's loads first, first + stride, … < n, the
 // channel being rows of tv loads, row r at xc + r·rs elements; the loads U
@@ -670,24 +668,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Short route: CTA c of blockDim.x threads (a multiple of 32) on channel
-// c's loads t, t + blockDim.x, …
-template <typename E, int V, int U>
-__global__ void __launch_bounds__(kThreads)
-    bn_stats_short_kernel(const E* __restrict__ x, float* __restrict__ out,
-                          int B, int C, int T) {
-  const int c = blockIdx.x, tv = T / V;
-  float s = 0.f, ss = 0.f;
-  stats_walk<U, V>(x + (int64_t)c * T, (int64_t)C * T, tv, B * tv,
-                   (int)threadIdx.x, (int)blockDim.x, s, ss);
-  block_sum2_tree(s, ss);
-  if (threadIdx.x == 0) {
-    out[c] = s;
-    out[C + c] = ss;
-  }
-}
-
-enum StatsRoute { kPerChannel = 0, kCluster = 1, kShort = 2 };
+enum StatsRoute { kPerChannel = 0, kCluster = 1 };
 
 // A channel's loads: B·T/V when rows are 16-byte aligned (vec), else B·T.
 int64_t stats_loads(int B, int T, int V, bool vec) {
@@ -696,15 +677,10 @@ int64_t stats_loads(int B, int T, int V, bool vec) {
 
 // The launcher's rule, from a channel's n loads: past kStatsUnroll loads a
 // thread of a CTA, the cluster route when there are fewer channels than
-// two CTAs per SM, else one CTA per channel; between one and kStatsUnroll
-// loads a thread, the short route, which keeps them all in flight; at
-// most one load a thread, one CTA per channel (measured as fast as a
-// narrower CTA there, PERF.md).
+// two CTAs per SM; else one CTA per channel.
 int stats_route(int C, int64_t n, int sms) {
-  if (n > (int64_t)kThreads * kStatsUnroll) {
-    return C < 2 * sms ? kCluster : kPerChannel;
-  }
-  return n > kThreads ? kShort : kPerChannel;
+  return n > (int64_t)kThreads * kStatsUnroll && C < 2 * sms ? kCluster
+                                                             : kPerChannel;
 }
 
 // CTAs a channel on the cluster route: enough for C·k to reach two CTAs
@@ -720,13 +696,6 @@ int loads_per_thread(int64_t n, int64_t threads) {
       kStatsUnroll, std::max<int64_t>(1, (n + threads - 1) / threads));
 }
 
-// Threads of a short-route CTA: ⌈n / u⌉ rounded up to a warp, for the
-// least u <= kStatsUnroll loads a thread that keeps it within kThreads.
-int short_width(int64_t n) {
-  const int u = loads_per_thread(n, kThreads);
-  return (int)std::min<int64_t>(kThreads, ((n + u - 1) / u + 31) / 32 * 32);
-}
-
 // f(std::integral_constant<int, U>) for U the least of 1, 2, 4 >= u.
 template <typename F>
 cudaError_t with_unroll(int u, F&& f) {
@@ -736,40 +705,29 @@ cudaError_t with_unroll(int u, F&& f) {
 }
 
 template <typename E, int V>
-cudaError_t launch_stats_v(const E* x, float* out, int B, int C, int T,
-                           int64_t n, int route, cudaStream_t s) {
-  if (route == kCluster) {
-    const int k = cluster_size(C, n, sm_count());
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(C * k);
-    cfg.blockDim = dim3(kThreads);
-    cfg.stream = s;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = k;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t e = with_unroll(
-        loads_per_thread(n, (int64_t)k * kThreads), [&](auto u) {
-          return cudaLaunchKernelEx(
-              &cfg, bn_stats_cluster_kernel<E, V, decltype(u)::value>, x,
-              out, B, C, T, k);
-        });
-    if (e != cudaSuccess) {
-      cudaGetLastError();  // clear it, so no later launch reports it
-      return e;
-    }
-  } else if (route == kShort) {
-    const int w = short_width(n);
-    with_unroll(loads_per_thread(n, w), [&](auto u) {
-      bn_stats_short_kernel<E, V, decltype(u)::value><<<C, w, 0, s>>>(
-          x, out, B, C, T);
-      return cudaSuccess;
-    });
-  } else {
-    return cudaErrorInvalidValue;
+cudaError_t launch_cluster(const E* x, float* out, int B, int C, int T,
+                           int64_t n, cudaStream_t s) {
+  const int k = cluster_size(C, n, sm_count());
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * k);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = with_unroll(
+      loads_per_thread(n, (int64_t)k * kThreads), [&](auto u) {
+        return cudaLaunchKernelEx(
+            &cfg, bn_stats_cluster_kernel<E, V, decltype(u)::value>, x, out,
+            B, C, T, k);
+      });
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it, so no later launch reports it
+    return e;
   }
   return cudaGetLastError();
 }
@@ -786,8 +744,9 @@ cudaError_t launch_stats(const E* x, float* out, int B, int C, int T,
     bn_stats_kernel<E><<<C, kThreads, 0, s>>>(x, out, B, C, T, vec);
     return cudaGetLastError();
   }
-  return vec ? launch_stats_v<E, V>(x, out, B, C, T, n, route, s)
-             : launch_stats_v<E, 1>(x, out, B, C, T, n, route, s);
+  if (route != kCluster) return cudaErrorInvalidValue;
+  return vec ? launch_cluster<E, V>(x, out, B, C, T, n, s)
+             : launch_cluster<E, 1>(x, out, B, C, T, n, s);
 }
 
 // --- bn_bwd_dx ---------------------------------------------------------------
@@ -929,7 +888,7 @@ cudaError_t bwd(const void* g, const void* x, void* dx, const BwdArgs& p,
 
 // x (B, C, T) contiguous on the device, f32 (bf16 == 0) or bf16 (bf16 == 1);
 // out (2, C) f32.  route: -1 the launcher's pick (stats_route), else 0
-// per_channel, 1 cluster, 2 short (any route takes any shape); the route
+// per_channel or 1 cluster (either takes any shape); the route
 // launched goes to *taken (unless taken is null).  Launches on `stream` and
 // returns cudaGetLastError(), or the cluster launch's own error
 // (cudaErrorInvalidValue for a shape or route the kernels do not take).

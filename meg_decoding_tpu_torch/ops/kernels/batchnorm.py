@@ -19,13 +19,11 @@ the ranks and takes dx from the global sums with M the global B·T
 (``ops/batchnorm.py``), where the fused ``bn_bwd`` cannot serve (its dx
 needs sums that are not yet global).
 
-``bn_stats`` takes one of three routes of its kernel, picked by the
-launcher from the channel count and a channel's size: a
-thread-block cluster per channel (``cluster``: few long channels, as
-EEGNet's bn1 (64, 16, 528)), one narrow CTA per channel that keeps each
-thread's few loads in flight (``short``: Seq2Static's T = 48 and its
-unaligned rows), or one CTA per channel (``per_channel``: the speech
-step's (64, 320, 360), GOD's (64, 320, 24) and every other shape).
+``bn_stats`` takes one of two routes of its kernel, picked by the
+launcher from the channel count and a channel's size: a thread-block
+cluster per channel (``cluster``: few long channels, as EEGNet's bn1
+(64, 16, 528)) or one CTA per channel (``per_channel``: the speech step's
+(64, 320, 360), GOD's (64, 320, 24) and every other shape).
 ``stats_route_launches`` counts the launches of each route, as the
 launcher reports them.
 
@@ -54,7 +52,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _I32_MAX = 2**31 - 1
 
 # bn_stats' routes, in the order of the kernel's route argument
-STATS_ROUTES = ("per_channel", "cluster", "short")
+STATS_ROUTES = ("per_channel", "cluster")
 
 # kernel launches since the last reset_launches(), per kernel
 launches = {"bn_stats": 0, "bn_bwd_stats": 0}

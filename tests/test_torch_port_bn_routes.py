@@ -2,15 +2,14 @@
 mirrored in numpy on the CPU (the kernels run only on the card, where
 ``chip_smoke.py`` holds them against their plain versions).
 
-* ``bn_stats``' launcher rule (``stats_route``, ``cluster_size``,
-  ``short_width``) and ``bn_bwd_dx``'s tiles a channel (``dx_tiles``) by
+* ``bn_stats``' launcher rule (``stats_route``, ``cluster_size``) and
+  ``bn_bwd_dx``'s tiles a channel (``dx_tiles``) by
   shape, on an H100's 132 SMs, with the constants read from the source.
 * The cluster route's walk (CTA rank r's thread t on loads r·kThreads + t,
-  then k·kThreads on, kStatsUnroll at a time), the short route's walk
-  (thread t of a CTA of ``short_width`` threads) and ``bn_bwd_dx``'s walk
+  then k·kThreads on, kStatsUnroll at a time) and ``bn_bwd_dx``'s walk
   (tile·len + t + u·kDxThreads) each visit every load once, the division-
   free steps landing where a division would.
-* The sums in the cluster and short routes' order (each thread's loads in
+* The sums in the cluster route's order (each thread's loads in
   turn, f32 adds and fmas emulated in f64, each warp's shuffle tree, warp
   0's tree over the warps' sums, the cluster's CTAs in rank order) within
   rtol 1e-5 / atol 1e-4 of the plain version and the Pallas kernel in
@@ -89,20 +88,11 @@ def _cluster_size(C: int, n: int) -> int:
     return max(2, min(MAX_CLUSTER, k))
 
 
-def _short_width(n: int) -> int:
-    u = _loads_per_thread(n, THREADS)
-    return min(THREADS, -(-(-(-n // u)) // 32) * 32)
-
-
 def _stats_plan(B: int, C: int, T: int, dtype: str,
                 aligned: bool = True) -> tuple[str, int]:
     n, _ = _loads(B, T, dtype, aligned)
-    if n > THREADS * UNROLL:
-        if C < 2 * SMS:
-            return "cluster", _cluster_size(C, n)
-        return "per_channel", THREADS
-    if n > THREADS:
-        return "short", _short_width(n)
+    if n > THREADS * UNROLL and C < 2 * SMS:
+        return "cluster", _cluster_size(C, n)
     return "per_channel", THREADS
 
 
@@ -128,10 +118,10 @@ def _dx_tiles(n: int, C: int, U: int) -> int:
     (64, 16, 528, "bfloat16", True, ("cluster", 8)),
     (64, 32, 24, "float32", True, ("per_channel", 512)),     # EEGNet bn2
     (64, 32, 12, "float32", True, ("per_channel", 512)),     # EEGNet bn3
-    (64, 320, 48, "float32", True, ("short", 384)),          # Seq2Static
+    (64, 320, 48, "float32", True, ("per_channel", 512)),    # Seq2Static
     (64, 320, 48, "bfloat16", True, ("per_channel", 512)),
-    (64, 320, 23, "float32", True, ("short", 512)),          # unaligned rows
-    (64, 320, 11, "float32", True, ("short", 352)),
+    (64, 320, 23, "float32", True, ("per_channel", 512)),    # unaligned rows
+    (64, 320, 11, "float32", True, ("per_channel", 512)),
     (64, 320, 5, "float32", True, ("per_channel", 512)),
     (64, 1, 360, "float32", True, ("cluster", 8)),
     (64, 131, 528, "float32", True, ("cluster", 2)),
@@ -139,7 +129,8 @@ def _dx_tiles(n: int, C: int, U: int) -> int:
     (64, 263, 528, "float32", True, ("cluster", 2)),         # under 2 a SM
     (64, 264, 528, "float32", True, ("per_channel", 512)),
     (64, 21, 37, "float32", True, ("cluster", 4)),           # 2,368 elements
-    (64, 16, 24, "float32", False, ("short", 512)),          # base unaligned
+    (64, 16, 24, "float32", False, ("per_channel", 512)),    # base unaligned
+    (64, 16, 48, "float32", False, ("cluster", 4)),          # 3,072 elements
 ])
 def test_bn_stats_launcher_picks_the_route_by_shape(B, C, T, dtype, aligned,
                                                     want):
@@ -195,12 +186,6 @@ def _cluster_walks(n: int, tv: int, k: int) -> list:
              for t in range(THREADS)] for r in range(k)]
 
 
-def _short_walks(n: int, tv: int) -> list:
-    W = _short_width(n)
-    U = _unroll(_loads_per_thread(n, W))
-    return [_stats_walk(t, W, n, tv, U) for t in range(W)]
-
-
 @pytest.mark.parametrize("C", [1, 16, 32])
 @pytest.mark.parametrize("B,T,dtype", [(3, 40, "float32"), (2, 37, "bfloat16"),
                                        (64, 528, "float32"),
@@ -212,19 +197,6 @@ def test_cluster_walk_visits_every_load_once(C, B, T, dtype):
     for rank in _cluster_walks(n, tv, _cluster_size(C, n)):
         for loads in rank:
             np.add.at(seen, loads, 1)
-    assert (seen == 1).all()
-
-
-@pytest.mark.parametrize("C", [1, 16, 32])
-@pytest.mark.parametrize("B,T,dtype", [(3, 40, "float32"), (2, 37, "bfloat16"),
-                                       (64, 48, "float32"), (64, 23, "float32"),
-                                       (9, 250, "float32")])
-def test_short_walk_visits_every_load_once(C, B, T, dtype):
-    n, V = _loads(B, T, dtype)
-    tv = T // V if V > 1 else T
-    seen = np.zeros(n, np.int64)
-    for loads in _short_walks(n, tv):
-        np.add.at(seen, loads, 1)
     assert (seen == 1).all()
 
 
@@ -254,19 +226,15 @@ def _block_tree(per_thread: np.ndarray) -> np.float32:
     return _tree(np.array(warps + [0.0] * (32 - len(warps)), F32))
 
 
-def _mirror_route(x: np.ndarray, route: str, V: int, k: int = 0) -> np.ndarray:
+def _mirror_cluster(x: np.ndarray, V: int, k: int) -> np.ndarray:
     B, C, T = x.shape
     tv = T // V
     n = B * tv
     out = np.zeros((2, C), F32)
     for c in range(C):
         xc = x[:, c, :]
-        if route == "cluster":
-            walks = _cluster_walks(n, tv, k)
-        else:
-            walks = [_short_walks(n, tv)]
         parts = []
-        for rank in walks:
+        for rank in _cluster_walks(n, tv, k):
             sums = np.array([_thread_sums(xc, loads, V) for loads in rank], F32)
             parts.append((_block_tree(sums[:, 0]), _block_tree(sums[:, 1])))
         a, q = F32(0), F32(0)
@@ -277,8 +245,8 @@ def _mirror_route(x: np.ndarray, route: str, V: int, k: int = 0) -> np.ndarray:
 
 
 @pytest.mark.parametrize("C", [1, 16, 32])
-@pytest.mark.parametrize("route,k", [("cluster", 2), ("cluster", 8),
-                                     ("short", 0)])
+@pytest.mark.parametrize("route,k", [("cluster", 2), ("cluster", 4),
+                                     ("cluster", 8)])
 def test_route_sums_in_kernel_order_match_plain_and_pallas(C, route, k):
     B, T = 5, 48  # 60 loads of 4 f32 a channel
     rng = np.random.RandomState(C + k)
@@ -287,7 +255,7 @@ def test_route_sums_in_kernel_order_match_plain_and_pallas(C, route, k):
     x2d = np.ascontiguousarray(np.swapaxes(x, 1, 2).reshape(-1, C))
     pallas = jbn.bn_stats(jnp.asarray(x2d), block_rows=256, interpret=True)
     for V in (4, 1):  # 16-byte loads, and rows not 16-byte aligned
-        got = _mirror_route(x, route, V, k)
+        got = _mirror_cluster(x, V, k)
         for i in range(2):
             np.testing.assert_allclose(got[i], plain[i].numpy(), rtol=1e-5,
                                        atol=1e-4)
