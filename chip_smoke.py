@@ -112,9 +112,14 @@ Phases, each printed as one JSON line:
               max |card − CPU| ≤ 1e-5·max|X|; seconds, packed bytes,
               launches (one long-row call a build);
     brennan_kernels — the quantile kernel's global-memory path against
-              its plain version (≤ 1 ulp, hard rows included) at
-              64 × 58,113, the subject-wise 1,980 × 88,920 and the pooled
-              60 × 2,934,360 rows, timed against one read of the rows;
+              its plain version (0 ulp, equal NaN positions, hard rows
+              included) at 64 × 58,113, the subject-wise 1,980 × 88,920
+              and the pooled 60 × 2,934,360 rows, and at the subject-wise
+              shape on a quantized and a constant input, timed against one
+              read of the rows, with its device time by launch
+              (``pass_ms``, torch.profiler), its launches a call and the
+              candidate bytes it writes a call (this phase runs first,
+              right after the build, at the build's row length);
     brennan_training — the unfused step at the full width on the built
               dataset: its first step against the CPU (loss and global
               gradient norm within 1e-4), then the steady step and the
@@ -1789,6 +1794,7 @@ def phase_model_zoo(god_cfg, god_ds, seed, flush) -> dict:
 BRENNAN = dict(S=33, C=60, fs=500.0, rec_sec=742.0, F=1024, rate=120.0)
 BRENNAN_DATA_RTOL = 1e-5   # card vs CPU: f32 FFTs of 371,000 samples, two libraries
 BRENNAN_CHECK_SUBJECTS = 3
+BRENNAN_ROW_KEYS = 88_920  # a subject's channel after the build's shift and trim
 BRENNAN_CLI = dict(n_subjects=6, C=60, rec_sec=120.0, F=1024)
 BRENNAN_UPDATES = 4
 
@@ -1823,38 +1829,111 @@ def brennan_cfg(seed: int, overrides=()) -> Config:
         *overrides])
 
 
-def long_quantile_case(x2d: torch.Tensor, flush, what: str) -> dict:
-    """The long-row path on (N, T) rows with the hard rows: against the
-    plain version (≤ 1 ulp), timed as the other kernels are.  The bound is
-    one read of the rows (the function's least traffic); the radix select
-    reads them once a pass, 4 times (``design_floor_ms``)."""
+def launch_split(fn, calls: int = 3) -> dict:
+    """The device work of one call of ``fn``, launch by launch: calls
+    (after one untimed), each under torch.profiler, until ``calls`` of them
+    traced the same kernels, memsets and copies (a trace that lost events,
+    as a profiler's first sessions in a process can, is dropped and
+    counted: ``dropped_traces``); those launches in the order they ran,
+    and the median duration of each in ms (``pass_ms``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    os.makedirs(os.path.join(ROOT, "runs_out"), exist_ok=True)
+    path = os.path.join(ROOT, "runs_out", f"launch_split_{os.getpid()}.json")
+    traces: dict[tuple, list] = {}
+    for _ in range(calls + 6):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            ev = sorted((e["ts"], e["dur"], e["name"])
+                        for e in json.load(f)["traceEvents"]
+                        if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy"))
+        names = tuple(re.sub(r"\(anonymous namespace\)::", "", n).split("(")[0]
+                      for _, _, n in ev)
+        traces.setdefault(names, []).append([d / 1e3 for _, d, _ in ev])
+        if len(traces[names]) == calls and names:
+            break
+    os.remove(path)
+    names, durs = max(traces.items(), key=lambda kv: (len(kv[1]), len(kv[0])))
+    if len(durs) < calls or not names:
+        raise AssertionError(f"launch_split: no {calls} calls traced alike: "
+                             f"{ {k: len(v) for k, v in traces.items()} }")
+    return {"launches_per_call": len(names), "launch_names": list(names),
+            "pass_ms": [float(v) for v in np.median(durs, axis=0)],
+            "dropped_traces": sum(len(v) for v in traces.values()) - len(durs)}
+
+
+def long_traffic(x2d: torch.Tensor) -> dict:
+    """The bytes the long-row path moves for ``x2d``: two full reads, the
+    candidate keys its second read writes and its last pass reads back
+    twice (``qk.long_candidates``), a third full read for each row whose
+    list passes the cap, and the output.  An older checkout's path, timed
+    in turns with ``--phase brennan_kernels``, keeps no lists: it reads the
+    rows 4 times and its candidate figures are None."""
+    N, T = x2d.shape
+    if not hasattr(qk, "long_candidates"):
+        return {"candidate_bytes": None, "third_read_rows": None,
+                "moved_bytes": 4 * N * T * 4 + N * 3 * 4}
+    counts = qk.long_candidates(x2d).cpu()
+    cand = int(counts.clamp(min=0).sum())
+    third = int((counts < 0).sum())
+    return {"candidate_bytes": 4 * cand, "third_read_rows": third,
+            "moved_bytes": (2 * N * T + third * T + 3 * cand) * 4 + N * 3 * 4}
+
+
+def long_quantile_case(x2d: torch.Tensor, flush, what: str,
+                       hard_rows: bool = True) -> dict:
+    """The long-row path on (N, T) rows (with the hard rows unless
+    ``hard_rows`` is False): against the plain version (0 ulp, equal NaN
+    positions), timed as the other kernels are, its device time split by
+    launch (``launch_split``) and its traffic (``long_traffic``).  The
+    bound is one read of the rows (the function's least traffic);
+    ``design_floor_ms`` is the traffic this design moves for these rows
+    at the same rate."""
     N, T = x2d.shape
     if qk.kernel_route(T) != "global":
         raise AssertionError(f"{what}: rows of {T} keys do not take the "
                              "global-memory path")
-    x2d = with_hard_rows(x2d)
+    if hard_rows:
+        x2d = with_hard_rows(x2d)
     before = qk.long_launches
     got, want, ulps = quantile_check(x2d)
     if qk.long_launches != before + 1:
         raise AssertionError(f"{what}: the long-row kernel did not launch")
+    if ulps != 0:
+        raise AssertionError(f"{what}: {ulps} ulp from the plain version; "
+                             "the long-row path is exact")
+    split = launch_split(lambda: qk.robust_quantiles(x2d))
+    want_launches = getattr(qk, "LONG_PASSES", None)
+    if want_launches is not None and split["launches_per_call"] != want_launches:
+        raise AssertionError(f"{what}: a call launched {split['launch_names']}, "
+                             f"expected {want_launches} kernels")
+    traffic = long_traffic(x2d)
     fin = torch.isfinite(got) & torch.isfinite(want)
     q_lib = torch.tensor([0.25, 0.5, 0.75], device="cuda")
     lib_ms, lib_note = library_time(
         lambda: torch.quantile(x2d, q_lib, dim=1), flush)
     nbytes = N * T * 4 + N * 3 * 4
-    row = {"at": what, "shape": [N, T], "tolerance": "<= 1 ulp",
+    row = {"at": what, "shape": [N, T], "tolerance": "0 ulp",
            "max_ulp": ulps,
-           "max_abs_err": float((got[fin] - want[fin]).abs().max()),
+           "max_abs_err": float((got[fin] - want[fin]).abs().max())
+           if bool(fin.any()) else 0.0,
            "kernel_ms": time_ms(lambda: qk.robust_quantiles(x2d), flush,
                                 reps=10),
            "run_ms": run_ms([lambda x=x: qk.robust_quantiles(x)
                              for x in copies(x2d, nbytes)], n=16, reps=3),
+           **split,
            "plain_ms": time_ms(lambda: qk.robust_quantiles_plain(x2d), flush,
                                reps=5),
            "library_ms": lib_ms, "library_refused": lib_note,
            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-           "bound_by": "bytes",
-           "design_floor_ms": 4 * N * T * 4 / HBM_BYTES_PER_S * 1e3}
+           "bound_by": "bytes", **traffic,
+           "design_floor_ms": traffic["moved_bytes"] / HBM_BYTES_PER_S * 1e3}
     emit({"phase": "brennan_kernels", "kernel": "robust_quantiles_long", **row})
     return row
 
@@ -1863,16 +1942,51 @@ def phase_brennan_kernels(row_len: int, flush) -> dict:
     """The quantile kernel's global-memory path against its plain version
     on the card: hard rows at T = 58,113 (just past the shared-memory
     path), Brennan's subject-wise rows (S·C rows of ``row_len``) and its
-    pooled rows (C rows of S·``row_len``)."""
+    pooled rows (C rows of S·``row_len``), then at the subject-wise shape
+    an input quantized as an ADC quantizes EEG (``round(randn·200)/10``:
+    few distinct values, long runs of equal keys) and a constant input
+    (every key equal: the lists pass the cap, a third full read)."""
     g = torch.Generator(device="cuda").manual_seed(11)
     S, Cb = BRENNAN["S"], BRENNAN["C"]
+    sw = (S * Cb, row_len)
     out = {}
     for what, shape in (("T=58113", (BATCH, qk.SHARED_MAX_T + 1)),
-                        ("subject-wise", (S * Cb, row_len)),
+                        ("subject-wise", sw),
                         ("pooled", (Cb, S * row_len))):
         out[what] = long_quantile_case(
             torch.randn(shape, device="cuda", generator=g), flush, what)
+    out["subject-wise quantized"] = long_quantile_case(
+        torch.round(torch.randn(sw, device="cuda", generator=g) * 200) / 10,
+        flush, "subject-wise quantized", hard_rows=False)
+    out["subject-wise constant"] = long_quantile_case(
+        torch.full(sw, 1.5, device="cuda"), flush, "subject-wise constant",
+        hard_rows=False)
+    quantile_long_edges(g)
     return out
+
+
+def quantile_long_edges(g) -> None:
+    """The long-row path off Brennan's shapes, each against the plain
+    version (0 ulp): one quantile, and four with ranks 0 and T − 1 that do
+    not interpolate; rows of odd length and a base 4 bytes past a 16-byte
+    boundary (the scalar heads and tails); then every zeroed scratch the
+    calls left behind must be zero again."""
+    for (n, t), qs, offset in (((9, 58_113), (50.0,), 0),
+                               ((9, 100_003), (0.0, 33.3, 99.99, 100.0), 0),
+                               ((9, 65_536), (25.0, 50.0, 75.0), 1)):
+        buf = torch.randn(n * t + offset, device="cuda", generator=g)
+        x2d = with_hard_rows(buf[offset:].view(n, t))
+        got = qk.robust_quantiles(x2d, qs)
+        want = qk.robust_quantiles_plain(x2d, qs)
+        torch.cuda.synchronize()
+        if not torch.equal(torch.isnan(got), torch.isnan(want)) \
+                or ulp_distance(got, want) != 0:
+            raise AssertionError(f"robust_quantiles {(n, t)} qs {qs} offset "
+                                 f"{offset}: not the plain version's")
+    for buf in getattr(qk, "_ZEROED", {}).values():
+        if int(torch.count_nonzero(buf)) != 0:
+            raise AssertionError("the long-row path left its zeroed scratch "
+                                 "nonzero")
 
 
 def phase_brennan_data(seed: int):
@@ -3797,6 +3911,11 @@ def phase_galleries(seed: int, work: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke run of the port")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument(
+        "--phase", choices=("all", "brennan_kernels"), default="all",
+        help="brennan_kernels: build, then only that phase at Brennan's "
+             "row length; copied into another checkout's root, it times that "
+             "checkout's kernel the same way, for comparisons in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -3814,6 +3933,15 @@ def main(argv=None) -> int:
     phase_build()
     phase_device()
     lap("build")
+    # The long-row percentile checks run first: their torch.profiler split
+    # came back empty for most calls in a process that had already run the
+    # later phases' profilers and process groups.
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    brennan_k = phase_brennan_kernels(BRENNAN_ROW_KEYS, flush)
+    del flush
+    lap("brennan_kernels")
+    if args.phase == "brennan_kernels":
+        return 0
 
     work = os.path.join(ROOT, "runs_out", f"chip_smoke_{os.getpid()}")
     try:
@@ -3879,11 +4007,11 @@ def main(argv=None) -> int:
         lap("spill_god")
 
         brennan_ds, row_len, brennan_build = phase_brennan_data(args.seed)
+        if row_len != BRENNAN_ROW_KEYS:
+            raise AssertionError(f"the Brennan build's rows hold {row_len} "
+                                 f"keys; brennan_kernels checked "
+                                 f"{BRENNAN_ROW_KEYS}")
         lap("brennan_data")
-        flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
-        brennan_k = phase_brennan_kernels(row_len, flush)
-        del flush
-        lap("brennan_kernels")
         brennan_train = phase_brennan_training(brennan_ds, args.seed)
         del brennan_ds
         lap("brennan_training")
@@ -4070,6 +4198,8 @@ def main(argv=None) -> int:
          "max_abs_err": max(r["max_abs_err"] for r in brennan_k.values()),
          "max_ulp": max(r["max_ulp"] for r in brennan_k.values()),
          "shape": bl["shape"], "ms": bl["kernel_ms"], "run_ms": bl["run_ms"],
+         "pass_ms": bl["pass_ms"], "launches_per_call": bl["launches_per_call"],
+         "candidate_bytes": bl["candidate_bytes"],
          "plain_ms": bl["plain_ms"], "bound_ms": bl["bound_ms"],
          "bound_by": "bytes", "library_ms": bl["library_ms"],
          "library_refused": bl["library_refused"],

@@ -13,8 +13,12 @@ keys: −NaN < −inf < … < −0 < +0 < … < +inf < +NaN).
   the lanes that hold them; a row of up to ``SHARED_MAX_T`` keys is kept in
   shared memory and each order statistic found by bisection over the key
   space; a longer row (a whole recording, as the Brennan build scales
-  them) stays in global memory and takes a radix select, 8 bits of the
-  key a pass, its rows spread over many CTAs.  All blend in f32.
+  them) stays in global memory and takes a radix select, 11, 11 and 10
+  bits of the key in three passes of one kernel each, its rows spread over
+  many CTAs: two full reads of the row, then only the keys that share a
+  target's 11-bit prefix, which the second read compacts into a candidate
+  list (a row whose list would pass ``T // 4`` keys is read a third time
+  instead).  All blend in f32.
 * The plain version sorts the flipped int32 KEYS with ``torch.sort`` (a
   float sort would put every NaN last and tie ±0), then applies the same
   blend.
@@ -42,23 +46,37 @@ import numpy as np
 import torch
 
 __all__ = ["robust_quantiles", "robust_quantiles_plain", "ranks_and_weights",
-           "kernel_route", "REGISTER_MAX_T", "SHARED_MAX_T", "launches",
-           "long_launches", "reset_launches", "OP", "OP_NAME"]
+           "kernel_route", "REGISTER_MAX_T", "SHARED_MAX_T", "LONG_PASSES",
+           "long_candidate_stride", "long_scratch_words", "long_candidates",
+           "launches", "long_launches", "reset_launches", "OP", "OP_NAME"]
 
 _I32_MAX = int(np.iinfo(np.int32).max)
 _MAX_QUANTILES = 4
 _MAX_TARGETS = 2 * _MAX_QUANTILES  # kMaxTargets: order statistics k and k + 1
-_BINS = 256
 # longest row the kernel sorts in registers (kRegisterMaxT in the source)
 REGISTER_MAX_T = 1024
 # longest row kept in the opt-in shared memory (kSharedMaxT)
 SHARED_MAX_T = (227 * 1024) // 4
+# the global-memory path's kernels a call (kLongPasses) and its scratch
+# layout (kDigitBins, kStateWords, kStateTotal, kCandidateDiv)
+LONG_PASSES = 3
+_DIGIT_BINS = 2048
+_STATE_WORDS = 32
+_STATE_TOTAL = 2 * _MAX_TARGETS
+_CANDIDATE_DIV = 4
 
 # wrapper calls since the last reset_launches() that launched the register
 # or shared-memory kernel (``launches``) and the global-memory radix select
-# (``long_launches``, one a call for its 8 kernels)
+# (``long_launches``, one a call for its LONG_PASSES kernels)
 launches = 0
 long_launches = 0
+
+# The global-memory path's zeroed scratch (histograms, tickets, list
+# tails), kept per (device, stream): the kernels leave it zero, so it is
+# zeroed once and every later call on the same stream reuses it.  It
+# belongs to the stream it was made on (two streams sharing it would race),
+# grows when a call needs more, and is dropped when a launch fails.
+_ZEROED: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -85,6 +103,22 @@ def ranks_and_weights(T: int, qs) -> list[tuple[int, float, float, bool]]:
         out.append((int(np.floor(pos)), float(np.float32(1.0 - frac)),
                     float(np.float32(frac)), bool(frac != 0.0)))
     return out
+
+
+def long_candidate_stride(T: int) -> int:
+    """Keys of a row's candidate region, the cap on its list:
+    ``T // kCandidateDiv`` rounded down to whole 16-byte vectors."""
+    return (T // _CANDIDATE_DIV) & ~3
+
+
+def long_scratch_words(N: int, T: int, n_quantiles: int) -> tuple[int, int]:
+    """int32 words of the global-memory path's scratch for ``N`` rows of
+    ``T`` keys: (zeroed, work).  Zeroed, zero on entry and left zero: per
+    row a histogram of kDigitBins bins for each of the 2·n targets, a
+    ticket and its list's tail.  Work: per row its state and its candidate
+    region."""
+    zeroed = N * (2 * n_quantiles * _DIGIT_BINS + 2)
+    return zeroed, N * (_STATE_WORDS + long_candidate_stride(T))
 
 
 def _flip(b: torch.Tensor) -> torch.Tensor:
@@ -141,8 +175,9 @@ def _check(x2d: torch.Tensor, qs) -> None:
         raise ValueError(f"1 to {_MAX_QUANTILES} quantiles, got {len(qs)}")
 
 
-def _launch(x2d: torch.Tensor, qs) -> torch.Tensor:
-    """The kernel on a CUDA tensor, on the current stream."""
+def _launch_rows(x2d: torch.Tensor, qs):
+    """The kernel on a CUDA tensor, on the current stream: (out, the
+    global-memory path's work scratch, or None on the other routes)."""
     _check(x2d, qs)
     if not x2d.is_cuda:
         raise ValueError(f"the robust_quantiles kernel runs on cuda, not {x2d.device}")
@@ -158,20 +193,23 @@ def _launch(x2d: torch.Tensor, qs) -> torch.Tensor:
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     fn, long_fn = _lib()
     long_rows = kernel_route(T) == "global"
+    work = None
     if not long_rows:
         err = fn(x2d.data_ptr(), out.data_ptr(), N, T, ctypes.byref(spec),
                  stream)
     else:
-        # the radix select's scratch: per row a 256-bin histogram for each
-        # target (zero on entry; the kernels leave it zero) and each
-        # target's key prefix and remaining rank
-        hist = torch.zeros(N * 2 * len(qs) * _BINS, dtype=torch.int32,
-                           device=x2d.device)
-        state = torch.empty(N * 2 * _MAX_TARGETS, dtype=torch.int32,
-                            device=x2d.device)
+        n_zeroed, n_work = long_scratch_words(N, T, len(qs))
+        key = (x2d.device.index, stream)
+        zeroed = _ZEROED.get(key)
+        if zeroed is None or zeroed.numel() < n_zeroed:
+            zeroed = _ZEROED[key] = torch.zeros(
+                n_zeroed, dtype=torch.int32, device=x2d.device)
+        work = torch.empty(n_work, dtype=torch.int32, device=x2d.device)
         err = long_fn(x2d.data_ptr(), out.data_ptr(), N, T,
-                      ctypes.byref(spec), hist.data_ptr(), state.data_ptr(),
+                      ctypes.byref(spec), zeroed.data_ptr(), work.data_ptr(),
                       stream)
+        if err != 0:
+            del _ZEROED[key]
     if err != 0:
         raise RuntimeError(
             f"robust_quantiles kernel launch failed: CUDA error {err}")
@@ -180,7 +218,25 @@ def _launch(x2d: torch.Tensor, qs) -> torch.Tensor:
         long_launches += 1
     else:
         launches += 1
-    return out
+    return out, work
+
+
+def _launch(x2d: torch.Tensor, qs) -> torch.Tensor:
+    """The kernel on a CUDA tensor, on the current stream."""
+    return _launch_rows(x2d, qs)[0]
+
+
+def long_candidates(x2d: torch.Tensor,
+                    qs: tuple = (25.0, 50.0, 75.0)) -> torch.Tensor:
+    """One call of the global-memory path on CUDA rows (counted in
+    ``long_launches``), and per row the keys its second read wrote to the
+    row's candidate list: an (N,) int32 tensor, −1 where the list would
+    have passed the cap and the row was read a third time instead."""
+    if kernel_route(x2d.shape[1]) != "global":
+        raise ValueError(f"rows of {x2d.shape[1]} keys do not take the "
+                         "global-memory path")
+    _, work = _launch_rows(x2d, tuple(qs))
+    return work[: x2d.shape[0] * _STATE_WORDS].view(-1, _STATE_WORDS)[:, _STATE_TOTAL]
 
 
 def robust_quantiles(x2d: torch.Tensor,

@@ -260,55 +260,139 @@ def test_kernel_route_takes_the_global_path_past_the_shared_limit():
 
 
 def _long_walk(x: np.ndarray, qs=(25.0, 50.0, 75.0)):
-    """The global-memory path as ``csrc/robust_quantiles.cu`` runs it: per
-    pass, every CTA's histogram of the next 8-bit digit for each distinct
-    target prefix, summed over the row's CTAs of ``kLongChunk`` keys; then
-    each target's digit and remaining rank.  Returns the targets' keys
-    (N, 2n) (unsigned) and their ranks."""
+    """The global-memory path as ``csrc/robust_quantiles.cu`` runs it:
+    three passes, digits of 11, 11 and 10 bits.  Pass 0 histograms the top
+    digit of every key over the row's CTAs (even spans of at most
+    ``kLongChunk`` keys); its select sizes the row's candidate list, the
+    keys of every distinct 11-bit target prefix (their number from its
+    bins), kept only while it holds at most ``long_candidate_stride(T)``
+    keys.  A row with a list: pass 1 appends each key of a listed prefix to
+    it and counts nothing; pass 2, in one CTA, histograms the middle digit
+    of the list's keys for each distinct 11-bit prefix and selects, then
+    the last digit of the keys with each distinct 22-bit prefix, and
+    selects.  A row without one: pass 1 histograms the middle digit over
+    the row's CTAs, pass 2 the last digit over the row again (a third full
+    read, its spans ``kWideThreads / kLongThreads`` times longer where the
+    cap passes ``kWideListKeys``).  Returns the targets' keys (N, 2n)
+    (unsigned), their ranks and per row the list's keys (−1: the third full
+    read)."""
     src = "robust_quantiles"
-    chunk, bins = _const("kLongChunk", src), _const("kBins", src)
+    bits = [_const(n, src) for n in ("kHighBits", "kMidBits", "kLowBits")]
+    assert sum(bits) == 32 and _const("kLongPasses", src) == tq.LONG_PASSES == 3
+    assert (_const("kDigitBins", src), _const("kStateWords", src),
+            _const("kCandidateDiv", src)) == (tq._DIGIT_BINS, tq._STATE_WORDS,
+                                              tq._CANDIDATE_DIV)
     N, T = x.shape
+    cap = tq.long_candidate_stride(T)
+    chunk = _const("kLongChunk", src)
+    wide = cap > _const("kWideListKeys", src)
+    chunk2 = chunk * (_const("kWideThreads", src) // _const("kLongThreads", src)
+                      if wide else 1)
     u = (_flip(x.view(np.int32)).view(np.uint32) ^ np.uint32(0x80000000))
     ranks = []
     for rank, _, _, interp in tq.ranks_and_weights(T, qs):
         ranks += [rank, rank + 1 if interp else rank]
+
+    def count(keys, ctas, p, prefix):
+        """Pass p's digit of the keys that carry a target's prefix, one
+        histogram a distinct prefix (in target order: targets share their
+        bins), summed over ``ctas`` even spans."""
+        shift, b = 32 - sum(bits[: p + 1]), bits[p]
+        slots = list(dict.fromkeys(prefix))
+        span = (-(-len(keys) // ctas) + 3) & ~3
+        hist = np.zeros((len(slots), 1 << b), np.int64)
+        for c in range(ctas):
+            seg = keys[c * span:(c + 1) * span].astype(np.int64)
+            digit = (seg >> shift) & ((1 << b) - 1)
+            for j, pre in enumerate(slots):
+                hit = ((seg >> (shift + b)) == (pre >> (shift + b)) if p
+                       else np.ones(len(seg), bool))
+                hist[j] += np.bincount(digit[hit], minlength=1 << b)
+        return slots, hist
+
+    def select(p, prefix, remain, slots, hist):
+        """Each target's digit and remaining rank; the chosen bins' counts."""
+        shift, counts = 32 - sum(bits[: p + 1]), []
+        for t in range(len(ranks)):
+            cum = np.cumsum(hist[slots.index(prefix[t])])
+            d = int(np.searchsorted(cum, remain[t], side="right"))
+            counts.append(int(cum[d] - (cum[d - 1] if d else 0)))
+            remain[t] -= int(cum[d - 1]) if d else 0
+            prefix[t] |= d << shift
+        return counts
+
     keys = np.zeros((N, len(ranks)), np.uint32)
+    read = np.zeros(N, np.int64)
     for row in range(N):
         prefix, remain = [0] * len(ranks), list(ranks)
-        for p in range(4):
-            shift = 24 - 8 * p
-            mask = 0 if p == 0 else (0xFFFFFFFF << (32 - 8 * p)) & 0xFFFFFFFF
-            owner = [prefix.index(prefix[t]) for t in range(len(ranks))]
-            hist = np.zeros((len(ranks), bins), np.int64)
-            for c in range(-(-T // chunk)):
-                seg = u[row, c * chunk:(c + 1) * chunk].astype(np.int64)
-                digit = (seg >> shift) & (bins - 1)
-                for t in set(owner):
-                    hit = (seg & mask) == prefix[t]
-                    hist[t] += np.bincount(digit[hit], minlength=bins)
-            for t in range(len(ranks)):
-                cum = np.cumsum(hist[owner[t]])
-                d = int(np.searchsorted(cum, remain[t], side="right"))
-                remain[t] -= int(cum[d - 1]) if d else 0
-                prefix[t] |= d << shift
+        ctas = -(-T // chunk)
+        counts = select(0, prefix, remain, *count(u[row], ctas, 0, prefix))
+        owners = {}
+        for t in range(len(ranks)):
+            owners.setdefault(prefix[t], counts[t])
+        total = sum(owners.values())
+        if total <= cap:
+            # pass 1's appends: each key of a listed prefix, the list filled
+            # to exactly the length pass 0 gave it
+            top = 32 - bits[0]
+            lst = u[row][np.isin(u[row] >> top, [pre >> top for pre in owners])]
+            assert len(lst) == total
+            for p in (1, 2):  # pass 2's CTA, from the list
+                select(p, prefix, remain, *count(lst, 1, p, prefix))
+            read[row] = total
+        else:
+            select(1, prefix, remain, *count(u[row], ctas, 1, prefix))
+            select(2, prefix, remain, *count(u[row], -(-T // chunk2), 2, prefix))
+            read[row] = -1
         keys[row] = prefix
-    return keys, ranks
+    return keys, ranks, read
 
 
-def test_long_row_walk_finds_the_exact_order_statistics():
-    """At T = 58,113 (just past the shared-memory path) on rows with NaN
-    of both signs, ±inf, ±0, constants and ties, and one row whose order
-    statistics all fall in one run of equal values."""
-    T = tq.SHARED_MAX_T + 1
-    x = _hard_rows(T, np.random.RandomState(7))[:12]
-    lo, hi = T // 5, T - T // 5
-    x[9, :lo] = -1.0 - np.abs(x[9, :lo])
-    x[9, lo:hi] = 0.5
-    x[9, hi:] = 2.0 + np.abs(x[9, hi:])
-    keys, ranks = _long_walk(x)
+def _long_rows(case: str, T: int) -> np.ndarray:
+    rng = np.random.RandomState(7)
+    if case == "hard":
+        x = _hard_rows(T, rng)[:12]
+        lo, hi = T // 5, T - T // 5
+        x[9, :lo] = -1.0 - np.abs(x[9, :lo])
+        x[9, lo:hi] = 0.5
+        x[9, hi:] = 2.0 + np.abs(x[9, hi:])
+        return x
+    if case == "one value":
+        return np.full((2, T), -2.5, np.float32)
+    if case == "three values":
+        return rng.choice(np.float32([-1.0, 0.25, 3.0]), size=(2, T))
+    if case == "quantized":  # an ADC's steps: round(randn·200)/10
+        return (np.round(rng.randn(3, T) * 200) / 10).astype(np.float32)
+    # pooled: (S=3, C=3, T/3) as the build pools it, (C, S·T/3); one
+    # channel flat (a dead electrode) takes the third full read
+    x = rng.randn(3, 3, T // 3).astype(np.float32)
+    x[:, 2] = 0.25
+    return np.ascontiguousarray(x.transpose(1, 0, 2).reshape(3, -1))
+
+
+@pytest.mark.parametrize("case,third_read", [
+    ("hard", None), ("one value", True), ("three values", True),
+    ("quantized", False), ("pooled", (False, False, True))])
+def test_long_row_walk_finds_the_exact_order_statistics(case, third_read):
+    """The walk's keys are a sort's order statistics and their blend is the
+    plain version's, bit for bit: at T = 58,113 (just past the shared-memory
+    path) on rows with NaN of both signs, ±inf, ±0, constants and ties, and
+    one row whose order statistics all fall in one run of equal values; on
+    a row of one value and of three (their lists pass the cap: a third full
+    read); on a quantized row (lists kept) and on the pooled layout, past
+    the cap that widens pass 2, with a flat channel (its third read)."""
+    # pooled: 300,000 keys, a cap past kWideListKeys (pass 2's wide CTAs)
+    T = tq.SHARED_MAX_T + 1 if case != "pooled" else 3 * 100_000
+    x = _long_rows(case, T)
+    T = x.shape[1]
+    keys, ranks, read = _long_walk(x)
     srt = np.sort(_flip(x.view(np.int32)).view(np.uint32)
                   ^ np.uint32(0x80000000), axis=1)
     np.testing.assert_array_equal(keys, srt[:, ranks])
+    if third_read is not None:
+        assert ((read < 0) == np.asarray(third_read)).all(), read
+        # the lists kept hold ~7 % of a row here
+        assert (read[read >= 0] < tq.long_candidate_stride(T) // 2).all(), read
     # the blend of those statistics is the plain version's
     vals = _flip((keys ^ np.uint32(0x80000000)).view(np.int32)).view(np.float32)
     plain = tq.robust_quantiles_plain(torch.from_numpy(x)).numpy()
@@ -319,7 +403,27 @@ def test_long_row_walk_finds_the_exact_order_statistics():
                      + (v_hi * np.float32(w_hi)).astype(np.float64))
                     .astype(np.float32) if interp else v_lo)
         assert _ulp_diff(plain[:, q], want) == 0, q
-    np.testing.assert_array_equal(plain[9], np.float32(0.5))
+    if case == "hard":
+        np.testing.assert_array_equal(plain[9], np.float32(0.5))
+
+
+@pytest.mark.parametrize("N,T", [(1980, 88_920), (60, 2_934_360),
+                                 (64, tq.SHARED_MAX_T + 1)])
+def test_long_scratch_covers_the_walk_within_one_copy_of_x(N, T):
+    """The wrapper's scratch sizing (``long_scratch_words``) against the
+    source's layout: a histogram of kDigitBins bins for each target, a
+    ticket and kMaxTargets list tails a row (zeroed), a row's state and its
+    candidate region (work), which holds the longest lists the walk keeps
+    (``long_candidate_stride``: its cap); together within x's bytes."""
+    src = "robust_quantiles"
+    bins, state = _const("kDigitBins", src), _const("kStateWords", src)
+    for n in (3, 4):  # the collate's quantiles, and the most the kernel takes
+        zeroed, work = tq.long_scratch_words(N, T, n)
+        assert zeroed == N * (2 * n * bins + 2)
+        cap = tq.long_candidate_stride(T)
+        assert work == N * (state + cap)
+        assert cap % 4 == 0 and T // _const("kCandidateDiv", src) - 3 <= cap
+        assert (zeroed + work) * 4 <= N * T * 4
 
 
 # --- the unfused train step -----------------------------------------------
