@@ -94,6 +94,29 @@ Phases, each printed as one JSON line:
               runs printed), then the
               train CLI with ``use_scan_epochs`` (speech on the sentence
               split), exact launch counts;
+    graphs — (speech paths after ``training``, GOD paths after
+              ``god_training``) the train step as one captured CUDA graph
+              (``train/graph.py``) against the eager step, from one init
+              on the same draws, cuDNN deterministic: (a) the fused speech
+              step at ``config.yaml``'s width, f32, B = 64, 6 steps; (b)
+              the same under ``throughput.yaml`` as published (bf16,
+              B = 256, cached statistics); (c)
+              ``make_gwilliams_scan_epoch`` and (d) ``make_scan_epoch`` on
+              ``config_GOD.yaml``'s brain encoder, 2 epochs of 4 updates;
+              (e) GOD's ``fit`` step with ``model=eegnet`` (its dropout
+              masks drawn on the host), 6 steps.  Each path: state and
+              metrics within 1e-5 of each tensor's max (and whether bit-
+              identical), each kernel's launches a replay equal to the
+              eager step's, one replay a step and one capture, eager and
+              graph ms a step (median), capture seconds, peak memory, then
+              each route under torch.profiler with cuDNN's default
+              algorithms (the graph captured again): ms, device operations
+              and busy ms a step, idle share.  Every train CLI run on one
+              card with its set on the card (``training``, ``unfused_step``,
+              ``presets``, ``scan_epochs``, ``god_training``, ``model_zoo``,
+              ``brennan_cli``) must replay its graph once a step, after one
+              capture; the
+              spill and data-parallel CLIs step eagerly (no replay);
     model_zoo — ``cli/train_god.py`` with ``model=eegnet`` (config_GOD's
               EEGNet hyper-parameters) and with
               ``model=brain_endcoder_seq2static window.end=0.6`` (T = 48,
@@ -123,11 +146,14 @@ Phases, each printed as one JSON line:
     brennan_training — the unfused step at the full width on the built
               dataset: its first step against the CPU (loss and global
               gradient norm within 1e-4), then the steady step and the
-              device operations a step (``torch.profiler``);
+              device operations a step (``torch.profiler``), eager and
+              replayed as a CUDA graph (``graph``: ms, operations, busy,
+              idle share, capture s, peak memory);
     brennan_cli — the train CLI for one epoch of 4 updates on
               ``make_synthetic_brennan_raw``'s files (6 subjects × 60
               channels × 120 s, subjects pooled: rows of 84,240 keys), then
-              the eval CLI on its checkpoint; exact launch counts;
+              the eval CLI on its checkpoint; exact launch counts, the
+              train CLI one graph replay an update, each CLI's peak memory;
     w2v_features — wav2vec2-large-xlsr-53 (317 M parameters) with seeded
               random weights: every hidden state of a 3 s clip card against
               CPU (max|Δ| ≤ 1e-4·max|ref|), a 2-layer copy's chunked,
@@ -285,7 +311,9 @@ run no TPU kernel in the JAX package, and none here.
 Any failure raises and exits non-zero.  Without CUDA, or without the rest
 of the repository beside it, it exits non-zero and prints no result.
 
-Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
+Run from the repository root: ``python3 chip_smoke.py [--seed N]``;
+``--phase graphs`` runs the build, the speech cache, the ``graphs`` phase's
+speech paths, the GOD data and its GOD paths, and stops.
 """
 
 from __future__ import annotations
@@ -355,7 +383,9 @@ from meg_decoding_tpu_torch.serving.export import (
     make_serving_forward,
     save_artifact,
 )
+from meg_decoding_tpu_torch.train import graph as tg
 from meg_decoding_tpu_torch.train.checkpoint import CheckpointManager
+from meg_decoding_tpu_torch.train.graph import GraphedStep
 from meg_decoding_tpu_torch.train.loop import _test_pool_starts
 from meg_decoding_tpu_torch.train.optim import Adam
 from meg_decoding_tpu_torch.train.scan_loop import (
@@ -499,7 +529,8 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": info["seconds"], "ptxas": ptxas})
 
 
-def phase_device() -> None:
+def phase_device() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
     line = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -509,6 +540,7 @@ def phase_device() -> None:
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
+    return line
 
 
 def gather_case(src, B, L, seed, out_dtype, flush):
@@ -1009,6 +1041,7 @@ def reset_all_launches() -> None:
     wg.reset_launches()
     qk.reset_launches()
     bk.reset_launches()
+    tg.reset_counts()
 
 
 def all_launches() -> dict:
@@ -1118,6 +1151,7 @@ def phase_training(cfg, ds, tr_idx, seed, work) -> dict:
                 "bn_bwd_stats": BN_PER_STEP * TRAIN_UPDATES}
     if launches != expected:
         raise AssertionError(f"train CLI launches {launches}, expected {expected}")
+    replays = graph_replays("train CLI", TRAIN_UPDATES)
     emit({"phase": "training", "card_vs_cpu": check, "rel_err_limit": 1e-4,
           "first_step_ms": first_ms, "fused_step_ms": step_ms,
           "steady_step_ms": float(np.median(step_ms[1:])),
@@ -1126,7 +1160,7 @@ def phase_training(cfg, ds, tr_idx, seed, work) -> dict:
                                              "train_top1", "train_top10",
                                              "test_loss", "test_top1",
                                              "test_top10")},
-          "test_pools": pools, "launches": launches,
+          "test_pools": pools, "launches": launches, "graph": replays,
           "bn_stats_routes": dict(bk.stats_route_launches),
           "bn_bwd_sums_only_launches": bk.sums_only_launches})
     return {"launches": launches, "stats_routes": dict(bk.stats_route_launches),
@@ -1299,6 +1333,7 @@ def phase_god_training(cfg, ds, seed) -> dict:
                 "bn_bwd_stats": BN_PER_STEP * updates}
     if launches != expected:
         raise AssertionError(f"GOD train CLI launches {launches}, expected {expected}")
+    replays = graph_replays("GOD train CLI", updates)
     emit({"phase": "god_training", "card_vs_cpu": check, "rel_err_limit": 1e-4,
           "first_step_ms": first_ms, "step_ms": step_ms,
           "steady_step_ms": float(np.median(step_ms[1:])), "losses": losses,
@@ -1307,7 +1342,8 @@ def phase_god_training(cfg, ds, seed) -> dict:
               "train_loss", "train_skipped", "train_top1", "train_top10",
               "test_loss", "test_top1", "test_top10", "t_gather_ms",
               "t_step_ms")},
-          "launches": launches, "bn_stats_routes": dict(bk.stats_route_launches),
+          "launches": launches, "graph": replays,
+          "bn_stats_routes": dict(bk.stats_route_launches),
           "bn_bwd_sums_only_launches": bk.sums_only_launches})
     return {"launches": launches, "stats_routes": dict(bk.stats_route_launches),
             "steady_step_ms": float(np.median(step_ms[1:]))}
@@ -1518,6 +1554,7 @@ def phase_presets(cfg, ds, tr_idx, seed, work, flush) -> dict:
         if launches != expected:
             raise AssertionError(f"{preset} CLI launches {launches}, "
                                  f"expected {expected}")
+        replays = graph_replays(f"{preset} CLI", PRESET_UPDATES)
         if best.get("train_skipped") != 0.0 or not math.isfinite(best["train_loss"]):
             raise AssertionError(f"{preset} CLI: {best}")
         out["launches"][preset] = launches
@@ -1540,6 +1577,7 @@ def phase_presets(cfg, ds, tr_idx, seed, work, flush) -> dict:
               "first_step_ms": step_ms[0], "step_ms": step_ms,
               "steady_step_ms": float(np.median(step_ms[1:])), "losses": losses,
               "train_cli_s": run_s, "test_pools": pools, "launches": launches,
+              "graph": replays,
               "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
                                                  "test_loss", "test_top10")}})
     return out
@@ -1647,11 +1685,12 @@ def phase_scan_speech(cfg, ds, tr_idx, seed, work) -> dict:
                 "bn_bwd_stats": BN_PER_STEP * SCAN_UPDATES}
     if launches != expected:
         raise AssertionError(f"scan CLI launches {launches}, expected {expected}")
+    replays = graph_replays("scan CLI", SCAN_UPDATES)
     if best.get("train_skipped") != 0.0 or "t_step_ms" in best:
         raise AssertionError(f"scan CLI: {best}")
     emit({"phase": "scan_epochs", "workload": "speech", "updates": SCAN_UPDATES,
           "batch_size": BATCH, **check, "train_cli_s": run_s,
-          "test_pools": pools, "launches": launches,
+          "test_pools": pools, "launches": launches, "graph": replays,
           "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
                                              "test_loss", "test_top10")}})
     return launches
@@ -1710,14 +1749,282 @@ def phase_scan_god(cfg, ds, seed) -> dict:
                 "bn_bwd_stats": BN_PER_STEP * SCAN_UPDATES}
     if launches != expected:
         raise AssertionError(f"GOD scan CLI launches {launches}, expected {expected}")
+    replays = graph_replays("GOD scan CLI", SCAN_UPDATES)
     if best.get("train_skipped") != 0.0 or "t_step_ms" in best:
         raise AssertionError(f"GOD scan CLI: {best}")
     emit({"phase": "scan_epochs", "workload": "god", "updates": SCAN_UPDATES,
           "batch_size": BATCH, **check, "train_cli_s": run_s,
-          "test_pools": pools, "launches": launches,
+          "test_pools": pools, "launches": launches, "graph": replays,
           "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
                                              "test_loss", "test_top10")}})
     return launches
+
+
+GRAPH_STEPS = 6        # same-draw steps of each step path (graphs phase)
+GRAPH_EPOCHS = 2       # same-draw epochs of SCAN_UPDATES of each epoch path
+GRAPH_RTOL = 1e-5      # graph vs eager: the same kernels on the same inputs
+GRAPH_PROFILE_STEPS = 4  # a route's profile: steps timed, then as many traced
+
+
+def state_entries(state) -> dict:
+    """Every tensor of a train state by name: parameters and BN buffers,
+    Adam's moments and count, the step."""
+    sd = state.state_dict()
+    return {**sd["params"], **{f"mu.{k}": v for k, v in sd["opt"]["mu"].items()},
+            **{f"nu.{k}": v for k, v in sd["opt"]["nu"].items()},
+            "opt.count": sd["opt"]["count"], "step": sd["step"]}
+
+
+def rel_diff(got: dict, want: dict) -> tuple[float, bool]:
+    """Largest max|Δ| / max|want| over the entries of two dicts of tensors
+    (of a tensor that is 0 in ``want``: max|Δ|), and whether every entry is
+    bit-identical."""
+    worst, same = 0.0, True
+    for k, w in want.items():
+        g, w = got[k].double(), w.double()
+        same = same and torch.equal(g, w)
+        worst = max(worst, float((g - w).abs().max())
+                    / max(float(w.abs().max()), 1e-30))
+    return worst, same
+
+
+def per_unit(delta: dict, units: int) -> dict:
+    """Launch counts of a run, a unit (step or update): exact or raises."""
+    out = {}
+    for k, n in delta.items():
+        if n % units:
+            raise AssertionError(f"{k}: {n} launches over {units} steps")
+        if n:
+            out[":".join(str(p) for p in k if p is not None)] = n // units
+    return out
+
+
+def graph_route_profile(cfg, one, per_call: int) -> dict:
+    """``profile_train_step.profile_config`` of one route (one untimed
+    call, then GRAPH_PROFILE_STEPS steps timed and as many traced, in calls
+    of ``per_call`` steps), by step: steady ms, device operations, busy
+    ms, idle share of the traced window and of the kernels' span."""
+    r = profile_config(cfg, one, 1, max(GRAPH_PROFILE_STEPS // per_call, 1))
+    return {"step_ms": r["step_ms_median"] / per_call,
+            "device_ops_per_step": r["device_ops_per_step"] / per_call,
+            "busy_ms_per_step": r["busy_ms_per_step"] / per_call,
+            "idle_share_of_window": r["idle_share_of_window"],
+            "idle_share_of_kernel_span": r["idle_share_of_kernel_span"],
+            "top_kernels": r["top_kernels"][:3]}
+
+
+def graph_path(name: str, cfg, make, calls: int, per_call: int,
+               smi: str) -> dict:
+    """One path of the ``graphs`` phase.  ``make()`` builds one train state
+    and returns ``(state, eager(i), graphed(i), graph_of())``: call i of
+    the eager route and of the graph route on that state (a step, or an
+    epoch of ``per_call`` updates) on draw i, each returning its metrics,
+    and the route's ``GraphedStep``.  Two states from one init take the
+    same ``calls`` draws, cuDNN deterministic: state and metrics within
+    GRAPH_RTOL of each tensor's max, launches a step equal, one replay a
+    step; then, with cuDNN's default algorithms, each route's profile
+    (the graph captured again)."""
+    t_path = time.perf_counter()
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for route in ("eager", "graph"):
+            state, eager, graphed, graph_of = make()
+            fn = eager if route == "eager" else graphed
+            reset_all_launches()
+            before = tg.launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms, hist = [], []
+            for i in range(calls):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = fn(i)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3 / per_call)
+                hist.append({k: v.detach().clone() for k, v in m.items()})
+            after = tg.launch_counts()
+            runs[route] = {
+                "state": state, "fn": fn, "graph_of": graph_of, "ms": ms,
+                "hist": hist, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": per_unit({k: after[k] - before[k] for k in after},
+                                     calls * per_call),
+                "replays": tg.replays, "captures": tg.captures}
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    e, g = runs["eager"], runs["graph"]
+    state_rel, state_same = rel_diff(state_entries(g["state"]),
+                                     state_entries(e["state"]))
+    metrics_rel, metrics_same = rel_diff(
+        {k: torch.stack([h[k] for h in g["hist"]]) for k in g["hist"][0]},
+        {k: torch.stack([h[k] for h in e["hist"]]) for k in e["hist"][0]})
+    if not (state_rel <= GRAPH_RTOL and metrics_rel <= GRAPH_RTOL):
+        raise AssertionError(f"graphs {name}: graph vs eager state {state_rel}, "
+                             f"metrics {metrics_rel}")
+    if any(float(h["skipped"]) != 0.0 for h in e["hist"] + g["hist"]):
+        raise AssertionError(f"graphs {name}: a step was skipped")
+    if g["launches"] != e["launches"] or not e["launches"]:
+        raise AssertionError(f"graphs {name}: launches a step, graph "
+                             f"{g['launches']} vs eager {e['launches']}")
+    if (e["replays"], g["replays"], g["captures"]) != (0, calls * per_call, 1):
+        raise AssertionError(f"graphs {name}: replays eager {e['replays']}, "
+                             f"graph {g['replays']}, captures {g['captures']}")
+    capture_s = g["graph_of"]().capture_seconds
+    for r in (e, g):  # free both states and the graph before the profiles
+        del r["state"], r["fn"], r["graph_of"]
+    profiles = {}
+    for k, route in enumerate(("eager", "graph")):
+        _, eager, graphed, graph_of = make()
+        profiles[route] = graph_route_profile(cfg, (eager, graphed)[k], per_call)
+        if route == "graph":
+            profiles[route]["capture_s"] = graph_of().capture_seconds
+        del eager, graphed, graph_of
+    row = {"phase": "graphs", "path": name, "device": smi,
+           "steps": calls * per_call, "cudnn_deterministic_check": True,
+           "state_rel_err": state_rel, "state_bit_identical": state_same,
+           "metrics_rel_err": metrics_rel,
+           "metrics_bit_identical": metrics_same, "limit": GRAPH_RTOL,
+           "eager_ms": e["ms"], "graph_ms": g["ms"],
+           "eager_ms_median": float(np.median(e["ms"][1:])),
+           "graph_ms_median": float(np.median(g["ms"][1:])),
+           "capture_s": capture_s, "launches_per_step": e["launches"],
+           "replays": g["replays"], "peak_gb": {"eager": e["peak_gb"],
+                                                "graph": g["peak_gb"]},
+           "profile": profiles, "seconds": time.perf_counter() - t_path}
+    emit(row)
+    return row
+
+
+def phase_graphs_speech(cfg, ds, tr_idx, seed, smi: str) -> dict:
+    """Paths (a)–(c) of the ``graphs`` phase: the fused speech step at
+    ``configs/config.yaml``'s width (f32, B = 64), the same under
+    ``configs/throughput.yaml`` as published (bf16, B = 256, the cached
+    collate statistics), and ``make_gwilliams_scan_epoch``."""
+    dev = torch.device("cuda")
+    loc = ch_locations_2d(cfg)
+    pool = evaluate_speech.SpeechPool(ds, tr_idx, seed=seed)
+    Cx = int(ds.recordings.shape[2])
+    out = {}
+    pcfg = compose(CONFIGS_DIR, "throughput", [f"cache_dir={cfg.cache_dir}",
+                                               f"seed={seed}"])
+    pcfg.num_subjects = ds.num_subjects
+    table = compute_collate_stats(ds, evaluate_speech.collate_config(
+        pcfg).baseline_len_samp)
+    for name, c, stats in (("a_fused_speech_f32_b64", cfg, None),
+                           ("b_throughput_bf16_b256", pcfg, table)):
+        B = int(c.batch_size)
+        rng = np.random.RandomState(seed + 11)
+        idx = [pool.segment_ids(rng.randint(0, len(pool), B))
+               for _ in range(GRAPH_STEPS)]
+
+        def make(c=c, stats=stats, idx=idx):
+            model = get_model(c, loc, device=dev, seed=seed, num_channels=Cx)
+            opt = make_optimizer(c, int(c.updates))
+            state = create_train_state(model, opt, float(c.init_temperature),
+                                       seed)
+            step = make_fused_speech_step(
+                model, opt, train_speech.loss_config(c),
+                evaluate_speech.collate_config(c), ds, collate_stats=stats)
+            graphed = GraphedStep(step.body, state)
+            gen = lambda i: torch.Generator().manual_seed(seed * 1000 + i)
+            return (state,
+                    lambda i: step(state, idx[i % len(idx)], gen(i))[1],
+                    lambda i: graphed(step.prepare(state, idx[i % len(idx)],
+                                                   gen(i))),
+                    lambda: graphed)
+
+        out[name] = graph_path(name, c, make, GRAPH_STEPS, 1, smi)
+    del table
+
+    rng = np.random.RandomState(seed + 12)
+    draws = [(torch.as_tensor(np.stack([
+        pool.segment_ids(rng.randint(0, len(pool), BATCH))
+        for _ in range(SCAN_UPDATES)]), device=dev),
+        torch.randint(0, ds.num_sessions, (SCAN_UPDATES, BATCH), device=dev,
+                      generator=torch.Generator(dev).manual_seed(seed + e)))
+        for e in range(GRAPH_EPOCHS)]
+
+    def make_epoch():
+        model = get_model(cfg, loc, device=dev, seed=seed, num_channels=Cx)
+        opt = make_optimizer(cfg, SCAN_UPDATES)
+        state = create_train_state(model, opt, float(cfg.init_temperature), seed)
+        epoch = make_gwilliams_scan_epoch(
+            model, opt, train_speech.loss_config(cfg),
+            evaluate_speech.collate_config(cfg), ds, SCAN_UPDATES, BATCH)
+        run = lambda i, f: f(state, idx=draws[i % GRAPH_EPOCHS][0],
+                             sess_ids=draws[i % GRAPH_EPOCHS][1])[1]
+        return (state, lambda i: run(i, epoch.eager), lambda i: run(i, epoch),
+                lambda: epoch.graphed)
+
+    out["c_gwilliams_scan_epoch"] = graph_path(
+        "c_gwilliams_scan_epoch", cfg, make_epoch, GRAPH_EPOCHS, SCAN_UPDATES,
+        smi)
+    return out
+
+
+def phase_graphs_god(cfg, ds, seed, smi: str) -> dict:
+    """Paths (d) and (e) of the ``graphs`` phase: ``make_scan_epoch`` on
+    ``configs/config_GOD.yaml``'s brain encoder, and ``fit``'s step with
+    ``model=eegnet`` (its two dropout masks drawn on the host)."""
+    dev = torch.device("cuda")
+    cfg.num_subjects = ds.num_subjects
+    out = {}
+    draws = [torch.randint(0, len(ds), (SCAN_UPDATES, BATCH), device=dev,
+                           generator=torch.Generator(dev).manual_seed(seed + e))
+             for e in range(GRAPH_EPOCHS)]
+    loc = ch_locations_2d(cfg, roi(cfg))
+
+    def make_epoch():
+        model = get_model(cfg, loc, device=dev, seed=seed, num_channels=len(loc))
+        opt = make_optimizer(cfg, SCAN_UPDATES)
+        state = create_train_state(model, opt, float(cfg.init_temperature), seed)
+        epoch = make_scan_epoch(model, opt, train_god._loss_config(cfg),
+                                evaluate_speech.collate_config(cfg), ds,
+                                SCAN_UPDATES, BATCH)
+        run = lambda i, f: f(state, idx=draws[i % GRAPH_EPOCHS])[1]
+        return (state, lambda i: run(i, epoch.eager), lambda i: run(i, epoch),
+                lambda: epoch.graphed)
+
+    out["d_god_scan_epoch"] = graph_path("d_god_scan_epoch", cfg, make_epoch,
+                                         GRAPH_EPOCHS, SCAN_UPDATES, smi)
+
+    zcfg = Config(to_dict(cfg))
+    zcfg.model = "eegnet"
+    zloc = ch_locations_2d(zcfg, roi(zcfg))
+    rng = np.random.RandomState(seed + 13)
+    batches = [ds.gather(rng.randint(0, len(ds), BATCH))[:3]
+               for _ in range(GRAPH_STEPS)]
+
+    def make_eegnet():
+        model = get_model(zcfg, zloc, device=dev, seed=seed,
+                          num_channels=len(zloc))
+        opt = make_optimizer(zcfg, int(zcfg.updates))
+        state = create_train_state(model, opt, float(zcfg.init_temperature),
+                                   seed)
+        step = make_train_step(model, opt, train_god._loss_config(zcfg),
+                               evaluate_speech.collate_config(zcfg))
+        graphed = GraphedStep(step.body, state)
+        return (state,
+                lambda i: step(state, *batches[i % GRAPH_STEPS])[1],
+                lambda i: graphed(step.prepare(state,
+                                               *batches[i % GRAPH_STEPS])),
+                lambda: graphed)
+
+    out["e_god_fit_eegnet"] = graph_path("e_god_fit_eegnet", zcfg, make_eegnet,
+                                         GRAPH_STEPS, 1, smi)
+    return out
+
+
+def graph_replays(path: str, expected: int) -> dict:
+    """The graph replays and captures since ``reset_all_launches()``:
+    ``expected`` replays (the steps taken on the graph route; 0 on an
+    eager route) and one capture where there was a replay."""
+    got = {"replays": tg.replays, "captures": tg.captures}
+    if got != {"replays": expected, "captures": int(expected > 0)}:
+        raise AssertionError(f"{path}: graph {got}, expected {expected} "
+                             "replays")
+    return got
 
 
 def phase_model_zoo(god_cfg, god_ds, seed, flush) -> dict:
@@ -1787,6 +2094,7 @@ def phase_model_zoo(god_cfg, god_ds, seed, flush) -> dict:
                     "bn_stats": n_bn * updates, "bn_bwd_stats": n_bn * updates}
         if launches != expected:
             raise AssertionError(f"{name} CLI launches {launches}, expected {expected}")
+        replays = graph_replays(f"{name} CLI", updates)
         if best.get("train_skipped") != 0.0 or not (
                 math.isfinite(best["train_loss"]) and math.isfinite(best["test_loss"])):
             raise AssertionError(f"{name} CLI: {best}")
@@ -1796,6 +2104,7 @@ def phase_model_zoo(god_cfg, god_ds, seed, flush) -> dict:
               "card_vs_cpu": check, "rel_err_limit": 1e-4,
               "first_step_ms": first_ms, "train_cli_s": run_s,
               "updates": updates, "test_pools": pools, "launches": launches,
+              "graph": replays,
               "bn_stats_routes": routes_by_model[name],
               "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
                                                  "test_loss", "test_top10",
@@ -2136,8 +2445,23 @@ def phase_brennan_training(ds, seed: int) -> dict:
             idx, generator=torch.Generator().manual_seed(i)))[1]
 
     reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
     prof = profile_config(cfg, one, warmup=2, steps=5)
     launches = brennan_launches()
+    # the same step replayed as a CUDA graph, as fit runs it, on the state
+    graphed = GraphedStep(step.body, state)
+
+    def one_graph(i):
+        idx = rng.randint(0, len(pool), BATCH)
+        return graphed(step.prepare(state, *pool.gather(
+            idx, generator=torch.Generator().manual_seed(i))))
+
+    torch.cuda.reset_peak_memory_stats()
+    gprof = profile_config(cfg, one_graph, warmup=2, steps=5)
+    graph = {k: gprof[k] for k in ("step_ms_median", "device_ops_per_step",
+                                   "busy_ms_per_step", "idle_share_of_window",
+                                   "max_memory_gb")}
+    graph["capture_s"] = graphed.capture_seconds
     emit({"phase": "brennan_training", "card_vs_cpu": check,
           "rel_err_limit": 1e-4, "first_step_ms": first_ms,
           "steady_step_ms": prof["step_ms_median"], "step_ms": prof["step_ms"],
@@ -2145,6 +2469,7 @@ def phase_brennan_training(ds, seed: int) -> dict:
           "busy_ms_per_step": prof["busy_ms_per_step"],
           "idle_share_of_window": prof["idle_share_of_window"],
           "groups_ms_per_step": prof["groups_ms_per_step"],
+          "max_memory_gb": prof["max_memory_gb"], "graph": graph,
           "width": {"C": cfg.num_channels, "S": cfg.num_subjects,
                     "D1": int(cfg.D1), "D2": int(cfg.D2), "K": int(cfg.K),
                     "F": int(Y.shape[1]), "T": int(X.shape[2]), "B": BATCH},
@@ -2170,11 +2495,16 @@ def phase_brennan_cli(work: str, seed: int) -> dict:
     for name, cli in (("train", train_speech), ("eval", evaluate_speech)):
         reset_all_launches()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = cli.run(brennan_cfg(seed, overrides), device="cuda")
         torch.cuda.synchronize()
         result[name] = {"seconds": time.perf_counter() - t0,
-                        "launches": brennan_launches(), "result": res}
+                        "launches": brennan_launches(), "result": res,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "graph": graph_replays(
+                            f"Brennan {name} CLI",
+                            BRENNAN_UPDATES if name == "train" else 0)}
     best, ev = result["train"]["result"], result["eval"]["result"]
     if best.get("train_skipped") != 0.0 or not (
             math.isfinite(best["train_loss"]) and math.isfinite(best["test_loss"])):
@@ -2198,7 +2528,9 @@ def phase_brennan_cli(work: str, seed: int) -> dict:
           "eval_cli_s": result["eval"]["seconds"],
           "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
                                              "test_loss", "test_top10")},
-          "eval": ev, "launches": {k: r["launches"] for k, r in result.items()}})
+          "eval": ev, "launches": {k: r["launches"] for k, r in result.items()},
+          "graph": {k: r["graph"] for k, r in result.items()},
+          "peak_gb": {k: r["peak_gb"] for k, r in result.items()}})
     return {k: r["launches"] for k, r in result.items()}
 
 
@@ -2256,11 +2588,12 @@ def phase_unfused_step(cfg, ds, tr_idx, seed, work) -> dict:
                 "bn_bwd_stats": BN_PER_STEP * TRAIN_UPDATES}
     if launches != expected:
         raise AssertionError(f"unfused CLI launches {launches}, expected {expected}")
+    replays = graph_replays("unfused CLI", TRAIN_UPDATES)
     if best.get("train_skipped") != 0.0 or not math.isfinite(best["train_loss"]):
         raise AssertionError(f"unfused CLI: {best}")
     emit({"phase": "unfused_step", "rel_err": check, "limit": 1e-5,
           "loss": float(metrics["fused"]["loss"]), "train_cli_s": run_s,
-          "test_pools": pools, "launches": launches,
+          "test_pools": pools, "launches": launches, "graph": replays,
           "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
                                              "test_loss", "test_top10",
                                              "t_gather_ms", "t_step_ms")}})
@@ -3015,6 +3348,7 @@ def spill_cli(run, tcfg, work, name, expected) -> dict:
     if launches != expected:
         raise AssertionError(f"{name} spill CLI launches {launches}, "
                              f"expected {expected}")
+    graph_replays(f"{name} spill CLI", 0)  # the spill route steps eagerly
     if best.get("train_skipped") != 0.0 or not math.isfinite(best["train_loss"]):
         raise AssertionError(f"{name} spill CLI: {best}")
     (trace,) = os.listdir(prof)
@@ -3695,6 +4029,7 @@ def phase_dp_speech(cfg, ds, tr_idx, seed, work) -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     cli = dp_launches()
+    graph_replays("DP speech CLI", 0)  # the data-parallel route steps eagerly
     n_test = len(ds) - len(tr_idx)
     pools = len(_test_pool_starts(n_test, min(n_test, BATCH),
                                   bool(tcfg.get("test_sweep", True))))
@@ -4225,10 +4560,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke run of the port")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
-        "--phase", choices=("all", "brennan_kernels"), default="all",
+        "--phase", choices=("all", "brennan_kernels", "graphs"), default="all",
         help="brennan_kernels: build, then only that phase at Brennan's "
              "row length; copied into another checkout's root, it times that "
-             "checkout's kernel the same way, for comparisons in turns")
+             "checkout's kernel the same way, for comparisons in turns; "
+             "graphs: build, the speech cache, the graphs phase's speech "
+             "paths, the GOD data and its GOD paths")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -4244,8 +4581,24 @@ def main(argv=None) -> int:
         clock[0] = now
 
     phase_build()
-    phase_device()
+    smi = phase_device()
     lap("build")
+    if args.phase == "graphs":
+        work = os.path.join(ROOT, "runs_out", f"chip_smoke_{os.getpid()}")
+        try:
+            cfg, ds, tr_idx = full_width_speech(
+                work, args.seed, [f"save_root={os.path.join(work, 'out')}",
+                                  f"batch_size={BATCH}"])
+            phase_graphs_speech(cfg, ds, tr_idx, args.seed, smi)
+            del ds
+            lap("graphs_speech")
+            god_cfg, god_ds = phase_god_data(work, args.seed)
+            phase_graphs_god(god_cfg, god_ds, args.seed, smi)
+            lap("graphs_god")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
+        return 0
     # The long-row percentile checks run first: their torch.profiler split
     # came back empty for most calls in a process that had already run the
     # later phases' profilers and process groups.
@@ -4277,6 +4630,8 @@ def main(argv=None) -> int:
         lap("serving")
         training = phase_training(cfg, ds, tr_idx, args.seed, work)
         lap("training")
+        graphs = phase_graphs_speech(cfg, ds, tr_idx, args.seed, smi)
+        lap("graphs_speech")
         unfused = phase_unfused_step(cfg, ds, tr_idx, args.seed, work)
         lap("unfused_step")
         flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
@@ -4294,6 +4649,7 @@ def main(argv=None) -> int:
         god = phase_god_kernels(god_cfg, god_ds, flush)
         del flush
         god_training = phase_god_training(god_cfg, god_ds, args.seed)
+        graphs.update(phase_graphs_god(god_cfg, god_ds, args.seed, smi))
         god_eval = phase_god_eval(god_cfg)
         scan_god = phase_scan_god(god_cfg, god_ds, args.seed)
         flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")

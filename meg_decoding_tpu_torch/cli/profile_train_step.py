@@ -12,13 +12,17 @@ statistics runs before the timed steps.
 (``full_width_god``: ``configs/config_GOD.yaml``, T = 24; any model of
 the zoo with ``model=…``), its train split
 built on the card, and the per-step form ``fit`` runs (a gather from the
-packed set, then ``make_train_step``'s step).  After 3 warm-up steps it
-times 10 steps with the host clock around work that ends in
-``torch.cuda.synchronize()``, then traces as many more with
+packed set, then ``make_train_step``'s step).  Each configuration's step
+is profiled on two routes, one after the other on one train state:
+``eager`` (the host issues every operation) and ``graph`` (the step's
+body replayed as one captured CUDA graph, ``train/graph.py``, as ``fit``
+runs it on the card; captured in its first warm-up step).  After 3
+warm-up steps it times 10 steps with the host clock around work that
+ends in ``torch.cuda.synchronize()``, then traces as many more with
 ``torch.profiler`` and sums the device time of every kernel, by name and
 by group, and the share of the traced window in which the card ran no
-kernel.  Prints one JSON object per configuration; also writes them under
-``--out``.
+kernel.  Prints one JSON object per configuration and route; also writes
+them under ``--out``.
 
 Needs a GPU; there is no CPU mode.
 
@@ -55,6 +59,7 @@ from meg_decoding_tpu_torch.data.roi import roi
 from meg_decoding_tpu_torch.data.synthetic import full_width_god, full_width_speech
 from meg_decoding_tpu_torch.device import resolve_device
 from meg_decoding_tpu_torch.models.factory import get_model
+from meg_decoding_tpu_torch.train.graph import GraphedStep
 from meg_decoding_tpu_torch.train.scan_loop import make_fused_speech_step
 from meg_decoding_tpu_torch.train.schedules import make_optimizer
 from meg_decoding_tpu_torch.train.state import create_train_state
@@ -107,8 +112,9 @@ def _nvidia_smi() -> str:
 
 
 def speech_step(work: str, seed: int, overrides, config_name: str = "config"):
-    """(cfg, one): the fused speech step on the full-width cache; ``one(i)``
-    runs step i and returns its metrics."""
+    """(cfg, {route: one}): the fused speech step on the full-width cache;
+    ``one(i)`` runs step i on the route (``eager``, ``graph``) and returns
+    its metrics."""
     cfg, ds, tr_idx = full_width_speech(work, seed, overrides,
                                         config_name=config_name)
     model = get_model(cfg, ch_locations_2d(cfg), device="cuda", seed=seed)
@@ -121,15 +127,19 @@ def speech_step(work: str, seed: int, overrides, config_name: str = "config"):
     rng = np.random.RandomState(seed)
     B = int(cfg.batch_size)
 
-    def one(i):
-        idx = pool.segment_ids(rng.randint(0, len(pool), B))
-        return fused(state, idx, generator=torch.Generator().manual_seed(i))[1]
+    graphed = GraphedStep(fused.body, state)
 
-    return cfg, one
+    def args(i):
+        idx = pool.segment_ids(rng.randint(0, len(pool), B))
+        return idx, torch.Generator().manual_seed(i)
+
+    return cfg, {"eager": lambda i: fused(state, *args(i))[1],
+                 "graph": lambda i: graphed(fused.prepare(state, *args(i)))}
 
 
 def god_step(work: str, seed: int, overrides, config_name: str = "config_GOD"):
-    """(cfg, one): the per-step GOD step over the full-width train split."""
+    """(cfg, {route: one}): the per-step GOD step over the full-width train
+    split, as ``speech_step``."""
     cfg = full_width_god(work, seed, overrides, config_name=config_name)
     ds = build_god_dataset(cfg, "train", device="cuda")
     cfg.num_subjects = ds.num_subjects
@@ -142,10 +152,10 @@ def god_step(work: str, seed: int, overrides, config_name: str = "config_GOD"):
     rng = np.random.RandomState(seed)
     B = int(cfg.batch_size)
 
-    def one(i):
-        return step(state, *ds.gather(rng.randint(0, len(ds), B))[:3])[1]
-
-    return cfg, one
+    graphed = GraphedStep(step.body, state)
+    batch = lambda: ds.gather(rng.randint(0, len(ds), B))[:3]  # noqa: E731
+    return cfg, {"eager": lambda i: step(state, *batch())[1],
+                 "graph": lambda i: graphed(step.prepare(state, *batch()))}
 
 
 def profile_config(cfg, one, warmup: int, steps: int) -> dict:
@@ -227,17 +237,18 @@ def main(argv=None) -> list[dict]:
     results = []
     try:
         for dtype in (args.dtypes.split(",") if args.dtypes else [None]):
-            torch.cuda.reset_peak_memory_stats()
             names = {} if args.config_name is None else \
                 {"config_name": args.config_name}
             dtype_override = [f"compute_dtype={dtype}"] if dtype else []
-            cfg, one = make(work, SEED, [*dtype_override, *args.overrides],
-                            **names)
-            res = {"device": smi, "torch": torch.__version__,
-                   "workload": args.workload,
-                   **profile_config(cfg, one, WARMUP, STEPS)}
-            print(json.dumps(res), flush=True)
-            results.append(res)
+            cfg, routes = make(work, SEED, [*dtype_override, *args.overrides],
+                               **names)
+            for route, one in routes.items():
+                torch.cuda.reset_peak_memory_stats()
+                res = {"device": smi, "torch": torch.__version__,
+                       "workload": args.workload, "route": route,
+                       **profile_config(cfg, one, WARMUP, STEPS)}
+                print(json.dumps(res), flush=True)
+                results.append(res)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if args.out:

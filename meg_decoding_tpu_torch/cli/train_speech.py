@@ -219,7 +219,7 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
                                        cache_collate_stats=cache_stats,
                                        mesh=mesh)
         train_set_for_fit = _FusedPool(train_set)
-        step = lambda state, seg, gen: fused(state, seg, generator=gen)
+        step = fused  # fused(state, segment ids, generator)
     else:
         train_set_for_fit = train_set
         step = make_train_step(model, optimizer, loss_cfg, collate_cfg,

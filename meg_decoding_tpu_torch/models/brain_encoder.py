@@ -46,7 +46,7 @@ class SubjectBlock(nn.Module):
                                            generator=generator)
 
     def forward(self, X: torch.Tensor, subject_idxs: torch.Tensor,
-                centre: int | None = None,
+                centre: int | torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         X = self.spatial_attention(X, centre=centre, generator=generator)
         X = self.conv(X)
@@ -88,8 +88,19 @@ class BrainEncoder(nn.Module):
         self.conv_final2 = Conv1x1(2 * D2, F, dtype=dtype, device=device,
                                    generator=generator)
 
+    def draw_dropout(self, generator: torch.Generator | None,
+                     batch_size: int, T: int, centre=None) -> dict:
+        """The randomness of a training forward, drawn on the host: the
+        forward's keyword arguments, ``{"centre": 0-dim int64 CPU
+        tensor}``, the draw the forward makes from ``generator``, or
+        ``centre`` when given (then nothing is drawn)."""
+        if centre is not None:
+            return {"centre": torch.as_tensor(centre, dtype=torch.int64)}
+        return {"centre": self.subject_block.spatial_attention.draw_centre(
+            generator)}
+
     def forward(self, X: torch.Tensor, subject_idxs: torch.Tensor,
-                centre: int | None = None,
+                centre: int | torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """``centre``/``generator``: the spatial-dropout centre of a
         training forward, or the CPU generator to draw it (ignored in eval
@@ -138,8 +149,10 @@ class BrainEncoderSeq2Static(nn.Module):
         self.conv_final2 = Conv1x1(2 * D2, F, dtype=dtype, device=device,
                                    generator=generator)
 
+    draw_dropout = BrainEncoder.draw_dropout
+
     def forward(self, X: torch.Tensor, subject_idxs: torch.Tensor,
-                centre: int | None = None,
+                centre: int | torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         X = self.subject_block(X, subject_idxs, centre=centre,
                                generator=generator)

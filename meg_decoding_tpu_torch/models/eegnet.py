@@ -23,10 +23,13 @@ fast variance at 0; the port does not: E[x²] − E[x]² < 0 needs a channel
 constant to rounding.)
 
 Dropout keeps each value with probability 1 − rate and scales the kept
-ones by 1 / (1 − rate), as ``flax.linen.Dropout``.  The masks are drawn
-from the caller's CPU ``torch.Generator`` and copied to the device without
-a sync, so a step draws the same masks on the card as on the CPU; a caller
-may hand both masks in (``dropout_masks``) instead.
+ones by 1 / (1 − rate), as ``flax.linen.Dropout``.  The masks are drawn on
+the host from a CPU ``torch.Generator`` (``EEGNet.draw_dropout``), so a
+step draws the same masks on the card as on the CPU.  The train step
+draws them before its device body and hands both in (``dropout_masks``,
+on the device: a captured step copies nothing from the host,
+``train/graph.py``); a forward given only the generator draws and copies
+them itself.
 """
 
 from __future__ import annotations
@@ -82,28 +85,37 @@ def _batch_norm(bn: FusedBatchNorm, h: torch.Tensor) -> torch.Tensor:
     return bn(h.reshape(h.shape[0], h.shape[1], -1)).reshape(h.shape)
 
 
-def _dropout(h: torch.Tensor, rate: float, mask: torch.Tensor | None,
-             generator: torch.Generator | None, mesh=None) -> torch.Tensor:
-    """Dropout with a mask drawn from ``generator`` (a CPU generator, the
-    same draws on every rank); under a data-parallel ``mesh`` the draw is
-    the global batch's and this rank takes its rows of it."""
+def _dropout(h: torch.Tensor, rate: float,
+             mask: torch.Tensor | None) -> torch.Tensor:
+    """Dropout of h with the keep-mask ``mask`` (bool, h's shape, on h's
+    device; None where ``rate`` keeps everything or nothing)."""
     if rate == 0.0:
         return h
     keep = 1.0 - rate
     if keep == 0.0:
         return torch.zeros_like(h)
-    if mask is None:
-        if generator is None:
-            raise ValueError("a training forward with dropout needs the "
-                             "masks or a torch.Generator to draw them")
-        if mesh is None:
-            u = torch.rand(h.shape, generator=generator)
-        else:
-            b = h.shape[0]
-            u = torch.rand((b * mesh.world_size, *h.shape[1:]),
-                           generator=generator)[mesh.rank * b:(mesh.rank + 1) * b]
-        mask = (u < keep).to(h.device, non_blocking=True)
     return torch.where(mask, h / keep, torch.zeros_like(h))
+
+
+def _draw_mask(shape: tuple, rate: float, generator: torch.Generator | None,
+               mesh=None) -> torch.Tensor | None:
+    """A keep-mask of ``shape`` on the host, drawn with ``generator`` (the
+    same draws on every rank); under a data-parallel ``mesh`` the draw is
+    the global batch's and this rank takes its rows of it.  None where the
+    dropout needs no mask (rate 0 or 1)."""
+    keep = 1.0 - rate
+    if rate == 0.0 or keep == 0.0:
+        return None
+    if generator is None:
+        raise ValueError("a training forward with dropout needs the masks "
+                         "or a torch.Generator to draw them")
+    if mesh is None:
+        u = torch.rand(shape, generator=generator)
+    else:
+        b = shape[0]
+        u = torch.rand((b * mesh.world_size, *shape[1:]),
+                       generator=generator)[mesh.rank * b:(mesh.rank + 1) * b]
+    return u < keep
 
 
 class EEGNet(nn.Module):
@@ -140,29 +152,49 @@ class EEGNet(nn.Module):
         """(B, 1, C, T) → (B, F1, C, T)."""
         return F.conv2d(F.pad(x, _same_pad(self.k1)), self.conv1)
 
+    def draw_dropout(self, generator: torch.Generator | None,
+                     batch_size: int, T: int, centre=None) -> dict:
+        """The randomness of a training forward on (batch_size, C, T),
+        drawn on the host with ``generator`` in the forward's order: the
+        forward's keyword arguments, ``{"dropout_masks": (m1, m2)}``, bool
+        CPU masks of the shapes after each pool (None for a rate of 0).
+        ``centre`` is ignored, as the forward ignores it."""
+        t1 = T // self.p1
+        shapes = ((batch_size, self.D * self.F1, 1, t1),
+                  (batch_size, self.conv3_pw.shape[0], 1, t1 // self.p2))
+        return {"dropout_masks": tuple(
+            _draw_mask(shape, rate, generator, self.mesh)
+            for shape, rate in zip(shapes, (self.dr1, self.dr2)))}
+
     def forward(self, X: torch.Tensor, subject_idxs=None,
                 centre: int | None = None,
                 generator: torch.Generator | None = None,
                 dropout_masks: tuple | None = None) -> torch.Tensor:
         """X (B, C, T) → (B, out_dim).  In training mode the two dropout
-        masks are ``dropout_masks`` (bool, of the shapes after each pool)
-        when given, else drawn with ``generator``."""
-        m1, m2 = dropout_masks if dropout_masks is not None else (None, None)
+        masks are ``dropout_masks`` (bool, of the shapes after each pool,
+        on X's device) when given, else drawn with ``generator``
+        (``draw_dropout``) and copied to the device."""
         train = self.training
+        if train and dropout_masks is None:
+            dropout_masks = tuple(
+                None if m is None else m.to(X.device, non_blocking=True)
+                for m in self.draw_dropout(generator, X.shape[0],
+                                           X.shape[2])["dropout_masks"])
+        m1, m2 = dropout_masks if dropout_masks is not None else (None, None)
         h = self._conv1(X[:, None], subject_idxs)
         h = _batch_norm(self.bn1, h)
         h = F.conv2d(h, self.conv2, groups=self.F1)       # (B, D·F1, 1, T)
         h = F.elu(_batch_norm(self.bn2, h))
         h = F.avg_pool2d(h, (1, self.p1))
         if train:
-            h = _dropout(h, self.dr1, m1, generator, self.mesh)
+            h = _dropout(h, self.dr1, m1)
         h = F.conv2d(F.pad(h, _same_pad(self.k2)), self.conv3_dw,
                      groups=self.D * self.F1)
         h = F.conv2d(h, self.conv3_pw)                    # (B, F2, 1, T')
         h = F.elu(_batch_norm(self.bn3, h))
         h = F.avg_pool2d(h, (1, self.p2))
         if train:
-            h = _dropout(h, self.dr2, m2, generator, self.mesh)
+            h = _dropout(h, self.dr2, m2)
         # flax flattens NHWC (B, 1, T', F2): T' major, F2 minor
         return self.classifier(h.permute(0, 2, 3, 1).reshape(h.shape[0], -1))
 

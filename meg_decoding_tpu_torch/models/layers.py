@@ -63,11 +63,14 @@ def spatial_attention_weights(z_re, z_im, cos, sin) -> torch.Tensor:
 
 
 def spatial_dropout_mask(loc: torch.Tensor, d_drop: float,
-                         centre: int) -> torch.Tensor:
+                         centre: int | torch.Tensor) -> torch.Tensor:
     """Zero the channels within ``d_drop`` (strictly) of sensor ``centre``,
     one centre for the whole batch (reference ``models.py:232-241``).
-    loc (C, 2) → (C,) mask of 0.0/1.0."""
-    diff = loc - loc[centre]
+    loc (C, 2) → (C,) mask of 0.0/1.0.  ``centre`` is an int or a 0-dim
+    integer tensor on loc's device, read on the device (``index_select``:
+    indexing with a 0-dim tensor would read it back to the host)."""
+    centre = torch.as_tensor(centre, dtype=torch.int64, device=loc.device)
+    diff = loc - loc.index_select(0, centre.reshape(1))
     distances = torch.sqrt((diff * diff).sum(dim=-1))
     return torch.where(distances < d_drop, 0.0, 1.0).to(loc.dtype)
 
@@ -102,19 +105,26 @@ class SpatialAttention(nn.Module):
         self.z_re.uniform_(0.0, 1.0, generator=generator)
         self.z_im.uniform_(0.0, 1.0, generator=generator)
 
-    def forward(self, X: torch.Tensor, centre: int | None = None,
+    def draw_centre(self, generator: torch.Generator | None) -> torch.Tensor:
+        """The dropout centre of a training forward, drawn uniformly from
+        the sensors with ``generator`` (a CPU ``torch.Generator``, so the
+        draw needs no device sync): a 0-dim int64 CPU tensor."""
+        if generator is None:
+            raise ValueError("a training forward needs a dropout centre or "
+                             "a torch.Generator to draw it")
+        return torch.randint(self.loc.shape[0], (), generator=generator)
+
+    def forward(self, X: torch.Tensor,
+                centre: int | torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """In training mode the dropout centre is ``centre`` when given, else
-        drawn uniformly from the sensors with ``generator`` (a CPU
-        ``torch.Generator``, so the draw needs no device sync)."""
+        """In training mode the dropout centre is ``centre`` when given (an
+        int, or a 0-dim int64 tensor on the device: what a captured step
+        takes, ``train/graph.py``), else drawn with ``generator``
+        (``draw_centre``)."""
         sa = spatial_attention_weights(self.z_re, self.z_im, self.cos, self.sin)
         if self.training:
             if centre is None:
-                if generator is None:
-                    raise ValueError("a training forward needs a dropout "
-                                     "centre or a torch.Generator to draw it")
-                centre = int(torch.randint(self.loc.shape[0], (),
-                                           generator=generator))
+                centre = int(self.draw_centre(generator))
             mask = spatial_dropout_mask(self.loc, self.d_drop, centre)
             X = X * mask[None, :, None]
         return torch.matmul(sa, X)  # (D1, C) @ (B, C, T)

@@ -54,7 +54,8 @@ _I32_MAX = 2**31 - 1
 # bn_stats' routes, in the order of the kernel's route argument
 STATS_ROUTES = ("per_channel", "cluster")
 
-# kernel launches since the last reset_launches(), per kernel
+# kernel launches since the last reset_launches(), per kernel (a replay of a
+# captured train step adds what its capture counted, train/graph.py)
 launches = {"bn_stats": 0, "bn_bwd_stats": 0}
 # of launches["bn_stats"], those of each route
 stats_route_launches = dict.fromkeys(STATS_ROUTES, 0)

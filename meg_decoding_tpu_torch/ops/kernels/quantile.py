@@ -67,7 +67,8 @@ _CANDIDATE_DIV = 4
 
 # wrapper calls since the last reset_launches() that launched the register
 # or shared-memory kernel (``launches``) and the global-memory radix select
-# (``long_launches``, one a call for its LONG_PASSES kernels)
+# (``long_launches``, one a call for its LONG_PASSES kernels); a replay of a
+# captured train step adds what its capture counted (train/graph.py)
 launches = 0
 long_launches = 0
 

@@ -27,7 +27,8 @@ __all__ = ["window_gather", "window_gather_plain", "padded_window",
 _LANE = 128
 
 # kernel launches since the last reset_launches() (read by chip_smoke.py to
-# show that a run went through the kernel)
+# show that a run went through the kernel; a replay of a captured train
+# step adds the launches its capture counted, train/graph.py)
 launches = 0
 
 

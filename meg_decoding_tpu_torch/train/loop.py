@@ -11,6 +11,14 @@ traces the epoch ``profile_epoch`` (``utils/profiling.py``).
 ``fit_scan`` drives the whole-epoch forms of ``train/scan_loop.py``
 instead: one call an epoch.
 
+On one device with the train set on the device, ``fit`` runs its step
+(a ``TrainStep``, ``train/steps.py``) as one captured CUDA graph,
+replayed once a step (``train/graph.py``: the counterpart of
+``jax.jit(train_step)``; on the CPU the same route runs the step's body
+eagerly), and the whole-epoch forms replay theirs ``updates`` times an
+epoch.  The data-parallel route (collectives) and a train set spilled to
+host memory (copies on a side stream) run the step eagerly.
+
 Reference skeleton: ``train.py:178-274`` (epoch loop with per-batch
 updates, a test pass, epoch metric means, model_last each epoch) and
 ``train_wowandb_cv.py:274-357`` (model_best on the best test top-10).
@@ -47,6 +55,7 @@ from meg_decoding_tpu_torch.data.sampling import (
     shuffle_batches,
 )
 from meg_decoding_tpu_torch.train.checkpoint import CheckpointManager
+from meg_decoding_tpu_torch.train.graph import GraphedStep
 from meg_decoding_tpu_torch.utils.logging import RunLogger
 from meg_decoding_tpu_torch.utils.profiling import StepTimer, profile_trace
 
@@ -170,6 +179,12 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
     ``eval_step(X, Y, subject_idxs, temp, labels)``.  ``start_epoch``
     continues the epoch numbering after a resume.
 
+    ``train_step`` is a ``TrainStep``.  Without a data-parallel mesh
+    (``train_step.mesh``) and with the train set on the device, each step
+    is its host draws then a replay of one ``GraphedStep`` of its body,
+    captured at the first step of this call; the metrics are the replay's
+    copies.  Otherwise the step runs eagerly.
+
     A ``train_set`` with ``host_resident`` gathers on the host, and its
     batches reach the state's device through ``prefetch_to_device`` with
     ``cfg.prefetch`` batches in flight (2 by default; 0 copies each batch
@@ -194,6 +209,8 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
     prefetch_n = int(cfg.get("prefetch", 2 if host_resident else 0) or 0)
     profile_dir = cfg.get("profile_dir")
     profile_epoch = int(cfg.get("profile_epoch", 1)) if profile_dir else -1
+    graphed = (GraphedStep(train_step.body, state)
+               if train_step.mesh is None and not host_resident else None)
 
     for epoch in range(start_epoch, epochs):
         egen = derived_generator(seed, epoch, _SAMPLE)
@@ -228,7 +245,10 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
         with profile_trace(profile_dir if epoch == profile_epoch else None):
             for batch in batch_iter:
                 with timer.phase("step"):
-                    state, metrics = train_step(state, *batch)
+                    if graphed is None:
+                        state, metrics = train_step(state, *batch)
+                    else:
+                        metrics = graphed(train_step.prepare(state, *batch))
                 train_hist.append(metrics)
 
         tm = _mean_metrics(train_hist)

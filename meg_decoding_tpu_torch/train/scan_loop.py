@@ -4,23 +4,28 @@ and ``make_gwilliams_scan_epoch`` in ``meg_decoding_tpu/train/scan_loop.py``
 (``:182-464``).
 
 In JAX the gather and the step compile into one program to save a
-dispatch; PyTorch runs eagerly, so here the fused step is the gather
-(``gather_speech_batch``: two launches of the ``window_gather`` kernel)
-followed by ``make_train_step``'s step.
+dispatch.  Here the fused step is a ``TrainStep`` (``train/steps.py``)
+whose device part gathers the batch (two launches of the
+``window_gather`` kernel) and then runs ``make_train_step``'s body; on the
+card ``fit`` replays that body as one captured CUDA graph
+(``train/graph.py``), as JAX runs the jitted step.
 
 With ``cache_collate_stats`` the fused and the epoch forms sweep every
 window's RobustScaler fit once (``data/gwilliams.py:compute_collate_stats``)
 and each step gathers its (B, 2C) rows of that table in place of the
 percentiles (``collate_preprocess_cached``).
 
-JAX runs a whole epoch as one ``lax.scan`` program.  PyTorch has no scan,
-so an epoch here is an eager loop over ``updates`` steps: every draw of the
-epoch (the (updates, B) segment ids, with replacement whatever
-``use_sampler`` says, and, for Gwilliams, the (updates, B) sessions) is
-made up front on the device from one ``torch.Generator``, each step's
-batch is gathered on the device, nothing in the loop waits for the device,
-and the metrics are averaged on the device (``epoch_means``); the caller
-reads them once.
+JAX runs a whole epoch as one ``lax.scan`` program.  Here an epoch
+(``ScanEpoch``) is one captured graph of the step, replayed ``updates``
+times on the card: every draw of the epoch (the (updates, B) segment ids,
+with replacement whatever ``use_sampler`` says, and, for Gwilliams, the
+(updates, B) sessions) is made up front on the device from one
+``torch.Generator``; before each replay the host copies that update's row
+of the draws into the graph's inputs (on the device) and draws the step's
+dropout (the centre, from the state's CPU generator); nothing in the loop
+waits for the device, and the metrics are averaged on the device
+(``epoch_means``); the caller reads them once.  On the CPU the same loop
+runs the body eagerly; ``epoch.eager`` runs it step by step.
 
 Under a data-parallel ``mesh`` (``core/mesh.py``; JAX ``:40-180`` and the
 ``mesh=`` branches) the Gwilliams recordings are sharded over sessions
@@ -46,18 +51,20 @@ from meg_decoding_tpu_torch.data.gwilliams import (
     compute_collate_stats,
     draw_local_sessions,
     draw_sessions,
-    gather_speech_batch,
     local_shard_gather,
 )
+from meg_decoding_tpu_torch.train.graph import GraphedStep
 from meg_decoding_tpu_torch.train.optim import Adam
 from meg_decoding_tpu_torch.train.steps import (
     CollateConfig,
     LossConfig,
+    TrainStep,
+    draw_dropout,
     make_train_step,
 )
 
 __all__ = ["make_fused_speech_step", "make_scan_epoch",
-           "make_gwilliams_scan_epoch", "epoch_means",
+           "make_gwilliams_scan_epoch", "ScanEpoch", "epoch_means",
            "shard_gwilliams_splits", "is_session_sharded"]
 
 
@@ -161,15 +168,26 @@ def _stats_table(ds: GwilliamsPacked, collate_cfg: CollateConfig,
     return None
 
 
+def _ids(x) -> torch.Tensor:
+    """Integer ids (a numpy array, a list or a tensor) as an int64 tensor
+    where they lie: a host array stays on the host."""
+    return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
+                           dtype=torch.int64)
+
+
 def make_fused_speech_step(model, optimizer: Adam, loss_cfg: LossConfig,
                            collate_cfg: CollateConfig, ds: GwilliamsPacked,
                            cache_collate_stats: bool = False,
-                           collate_stats=None, mesh=None):
-    """Returns ``fused(state, idx, generator=None, sess_ids=None,
-    centre=None) → (state, metrics)``: ``idx`` (B,) global segment ids of
-    ``ds``; one session per segment from ``sess_ids`` when given, else drawn
-    with ``generator``; ``centre`` is the spatial-dropout centre, drawn from
-    ``state.generator`` when None.
+                           collate_stats=None, mesh=None) -> TrainStep:
+    """Returns a ``TrainStep``, ``fused(state, idx, generator=None,
+    sess_ids=None, centre=None) → (state, metrics)``: ``idx`` (B,) global
+    segment ids of ``ds``; one session per segment from ``sess_ids`` when
+    given, else drawn with ``generator``; ``centre`` is the spatial-dropout
+    centre, drawn from ``state.generator`` when None.  Its host part draws
+    the sessions and the centre; its device part (``body``: the segment
+    ids, the sessions and the centre as device tensors) gathers the two
+    windows (two ``window_gather`` launches) and the collate-stats rows on
+    the device, then runs ``make_train_step``'s body.
 
     ``cache_collate_stats``: sweep the table once here and collate each
     batch from its rows; ``collate_stats``: a table already computed for
@@ -182,6 +200,7 @@ def make_fused_speech_step(model, optimizer: Adam, loss_cfg: LossConfig,
     rank gathers and steps on its rows."""
     step = make_train_step(model, optimizer, loss_cfg, collate_cfg, mesh=mesh)
     y_dtype = _loss_y_dtype(model, loss_cfg)
+    T = int(ds.seq_len)
     if mesh is not None:
         ds = _shard_gwilliams(ds, mesh)
         stats = _stats_table(ds, collate_cfg, cache_collate_stats,
@@ -189,37 +208,48 @@ def make_fused_speech_step(model, optimizer: Adam, loss_cfg: LossConfig,
         gather = _make_sharded_gather(mesh, ds, y_dtype, stats)
         n_sessions = len(ds.session_subject)
 
-        def fused_dp(state, idx, generator: torch.Generator | None = None,
-                     sess_ids=None, centre: int | None = None):
+        def prepare_dp(state, idx, generator: torch.Generator | None = None,
+                       sess_ids=None, centre=None) -> dict:
             if sess_ids is None:
                 if generator is None:
                     raise ValueError("pass sess_ids or a torch.Generator")
                 sess_ids = draw_local_sessions(generator, len(idx),
                                                mesh.world_size, n_sessions)
-            out = gather(idx, sess_ids)
-            return step(state, *out[:3], centre=centre,
-                        collate_stats=out[3] if len(out) == 4 else None)
+            b = local_batch_size(len(idx), mesh)
+            return {"idx": idx, "sess": sess_ids,
+                    "draws": draw_dropout(model, state.generator, b, T,
+                                          centre)}
 
+        def body_dp(state, idx, sess, draws) -> dict:
+            out = gather(idx, sess)
+            return step.body(state, *out[:3], draws=draws,
+                             collate_stats=out[3] if len(out) == 4 else None)
+
+        fused_dp = TrainStep(prepare_dp, body_dp, mesh)
         fused_dp.ds, fused_dp.collate_stats = ds, stats
         return fused_dp
     stats = _stats_table(ds, collate_cfg, cache_collate_stats, collate_stats)
-    seg_dev = (torch.as_tensor(ds.segment_table(), device=ds.recordings.device)
-               if stats is not None else None)
+    seg_dev = torch.as_tensor(ds.segment_table(), device=ds.recordings.device)
 
-    def fused(state, idx, generator: torch.Generator | None = None,
-              sess_ids=None, centre: int | None = None):
+    def prepare(state, idx, generator: torch.Generator | None = None,
+                sess_ids=None, centre=None) -> dict:
         if sess_ids is None:
             sess_ids = draw_sessions(ds, len(idx), generator)
-        X, Y, subs, _ = gather_speech_batch(ds, idx, sess_ids=sess_ids,
-                                            y_dtype=y_dtype)
-        srows = None
-        if stats is not None:
-            rows = seg_dev[torch.as_tensor(idx, device=seg_dev.device)]
-            sess = torch.as_tensor(sess_ids, dtype=torch.int64,
-                                   device=seg_dev.device)
-            srows = collate_stats_rows(ds, stats, rows[:, 0], rows[:, 1], sess)
-        return step(state, X, Y, subs, centre=centre, collate_stats=srows)
+        return {"idx": _ids(idx), "sess": _ids(sess_ids),
+                "draws": draw_dropout(model, state.generator, len(idx), T,
+                                      centre)}
 
+    def body(state, idx, sess, draws) -> dict:
+        rows = seg_dev[idx]
+        X, Y, subs = _gather_batch(
+            ds.recordings, ds.y_stream, ds.meg_onsets, ds.speech_onsets,
+            ds.session_subject, rows[:, 0], rows[:, 1], sess, ds.seq_len,
+            y_dtype=y_dtype)
+        srows = (None if stats is None else collate_stats_rows(
+            ds, stats, rows[:, 0], rows[:, 1], sess))
+        return step.body(state, X, Y, subs, collate_stats=srows, draws=draws)
+
+    fused = TrainStep(prepare, body)
     fused.collate_stats = stats
     return fused
 
@@ -252,99 +282,109 @@ def _rows(mesh, batch_size: int) -> slice:
     return slice(mesh.rank * b, (mesh.rank + 1) * b)
 
 
+class ScanEpoch:
+    """One epoch of a ``TrainStep`` over draws made up front on the device:
+    ``epoch(state, generator=None, **given) → (state, means)``.  ``draw(
+    generator, **given)`` gives the epoch's calls, one ``(args, kwargs)`` of
+    ``step.prepare`` an update; ``means`` are 0-dim tensors on the device
+    (``epoch_means``).
+
+    On one device the epoch is the ``lax.scan``'s counterpart: one captured
+    graph of the step's body (``train/graph.py``), made at the first call
+    for this state and replayed once an update, each replay on its
+    update's row of the draws (copied device to device into the graph's
+    inputs) and the step's host draws.  ``epoch.eager`` runs the same
+    epoch step by step, eagerly; under a data-parallel mesh the epoch is
+    always eager (the collectives stay outside a graph)."""
+
+    def __init__(self, step: TrainStep, draw):
+        self.step, self.draw = step, draw
+        self.graphed: GraphedStep | None = None
+
+    def __call__(self, state, generator: torch.Generator | None = None,
+                 **given):
+        if self.step.mesh is not None:
+            return self.eager(state, generator, **given)
+        if self.graphed is None or self.graphed.state is not state:
+            self.graphed = GraphedStep(self.step.body, state)
+        calls = self.draw(generator, **given)
+        history = [self.graphed(self.step.prepare(state, *a, **kw))
+                   for a, kw in calls]
+        return state, epoch_means(history, len(calls))
+
+    def eager(self, state, generator: torch.Generator | None = None, **given):
+        calls = self.draw(generator, **given)
+        history = [self.step(state, *a, **kw)[1] for a, kw in calls]
+        return state, epoch_means(history, len(calls))
+
+
 def make_scan_epoch(model, optimizer: Adam, loss_cfg: LossConfig,
                     collate_cfg: CollateConfig, dataset, updates: int,
-                    batch_size: int, mesh=None):
-    """The epoch over a ``PackedDataset`` on the device (GOD).  Returns
-    ``epoch(state, generator=None, idx=None) → (state, means)``: ``idx``
-    (updates, B) the epoch's indices, drawn with ``generator`` (a
-    ``torch.Generator`` on the dataset's device) when None; ``means`` are
-    0-dim tensors on the device (``epoch_means``).  With ``mesh`` every
+                    batch_size: int, mesh=None) -> ScanEpoch:
+    """The epoch over a ``PackedDataset`` on the device (GOD).  Returns a
+    ``ScanEpoch``, ``epoch(state, generator=None, idx=None) → (state,
+    means)``: ``idx`` (updates, B) the epoch's indices, drawn with
+    ``generator`` (a ``torch.Generator`` on the dataset's device) when
+    None; each step gathers its batch on the device.  With ``mesh`` every
     rank holds the whole dataset (GOD-sized sets have nothing to shard),
     ``idx`` is the global draw and each rank steps on its columns."""
     step = make_train_step(model, optimizer, loss_cfg, collate_cfg, mesh=mesh)
     dev = dataset.X.device
     mine = _rows(mesh, batch_size)
+    T = int(dataset.X.shape[-1])
 
-    def epoch(state, generator: torch.Generator | None = None, idx=None):
+    def prepare(state, idx) -> dict:
+        return {"idx": idx,
+                "draws": draw_dropout(model, state.generator, len(idx), T)}
+
+    def body(state, idx, draws) -> dict:
+        X, Y, subs = dataset.gather(idx)[:3]
+        return step.body(state, X, Y, subs, draws=draws)
+
+    def draw(generator, idx=None):
         if idx is None:
             idx = _draw(generator, len(dataset), updates, batch_size, dev)
         idx = torch.as_tensor(idx, dtype=torch.int64, device=dev)[:, mine]
-        history = []
-        for u in range(idx.shape[0]):
-            X, Y, subs = dataset.gather(idx[u])[:3]
-            state, metrics = step(state, X, Y, subs)
-            history.append(metrics)
-        return state, epoch_means(history, idx.shape[0])
+        return [((row,), {}) for row in idx]
 
-    return epoch
+    return ScanEpoch(TrainStep(prepare, body, mesh), draw)
 
 
 def make_gwilliams_scan_epoch(model, optimizer: Adam, loss_cfg: LossConfig,
                               collate_cfg: CollateConfig, ds: GwilliamsPacked,
                               updates: int, batch_size: int,
-                              cache_collate_stats: bool = False, mesh=None):
+                              cache_collate_stats: bool = False,
+                              mesh=None) -> ScanEpoch:
     """The epoch over the packed Gwilliams split: each step pairs its
-    segments with random sessions and gathers the windows on the device.
-    Returns ``epoch(state, generator=None, idx=None, sess_ids=None) →
-    (state, means)``: ``idx`` and ``sess_ids`` (updates, B), each drawn
-    with ``generator`` (a ``torch.Generator`` on the dataset's device,
-    segment ids first) when None.  ``cache_collate_stats`` as in
+    segments with random sessions and gathers the windows on the device
+    (``make_fused_speech_step``'s step).  Returns a ``ScanEpoch``,
+    ``epoch(state, generator=None, idx=None, sess_ids=None) → (state,
+    means)``: ``idx`` and ``sess_ids`` (updates, B), each drawn with
+    ``generator`` (a ``torch.Generator`` on the dataset's device, segment
+    ids first) when None.  ``cache_collate_stats`` as in
     ``make_fused_speech_step``; the table is ``epoch.collate_stats``.
 
     With ``mesh``: ``ds`` is session-sharded (``epoch.ds``), ``idx`` is
     the global draw and ``sess_ids`` the device-major shard-local sessions
     in [0, S_local); each rank gathers its columns from its shard."""
-    step = make_train_step(model, optimizer, loss_cfg, collate_cfg, mesh=mesh)
-    y_dtype = _loss_y_dtype(model, loss_cfg)
-    if mesh is not None:
-        n_segments = len(ds)
-        ds = _shard_gwilliams(ds, mesh)
-        stats = _stats_table(ds, collate_cfg, cache_collate_stats, None, mesh)
-        gather = _make_sharded_gather(mesh, ds, y_dtype, stats)
-        dev = ds.recordings.device
-        S_local = ds.num_sessions
-
-        def epoch_dp(state, generator: torch.Generator | None = None,
-                     idx=None, sess_ids=None):
-            if idx is None:
-                idx = _draw(generator, n_segments, updates, batch_size, dev)
-            if sess_ids is None:
-                sess_ids = _draw(generator, S_local, *idx.shape, dev)
-            history = []
-            for u in range(len(idx)):
-                out = gather(idx[u], sess_ids[u])
-                state, metrics = step(state, *out[:3], collate_stats=(
-                    out[3] if len(out) == 4 else None))
-                history.append(metrics)
-            return state, epoch_means(history, len(idx))
-
-        epoch_dp.ds, epoch_dp.collate_stats = ds, stats
-        return epoch_dp
+    n_segments = len(ds)
+    fused = make_fused_speech_step(model, optimizer, loss_cfg, collate_cfg, ds,
+                                   cache_collate_stats=cache_collate_stats,
+                                   mesh=mesh)
+    ds = getattr(fused, "ds", ds)
     dev = ds.recordings.device
-    seg_dev = torch.as_tensor(ds.segment_table(), device=dev)
-    stats = _stats_table(ds, collate_cfg, cache_collate_stats, None)
 
-    def epoch(state, generator: torch.Generator | None = None, idx=None,
-              sess_ids=None):
+    def draw(generator, idx=None, sess_ids=None):
         if idx is None:
-            idx = _draw(generator, len(ds), updates, batch_size, dev)
+            idx = _draw(generator, n_segments, updates, batch_size, dev)
         if sess_ids is None:
             sess_ids = _draw(generator, ds.num_sessions, *idx.shape, dev)
         idx = torch.as_tensor(idx, dtype=torch.int64, device=dev)
         sess_ids = torch.as_tensor(sess_ids, dtype=torch.int64, device=dev)
-        history = []
-        for u in range(idx.shape[0]):
-            rows = seg_dev[idx[u]]
-            X, Y, subs = _gather_batch(
-                ds.recordings, ds.y_stream, ds.meg_onsets, ds.speech_onsets,
-                ds.session_subject, rows[:, 0], rows[:, 1], sess_ids[u],
-                ds.seq_len, y_dtype=y_dtype)
-            srows = (None if stats is None else collate_stats_rows(
-                ds, stats, rows[:, 0], rows[:, 1], sess_ids[u]))
-            state, metrics = step(state, X, Y, subs, collate_stats=srows)
-            history.append(metrics)
-        return state, epoch_means(history, idx.shape[0])
+        return [((i,), {"sess_ids": s}) for i, s in zip(idx, sess_ids)]
 
-    epoch.collate_stats = stats
+    epoch = ScanEpoch(fused, draw)
+    epoch.collate_stats = fused.collate_stats
+    if mesh is not None:
+        epoch.ds = ds
     return epoch

@@ -9,6 +9,14 @@ norm is not finite is skipped on the device: parameters, Adam state and BN
 statistics keep their old values, and the step counts as ``skipped``.
 Nothing in the step waits for the device.
 
+A step is a ``TrainStep`` in two parts, so that its device part can run as
+one captured CUDA graph (``train/graph.py``, the counterpart of JAX's
+``jax.jit(train_step)``): ``prepare`` on the host draws the step's
+randomness from ``state.generator`` (the spatial-dropout centre, EEGNet's
+dropout masks: ``draw_dropout``) in the order the eager forward drew it,
+and ``body`` on the device does the rest, reading nothing back to the
+host and copying nothing from it.  Calling the step runs both eagerly.
+
 Under a data-parallel ``mesh`` (``core/mesh.py``; JAX's ``mesh=``,
 ``:86-307``) each rank steps on its rows of the global batch.  Its loss is
 its share of the global loss: the CLIP loss through
@@ -34,6 +42,7 @@ Loss kinds, as the reference entry points (SURVEY §2.9):
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
@@ -48,6 +57,7 @@ from meg_decoding_tpu_torch.objectives.losses import (
     same_label_loss,
     same_label_loss_sharded,
 )
+from meg_decoding_tpu_torch.data.prefetch import to_device
 from meg_decoding_tpu_torch.parallel.dp import all_reduce_flat_
 from meg_decoding_tpu_torch.objectives.retrieval import (
     retrieval_accuracy,
@@ -60,7 +70,8 @@ from meg_decoding_tpu_torch.ops.scaling import (
 from meg_decoding_tpu_torch.train.optim import Adam, global_norm
 from meg_decoding_tpu_torch.train.state import TrainState
 
-__all__ = ["LossConfig", "CollateConfig", "make_train_step", "make_eval_step"]
+__all__ = ["LossConfig", "CollateConfig", "TrainStep", "draw_dropout",
+           "make_train_step", "make_eval_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,19 +172,52 @@ def _global_metrics(mesh, loss, smet, Z, Y, top_ks) -> tuple:
                                      mesh.all_gather(Y), top_ks=top_ks)
 
 
+@dataclasses.dataclass
+class TrainStep:
+    """A train step in its two parts.  ``prepare(state, *args, **kw) →
+    inputs``: the host part, a dict of the body's inputs, tensors on the
+    device or on the host (the draws are CPU tensors).  ``body(state,
+    **inputs) → metrics``: the device part, on inputs on the state's
+    device; it updates ``state`` in place.  ``mesh``: the data-parallel
+    mesh the body's collectives run over, or None.
+
+    ``step(state, *args, **kw) → (state, metrics)`` runs both eagerly,
+    copying the host inputs to the device without a sync."""
+    prepare: Callable
+    body: Callable
+    mesh: object = None
+
+    def __call__(self, state: TrainState, *args, **kwargs):
+        inputs = to_device(self.prepare(state, *args, **kwargs),
+                           state.step.device, non_blocking=True)
+        return state, self.body(state, **inputs)
+
+
+def draw_dropout(model, generator: torch.Generator, batch_size: int, T: int,
+                 centre=None) -> dict:
+    """The randomness of one training forward of ``model`` on (batch_size,
+    C, T), drawn on the host: the forward's keyword arguments (the
+    spatial-dropout ``centre`` as a 0-dim int64 tensor, EEGNet's
+    ``dropout_masks``), empty for a model that draws nothing.  ``centre``,
+    when given, is used instead of a draw (a model without spatial dropout
+    ignores it, as its forward does)."""
+    draw = getattr(model, "draw_dropout", None)
+    return {} if draw is None else draw(generator, batch_size, T, centre)
+
+
 def make_train_step(model, optimizer: Adam, loss_cfg: LossConfig,
                     collate_cfg: CollateConfig, gallery=None,
                     gallery_self_sim=None, mesh=None):
     """Build the train step.
 
-    Returns ``step(state, X, Y, subject_idxs, labels=None, centre=None,
-    collate_stats=None) → (state, metrics)``: ``state`` is updated in place
-    and returned; ``labels`` feed the classification and same-label losses;
-    ``centre`` is the spatial-dropout centre, drawn from ``state.generator``
-    when None; ``collate_stats`` (B, 2C), the batch's rows of
-    ``data/gwilliams.py:compute_collate_stats`` ([:, :C] median, [:, C:]
-    IQR), makes the collate apply those fits instead of computing the
-    percentiles (``collate_preprocess_cached``).
+    Returns a ``TrainStep``, ``step(state, X, Y, subject_idxs, labels=None,
+    centre=None, collate_stats=None) → (state, metrics)``: ``state`` is
+    updated in place and returned; ``labels`` feed the classification and
+    same-label losses; ``centre`` is the spatial-dropout centre, drawn from
+    ``state.generator`` when None; ``collate_stats`` (B, 2C), the batch's
+    rows of ``data/gwilliams.py:compute_collate_stats`` ([:, :C] median,
+    [:, C:] IQR), makes the collate apply those fits instead of computing
+    the percentiles (``collate_preprocess_cached``).
     ``gallery`` (G, F) and its cosine self-similarity are the
     classification loss's.  Metrics are 0-dim tensors on the device:
     ``loss``, ``temp`` (after the update), ``skipped``, ``top1``, ``top10``
@@ -186,8 +230,16 @@ def make_train_step(model, optimizer: Adam, loss_cfg: LossConfig,
     if mesh is not None:
         set_data_parallel(model, mesh)
 
-    def step(state: TrainState, X, Y, subject_idxs, labels=None, centre=None,
-             collate_stats=None):
+    def prepare(state: TrainState, X, Y, subject_idxs, labels=None,
+                centre=None, collate_stats=None) -> dict:
+        inputs = {"X": X, "Y": Y, "subject_idxs": subject_idxs,
+                  "labels": labels, "collate_stats": collate_stats,
+                  "draws": draw_dropout(model, state.generator, X.shape[0],
+                                        X.shape[-1], centre)}
+        return {k: v for k, v in inputs.items() if v is not None}
+
+    def body(state: TrainState, X, Y, subject_idxs, labels=None,
+             collate_stats=None, draws=None) -> dict:
         model.train()
         if collate_cfg.enabled:
             with torch.no_grad():
@@ -201,7 +253,7 @@ def make_train_step(model, optimizer: Adam, loss_cfg: LossConfig,
                     X = collate_preprocess(X, collate_cfg.baseline_len_samp,
                                            collate_cfg.clamp_lim,
                                            collate_cfg.clamp)
-        Z = model(X, subject_idxs, centre=centre, generator=state.generator)
+        Z = model(X, subject_idxs, **(draws or {}))
         temp = state.temp if loss_cfg.temp_trainable else state.temp.detach()
         loss, sim, smet = _compute_loss(loss_cfg, Z, Y, labels, temp, model,
                                         gallery, gallery_self_sim, train=True,
@@ -233,9 +285,9 @@ def make_train_step(model, optimizer: Adam, loss_cfg: LossConfig,
         if loss_cfg.grad_norms:
             metrics["grad_norm"] = torch.where(ok, gnorm, zero)
         metrics.update({k: torch.where(ok, v, zero) for k, v in acc.items()})
-        return state, metrics
+        return metrics
 
-    return step
+    return TrainStep(prepare, body, mesh)
 
 
 def make_eval_step(model, loss_cfg: LossConfig, collate_cfg: CollateConfig,

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -55,11 +56,13 @@ def _forbidden(name: str) -> bool:
 def test_ast_scan_finds_no_jax_imports():
     files = _port_files()
     assert len(files) > 20
-    # the example drivers and the import CLI are scanned too
+    # the example drivers, the import CLI and the captured step are
+    # scanned too
     assert {os.path.join(PKG, "examples", f"{n}.py") for n in (
         "inference", "quickstart_synthetic", "kamitani_regression",
         "attention_check")} | {os.path.join(PKG, "cli",
-                                            "import_torch_checkpoint.py")} \
+                                            "import_torch_checkpoint.py"),
+                               os.path.join(PKG, "train", "graph.py")} \
         <= set(files)
     bad = [(os.path.relpath(f, ROOT), n) for f in files
            for n in _imported_names(f) if _forbidden(n)]
@@ -124,8 +127,12 @@ def test_entry_points_refuse_cuda_without_a_gpu(monkeypatch, tmp_path):
     from meg_decoding_tpu_torch.data.gwilliams import build_gwilliams_dataset
     from meg_decoding_tpu_torch.device import resolve_device
     from meg_decoding_tpu_torch.models.factory import get_model
+    from meg_decoding_tpu_torch.train.graph import GraphedStep
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # a train state on the card, as far as GraphedStep reads it
+    cuda_state = types.SimpleNamespace(
+        step=types.SimpleNamespace(device=torch.device("cuda")))
     cfg = compose(os.path.join(ROOT, "configs"), "config",
                   [f"cache_dir={tmp_path}", "num_subjects=2"])
     god_cfg = compose(os.path.join(ROOT, "configs"), "config_GOD",
@@ -165,6 +172,7 @@ def test_entry_points_refuse_cuda_without_a_gpu(monkeypatch, tmp_path):
         lambda: sweeps.main([f"data_root={tmp_path}", "sweep=manual_ch"]),
         lambda: quickstart_synthetic.main(["--out", str(tmp_path / "q"),
                                            "--dataset", "god"]),
+        lambda: GraphedStep(lambda state: {}, cuda_state),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

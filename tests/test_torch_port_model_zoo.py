@@ -270,8 +270,9 @@ def _set_masks(jstep_call, tm, masks):
         out = jstep_call()
     assert len(order) == 2
     forward = tm.forward
-    tm.forward = lambda *a, **k: forward(*a, dropout_masks=tuple(
-        torch.from_numpy(np.ascontiguousarray(m)) for m in masks), **k)
+    # the step hands the masks it drew to the forward: these replace them
+    tm.forward = lambda *a, **k: forward(*a, **{**k, "dropout_masks": tuple(
+        torch.from_numpy(np.ascontiguousarray(m)) for m in masks)})
     return out
 
 
