@@ -45,7 +45,9 @@ Phases, each printed as one JSON line:
 4. serving  — a synthetic 27-subject cache, 4 requests of 64 raw windows
               through ``serving/forward.py`` (Z checked finite, of shape
               (64, 1024, 360), and against the same model on the CPU), then
-              the eval CLI over the test pools;
+              the eval CLI over the test pools; the requests replay one
+              captured graph of the forward, the eval CLI its own forward's
+              one graph a pool;
 5. training — one train step on the card against the same step on the CPU
               (loss and global gradient norm within 1e-4), step times of
               the fused step (first and steady), then the train CLI
@@ -116,7 +118,30 @@ Phases, each printed as one JSON line:
               ``presets``, ``scan_epochs``, ``god_training``, ``model_zoo``,
               ``brennan_cli``) must replay its graph once a step, after one
               capture; the
-              spill and data-parallel CLIs step eagerly (no replay);
+              spill and data-parallel CLIs step eagerly (no train replay);
+    serve_graphs — (speech after ``graphs``, GOD after ``model_zoo``) the
+              forward-only programs as captured CUDA graphs: the serving
+              forward (``serving/export.py:make_serving_forward``) and the
+              exported artifact (``ServingModel``, one graph a batch size)
+              of ``config.yaml``'s seq2seq encoder and ``config_GOD.yaml``'s
+              brain encoder at B = 1, 8 and 64, and the eval step
+              (``train/steps.py:EvalStep``) on one test pool of 64 of each.
+              Each path: the graph's capturing call and a replay bit-
+              identical to the eager body under cuDNN's deterministic
+              algorithms, each with the eager call's launches, two forward
+              replays after one capture, card vs CPU within 1e-4·max|Z|;
+              then, with the default algorithms and a new graph, each
+              route's request ms (first, p50, p90), device operations and
+              busy ms a request and idle share (torch.profiler), peak
+              memory, capture seconds and the time of Z's copy out.  Then
+              GOD's ``fit`` (2 epochs of 2 updates, 2 test pools) with its
+              train and eval graphs against ``fit`` with both routes eager
+              (``EagerStep``), cuDNN deterministic: end state and every
+              epoch's metrics bit-identical, launches equal, the replays
+              of each route.  Every single-card train CLI's test pools
+              replay one eval graph (one capture, one replay a pool),
+              also on the spill route; the DP route scores them eagerly;
+              the eval CLIs replay one graph of the forward;
     model_zoo — ``cli/train_god.py`` with ``model=eegnet`` (config_GOD's
               EEGNet hyper-parameters) and with
               ``model=brain_endcoder_seq2static window.end=0.6`` (T = 48,
@@ -190,9 +215,10 @@ Phases, each printed as one JSON line:
               the eager serving forward at B = 1, 7, 8 and 64 (≤ 1e-5 ·
               max|ref|), against the CPU artifact (≤ 1e-4 · max|ref|), one
               request's launches (exactly one ``robust_quantiles``, nothing
-              else), a weight scaled by 1.5 changing Z, and the serving
-              benchmark's rows (``cli/serving_benchmark.py:latency_row``,
-              eager and artifact at B = 1, 8, 64);
+              else), a weight scaled by 1.5 changing Z and setting it back
+              giving the first Z bit for bit, and the serving benchmark's
+              rows (``cli/serving_benchmark.py:latency_row``, eager, graph
+              and artifact at B = 1, 8, 64);
     export_cli — ``train_speech`` and ``train_god`` for 2 updates each,
               ``cli/export_model.py`` on each checkpoint, the artifact on
               the card against the evaluator's eager forward on the same
@@ -312,8 +338,8 @@ Any failure raises and exits non-zero.  Without CUDA, or without the rest
 of the repository beside it, it exits non-zero and prints no result.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``;
-``--phase graphs`` runs the build, the speech cache, the ``graphs`` phase's
-speech paths, the GOD data and its GOD paths, and stops.
+``--phase graphs`` (or ``serve_graphs``) runs the build, the speech cache,
+that phase's speech paths, the GOD data and its GOD paths, and stops.
 """
 
 from __future__ import annotations
@@ -339,11 +365,14 @@ from meg_decoding_tpu_torch.cli import (
     train_speech,
 )
 from meg_decoding_tpu_torch.cli.profile_train_step import profile_config
-from meg_decoding_tpu_torch.cli.serving_benchmark import latency_row
+from meg_decoding_tpu_torch.cli.serving_benchmark import (
+    latency_row,
+    request_profile,
+)
 from meg_decoding_tpu_torch.core.config import Config, compose, to_dict
 from meg_decoding_tpu_torch.data.brennan import build_brennan_dataset
 from meg_decoding_tpu_torch.data.god import build_god_dataset
-from meg_decoding_tpu_torch.data.prefetch import prefetch_to_device
+from meg_decoding_tpu_torch.data.prefetch import prefetch_to_device, to_device
 from meg_decoding_tpu_torch.data.layout import ch_locations_2d
 from meg_decoding_tpu_torch.data.roi import roi
 from meg_decoding_tpu_torch.data.synthetic import (
@@ -379,11 +408,13 @@ from meg_decoding_tpu_torch.ops.scaling import (
     epoch_slice,
 )
 from meg_decoding_tpu_torch.serving.export import (
+    ServingModel,
     load_artifact,
     make_serving_forward,
     save_artifact,
 )
 from meg_decoding_tpu_torch.train import graph as tg
+from meg_decoding_tpu_torch.train import loop
 from meg_decoding_tpu_torch.train.checkpoint import CheckpointManager
 from meg_decoding_tpu_torch.train.graph import GraphedStep
 from meg_decoding_tpu_torch.train.loop import _test_pool_starts
@@ -396,7 +427,8 @@ from meg_decoding_tpu_torch.train.scan_loop import (
 )
 from meg_decoding_tpu_torch.train.schedules import make_optimizer
 from meg_decoding_tpu_torch.train.state import create_train_state
-from meg_decoding_tpu_torch.train.steps import make_train_step
+from meg_decoding_tpu_torch.train.steps import make_eval_step, make_train_step
+from meg_decoding_tpu_torch.utils.logging import RunLogger
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
@@ -1020,6 +1052,9 @@ def phase_serving(cfg, ds, tr_idx, seed) -> dict:
     results = evaluate_speech.run(cfg, device="cuda")
     torch.cuda.synchronize()
     launches = {"window_gather": wg.launches, "robust_quantiles": qk.launches}
+    # the requests replay one graph of the forward, the eval CLI its own
+    # forward's one graph a pool
+    replays = graph_replays("serving", 0, N_REQUESTS + results["n_pools"], 2)
 
     # the same model and windows on the CPU (plain collate, f32 convs)
     cpu_model = get_model(cfg, loc, device="cpu", seed=seed)
@@ -1033,7 +1068,7 @@ def phase_serving(cfg, ds, tr_idx, seed) -> dict:
           "Z_finite": True, "requests": N_REQUESTS,
           "request_ms": req_ms, "gather_ms": gather_ms,
           "card_vs_cpu_rel_err": rel, "rel_err_limit": 1e-4,
-          "eval": results, "launches": launches})
+          "eval": results, "launches": launches, "graph": replays})
     return launches
 
 
@@ -1151,7 +1186,7 @@ def phase_training(cfg, ds, tr_idx, seed, work) -> dict:
                 "bn_bwd_stats": BN_PER_STEP * TRAIN_UPDATES}
     if launches != expected:
         raise AssertionError(f"train CLI launches {launches}, expected {expected}")
-    replays = graph_replays("train CLI", TRAIN_UPDATES)
+    replays = graph_replays("train CLI", TRAIN_UPDATES, pools)
     emit({"phase": "training", "card_vs_cpu": check, "rel_err_limit": 1e-4,
           "first_step_ms": first_ms, "fused_step_ms": step_ms,
           "steady_step_ms": float(np.median(step_ms[1:])),
@@ -1333,7 +1368,7 @@ def phase_god_training(cfg, ds, seed) -> dict:
                 "bn_bwd_stats": BN_PER_STEP * updates}
     if launches != expected:
         raise AssertionError(f"GOD train CLI launches {launches}, expected {expected}")
-    replays = graph_replays("GOD train CLI", updates)
+    replays = graph_replays("GOD train CLI", updates, pools)
     emit({"phase": "god_training", "card_vs_cpu": check, "rel_err_limit": 1e-4,
           "first_step_ms": first_ms, "step_ms": step_ms,
           "steady_step_ms": float(np.median(step_ms[1:])), "losses": losses,
@@ -1368,8 +1403,10 @@ def phase_god_eval(cfg) -> dict:
                 "bn_bwd_stats": 0}
     if launches != expected:
         raise AssertionError(f"GOD eval CLI launches {launches}, expected {expected}")
+    # that predict batch is one replay of the forward's graph
+    replays = graph_replays("GOD eval CLI", 0, 1)
     emit({"phase": "god_eval", "eval": results, "eval_cli_s": eval_s,
-          "launches": launches})
+          "launches": launches, "graph": replays})
     return launches
 
 
@@ -1554,7 +1591,7 @@ def phase_presets(cfg, ds, tr_idx, seed, work, flush) -> dict:
         if launches != expected:
             raise AssertionError(f"{preset} CLI launches {launches}, "
                                  f"expected {expected}")
-        replays = graph_replays(f"{preset} CLI", PRESET_UPDATES)
+        replays = graph_replays(f"{preset} CLI", PRESET_UPDATES, pools)
         if best.get("train_skipped") != 0.0 or not math.isfinite(best["train_loss"]):
             raise AssertionError(f"{preset} CLI: {best}")
         out["launches"][preset] = launches
@@ -1685,7 +1722,7 @@ def phase_scan_speech(cfg, ds, tr_idx, seed, work) -> dict:
                 "bn_bwd_stats": BN_PER_STEP * SCAN_UPDATES}
     if launches != expected:
         raise AssertionError(f"scan CLI launches {launches}, expected {expected}")
-    replays = graph_replays("scan CLI", SCAN_UPDATES)
+    replays = graph_replays("scan CLI", SCAN_UPDATES, pools)
     if best.get("train_skipped") != 0.0 or "t_step_ms" in best:
         raise AssertionError(f"scan CLI: {best}")
     emit({"phase": "scan_epochs", "workload": "speech", "updates": SCAN_UPDATES,
@@ -1749,7 +1786,7 @@ def phase_scan_god(cfg, ds, seed) -> dict:
                 "bn_bwd_stats": BN_PER_STEP * SCAN_UPDATES}
     if launches != expected:
         raise AssertionError(f"GOD scan CLI launches {launches}, expected {expected}")
-    replays = graph_replays("GOD scan CLI", SCAN_UPDATES)
+    replays = graph_replays("GOD scan CLI", SCAN_UPDATES, pools)
     if best.get("train_skipped") != 0.0 or "t_step_ms" in best:
         raise AssertionError(f"GOD scan CLI: {best}")
     emit({"phase": "scan_epochs", "workload": "god", "updates": SCAN_UPDATES,
@@ -1850,7 +1887,8 @@ def graph_path(name: str, cfg, make, calls: int, per_call: int,
                 "hist": hist, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "launches": per_unit({k: after[k] - before[k] for k in after},
                                      calls * per_call),
-                "replays": tg.replays, "captures": tg.captures}
+                "replays": tg.replays["train"],
+                "captures": tg.captures["train"]}
     finally:
         torch.backends.cudnn.deterministic = prev
     e, g = runs["eager"], runs["graph"]
@@ -2016,15 +2054,294 @@ def phase_graphs_god(cfg, ds, seed, smi: str) -> dict:
     return out
 
 
-def graph_replays(path: str, expected: int) -> dict:
-    """The graph replays and captures since ``reset_all_launches()``:
-    ``expected`` replays (the steps taken on the graph route; 0 on an
-    eager route) and one capture where there was a replay."""
-    got = {"replays": tg.replays, "captures": tg.captures}
-    if got != {"replays": expected, "captures": int(expected > 0)}:
-        raise AssertionError(f"{path}: graph {got}, expected {expected} "
-                             "replays")
+def graph_counts() -> dict:
+    """The graph replays and captures by kind since
+    ``reset_all_launches()``."""
+    return {f"{kind}_{what}": counts[kind] for kind in tg.KINDS
+            for what, counts in (("replays", tg.replays),
+                                 ("captures", tg.captures))}
+
+
+def graph_replays(path: str, train: int, forward: int,
+                  forward_graphs: int | None = None,
+                  got: dict | None = None) -> dict:
+    """The graph replays and captures by kind since
+    ``reset_all_launches()`` (or ``got``, read earlier): ``train`` train
+    step replays (the steps taken on the graph route; 0 on an eager route)
+    after one capture where there was a replay, and ``forward`` forward
+    replays (test pools, eval batches, requests) after ``forward_graphs``
+    captures (one where there was a replay, by default)."""
+    got = graph_counts() if got is None else got
+    want = {"train_replays": train, "train_captures": int(train > 0),
+            "forward_replays": forward,
+            "forward_captures": (int(forward > 0) if forward_graphs is None
+                                 else forward_graphs)}
+    if got != want:
+        raise AssertionError(f"{path}: graphs {got}, expected {want}")
     return got
+
+
+SERVE_GRAPH_BATCHES = (1, 8, 64)  # serve_graphs: the serving benchmark's sizes
+SERVE_GRAPH_ITERS = 30            # timed requests, then as many traced
+SERVE_CPU_ROWS = 8                # rows of a request held against the CPU
+FIT_EPOCHS, FIT_UPDATES = 2, 2    # serve_graphs: fit graph vs eager (GOD)
+
+
+class EagerStep:
+    """A stand-in for ``GraphedStep``: the body run eagerly on the inputs
+    (host inputs copied to the device), so that ``fit`` runs both of its
+    routes eagerly for a comparison."""
+
+    def __init__(self, body, state=None, device="cuda", reads=()):
+        self.body, self.state = body, state
+        self.device = torch.device(device) if state is None else state.step.device
+
+    def __call__(self, inputs):
+        inputs = to_device(inputs, self.device, non_blocking=True)
+        if self.state is None:
+            return self.body(**inputs)
+        return self.body(self.state, **inputs)
+
+
+def z_of(out) -> torch.Tensor:
+    """Z of a forward's output (Z) or an eval step's ((metrics, Z))."""
+    return out[1] if isinstance(out, tuple) else out
+
+
+def serve_graph_path(name: str, make, X, subs, cpu_Z, smi: str, flush) -> dict:
+    """One path of ``serve_graphs`` at one batch.  ``make()`` returns
+    ``(eager, graphed, graph_of)``: ``eager(X, subs)`` and ``graphed(X,
+    subs)`` run the path eagerly and through its graph, each returning Z
+    or ``(metrics, Z)``, and ``graph_of()`` is the route's ``GraphedStep``.
+    Under cuDNN's deterministic algorithms: the graph's first call (the
+    capture) and a replay bit-identical to the eager call, each with the
+    eager call's launches, two forward replays after one capture; card vs
+    CPU (``cpu_Z``, the first rows) within CARD_CPU_RTOL of max|Z|.  Then,
+    with the default algorithms and a new graph: each route's request ms,
+    device operations and busy ms a request and idle share, peak memory,
+    the capture's seconds and the time of the copy out of Z."""
+    t_path = time.perf_counter()
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager, graphed, graph_of = make()
+        eager(X, subs)  # the libraries' first call of these shapes
+        torch.cuda.synchronize()
+        marks, outs = [tg.launch_counts()], []
+        counts0 = graph_counts()
+        for fn in (eager, graphed, graphed):
+            outs.append(fn(X, subs))
+            torch.cuda.synchronize()
+            marks.append(tg.launch_counts())
+        counts1 = graph_counts()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    launches = [per_unit({k: b[k] - a[k] for k in b}, 1)
+                for a, b in zip(marks, marks[1:])]
+    if not launches[0] or launches[1:] != [launches[0]] * 2:
+        raise AssertionError(f"serve_graphs {name}: launches eager, capture "
+                             f"call, replay {launches}")
+    counts = {k: counts1[k] - counts0[k] for k in counts1}
+    if counts != {"train_replays": 0, "train_captures": 0,
+                  "forward_replays": 2, "forward_captures": 1}:
+        raise AssertionError(f"serve_graphs {name}: graphs {counts}")
+    want = torch.utils._pytree.tree_leaves(outs[0])
+    for out in outs[1:]:
+        got = torch.utils._pytree.tree_leaves(out)
+        if len(got) != len(want) or not all(map(torch.equal, got, want)):
+            raise AssertionError(f"serve_graphs {name}: graph vs eager not "
+                                 "bit-identical under deterministic cuDNN")
+    Z = z_of(outs[0])
+    if not bool(torch.isfinite(Z).all()):
+        raise AssertionError(f"serve_graphs {name}: Z not finite")
+    cpu_err = rel_max(Z[:cpu_Z.shape[0]].cpu(), cpu_Z)
+    if not cpu_err <= CARD_CPU_RTOL:
+        raise AssertionError(f"serve_graphs {name}: card vs CPU {cpu_err}")
+    del eager, graphed, graph_of, outs, Z
+
+    eager, graphed, graph_of = make()
+    dev = torch.device("cuda")
+    routes = {}
+    for route, fn in (("eager", eager), ("graph", graphed)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        routes[route] = {
+            **latency_row(fn, X, subs, SERVE_GRAPH_ITERS, dev),
+            **request_profile(fn, X, subs, SERVE_GRAPH_ITERS, dev),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    routes["graph"]["capture_s"] = graph_of().capture_seconds
+    Zg = z_of(graphed(X, subs))
+    copy_ms = time_ms(lambda: Zg.clone(), flush)
+    row = {"phase": "serve_graphs", "path": name, "device": smi,
+           "batch": int(X.shape[0]), "cudnn_deterministic_check": True,
+           "bit_identical": True, "card_vs_cpu_rel_err": cpu_err,
+           "card_vs_cpu_limit": CARD_CPU_RTOL,
+           "cpu_rows": int(cpu_Z.shape[0]), "launches_per_call": launches[0],
+           "graphs": counts, "eager": routes["eager"], "graph": routes["graph"],
+           "z_bytes": Zg.numel() * Zg.element_size(), "z_copy_ms": copy_ms,
+           "seconds": time.perf_counter() - t_path}
+    emit(row)
+    return row
+
+
+def serve_graph_paths(workload: str, model, cpu_model, n_channels: int,
+                      seq_len: int, n_subjects: int, collate, loss_cfg,
+                      pool, temp: float, seed: int, work: str, smi: str) -> dict:
+    """``serve_graphs`` for one encoder: the serving forward and its
+    exported artifact at each of SERVE_GRAPH_BATCHES, and the eval step on
+    one test pool ``pool`` = (X, Y, subs).  Returns the rows."""
+    dev = torch.device("cuda")
+    out = os.path.join(work, f"serve_graphs_{workload}")
+    save_artifact(out, model, n_channels, seq_len, collate,
+                  extra_meta={"num_subjects": n_subjects})
+    card = load_artifact(out, device="cuda")
+    body = make_serving_forward(collate).body
+    rng = np.random.RandomState(seed + 17)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    reads = [*model.parameters(), *model.buffers()]
+
+    def cpu_ref(X, subs):
+        k = min(int(X.shape[0]), SERVE_CPU_ROWS)
+        return body(cpu_model, X[:k].cpu(), subs[:k].cpu())
+
+    def forward_route():
+        fw = make_serving_forward(collate)
+        return (lambda x, s: fw.body(model, x, s),
+                lambda x, s: fw(model, x, s), lambda: fw.graphs[model])
+
+    def artifact_route():
+        served = ServingModel(card.program, card.weights, card.meta, dev)
+        return served.body, served, lambda: served.graphed
+
+    rows = {}
+    for B in SERVE_GRAPH_BATCHES:
+        X = torch.from_numpy(rng.randn(B, n_channels, seq_len)
+                             .astype(np.float32)).to(dev)
+        subs = torch.from_numpy(rng.randint(0, n_subjects, B)
+                                .astype(np.int32)).to(dev)
+        ref = cpu_ref(X, subs)
+        for kind, make in (("forward", forward_route),
+                           ("artifact", artifact_route)):
+            name = f"{workload}_{kind}_b{B}"
+            rows[name] = serve_graph_path(name, make, X, subs, ref, smi, flush)
+
+    X, Y, subs = pool
+    step = make_eval_step(model, loss_cfg, collate)
+    t = torch.tensor(float(temp), device=dev)
+
+    def eval_route():
+        g = GraphedStep(step.body, device=dev, reads=reads)
+        return (lambda x, s: step(x, Y, s, t),
+                lambda x, s: g(step.prepare(x, Y, s, t)), lambda: g)
+
+    name = f"{workload}_eval_step_b{int(X.shape[0])}"
+    rows[name] = serve_graph_path(name, eval_route, X, subs, cpu_ref(X, subs),
+                                  smi, flush)
+    return rows
+
+
+def phase_serve_graphs_speech(cfg, ds, tr_idx, seed, work, smi: str) -> dict:
+    """``serve_graphs`` on ``configs/config.yaml``'s seq2seq encoder at full
+    width (C = 208, T = 360, F = 1024), the inline collate on; the eval
+    step on the first BATCH windows of the test split."""
+    dev = torch.device("cuda")
+    loc = ch_locations_2d(cfg)
+    model = get_model(cfg, loc, device=dev, seed=seed)
+    cpu_model = get_model(cfg, loc, device="cpu", seed=seed)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    te_idx = np.setdiff1d(np.arange(len(ds)), np.asarray(tr_idx))
+    pool = evaluate_speech.SpeechPool(ds, te_idx, seed=seed).gather(
+        np.arange(BATCH))
+    return serve_graph_paths(
+        "speech", model, cpu_model, C, int(ds.seq_len), int(ds.num_subjects),
+        evaluate_speech.collate_config(cfg), train_speech.loss_config(cfg),
+        pool, float(cfg.init_temperature), seed, work, smi)
+
+
+def phase_serve_graphs_god(cfg, ds, seed, work, smi: str) -> dict:
+    """``serve_graphs`` on ``configs/config_GOD.yaml``'s brain encoder
+    (22 ROI channels, T = 24, F = 512, mean-pooled); the eval step on the
+    last BATCH windows of the train split; then ``fit`` with its train and
+    eval graphs against ``fit`` with both routes eager (``EagerStep``)
+    from one init on the same draws, cuDNN deterministic: FIT_EPOCHS
+    epochs of FIT_UPDATES updates, the end state and every epoch's
+    metrics bit-identical, each route's replays and launches."""
+    dev = torch.device("cuda")
+    cfg.num_subjects = ds.num_subjects
+    loc = ch_locations_2d(cfg, roi(cfg))
+    model = get_model(cfg, loc, device=dev, seed=seed, num_channels=len(loc))
+    cpu_model = get_model(cfg, loc, device="cpu", seed=seed,
+                          num_channels=len(loc))
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    loss_cfg = train_god._loss_config(cfg)
+    if loss_cfg.kind == "classification":
+        raise AssertionError("serve_graphs takes config_GOD.yaml's CLIP loss")
+    collate = evaluate_speech.collate_config(cfg)
+    pool = ds.gather(np.arange(len(ds) - BATCH, len(ds)))[:3]
+    rows = serve_graph_paths(
+        "god", model, cpu_model, len(loc), int(ds.X.shape[-1]),
+        int(ds.num_subjects), collate, loss_cfg, pool,
+        float(cfg.init_temperature), seed, work, smi)
+    del model, cpu_model
+
+    fcfg = Config(dict(to_dict(cfg), epochs=FIT_EPOCHS, updates=FIT_UPDATES,
+                       use_sampler=True, batch_size=BATCH, test_size=BATCH))
+    test = ds.subset(np.arange(len(ds) - 100, len(ds)))
+    pools = len(_test_pool_starts(len(test), BATCH, True))
+    runs = {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for route in ("graph", "eager"):
+            model = get_model(fcfg, loc, device=dev, seed=seed,
+                              num_channels=len(loc))
+            opt = make_optimizer(fcfg, FIT_UPDATES)
+            state = create_train_state(model, opt,
+                                       float(fcfg.init_temperature), seed)
+            logger = RunLogger(os.path.join(work, f"fit_{route}"),
+                               run_name="fit")
+            if route == "eager":
+                loop.GraphedStep = EagerStep
+            reset_all_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                state, _ = loop.fit(
+                    fcfg, ds, test, state,
+                    make_train_step(model, opt, loss_cfg, collate),
+                    make_eval_step(model, loss_cfg, collate), logger,
+                    seed=seed)
+            finally:
+                loop.GraphedStep = GraphedStep
+            torch.cuda.synchronize()
+            with open(logger.path) as f:
+                logged = [{k: v for k, v in json.loads(line).items()
+                           if k.startswith(("train_", "test_"))} for line in f]
+            runs[route] = {"state": state_entries(state), "rows": logged,
+                           "launches": all_launches(),
+                           "graphs": graph_replays(
+                               f"fit {route}",
+                               FIT_EPOCHS * FIT_UPDATES if route == "graph" else 0,
+                               FIT_EPOCHS * pools if route == "graph" else 0),
+                           "seconds": time.perf_counter() - t0}
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    g, e = runs["graph"], runs["eager"]
+    state_rel, state_same = rel_diff(g["state"], e["state"])
+    if not state_same or g["rows"] != e["rows"] or g["launches"] != e["launches"]:
+        raise AssertionError(f"serve_graphs fit: graph vs eager state "
+                             f"{state_rel}, rows {g['rows']} vs {e['rows']}, "
+                             f"launches {g['launches']} vs {e['launches']}")
+    fit_row = {"phase": "serve_graphs", "path": "god_fit_graph_vs_eager",
+               "epochs": FIT_EPOCHS, "updates": FIT_UPDATES,
+               "test_pools": pools, "cudnn_deterministic_check": True,
+               "state_bit_identical": True, "rows_bit_identical": True,
+               "rows": g["rows"], "launches": g["launches"],
+               "graphs": g["graphs"],
+               "seconds": {k: r["seconds"] for k, r in runs.items()}}
+    emit(fit_row)
+    rows["god_fit"] = fit_row
+    return rows
 
 
 def phase_model_zoo(god_cfg, god_ds, seed, flush) -> dict:
@@ -2094,7 +2411,7 @@ def phase_model_zoo(god_cfg, god_ds, seed, flush) -> dict:
                     "bn_stats": n_bn * updates, "bn_bwd_stats": n_bn * updates}
         if launches != expected:
             raise AssertionError(f"{name} CLI launches {launches}, expected {expected}")
-        replays = graph_replays(f"{name} CLI", updates)
+        replays = graph_replays(f"{name} CLI", updates, pools)
         if best.get("train_skipped") != 0.0 or not (
                 math.isfinite(best["train_loss"]) and math.isfinite(best["test_loss"])):
             raise AssertionError(f"{name} CLI: {best}")
@@ -2502,9 +2819,12 @@ def phase_brennan_cli(work: str, seed: int) -> dict:
         result[name] = {"seconds": time.perf_counter() - t0,
                         "launches": brennan_launches(), "result": res,
                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                        "graph": graph_replays(
-                            f"Brennan {name} CLI",
-                            BRENNAN_UPDATES if name == "train" else 0)}
+                        "graph": graph_counts()}
+    # the train CLI's test pools are the eval CLI's pools (one split)
+    pools = result["eval"]["result"]["n_pools"]
+    for name, train in (("train", BRENNAN_UPDATES), ("eval", 0)):
+        graph_replays(f"Brennan {name} CLI", train, pools,
+                      got=result[name]["graph"])
     best, ev = result["train"]["result"], result["eval"]["result"]
     if best.get("train_skipped") != 0.0 or not (
             math.isfinite(best["train_loss"]) and math.isfinite(best["test_loss"])):
@@ -2588,7 +2908,7 @@ def phase_unfused_step(cfg, ds, tr_idx, seed, work) -> dict:
                 "bn_bwd_stats": BN_PER_STEP * TRAIN_UPDATES}
     if launches != expected:
         raise AssertionError(f"unfused CLI launches {launches}, expected {expected}")
-    replays = graph_replays("unfused CLI", TRAIN_UPDATES)
+    replays = graph_replays("unfused CLI", TRAIN_UPDATES, pools)
     if best.get("train_skipped") != 0.0 or not math.isfinite(best["train_loss"]):
         raise AssertionError(f"unfused CLI: {best}")
     emit({"phase": "unfused_step", "rel_err": check, "limit": 1e-5,
@@ -3108,13 +3428,19 @@ def serve_case(name, model, n_channels, seq_len, n_subjects, collate, seed,
     card.weights[key] = w * 1.5
     scaled = card(X, subs)
     card.weights[key] = w
+    restored = card(X, subs)
     if torch.equal(scaled, Z):
         raise AssertionError(f"{name}: a weight scaled by 1.5 left Z as it was")
+    if not torch.equal(restored, Z):
+        raise AssertionError(f"{name}: the restored weight does not give "
+                             "back the first Z bit for bit")
     rows = []
     for B in BENCH_BATCHES:
         X, subs = request(B)
-        for source, call in (("eager", lambda x, s: forward(model, x, s)),
-                             ("artifact", card)):
+        for source, call in (
+                ("eager", lambda x, s: forward.body(model, x, s)),
+                ("graph", lambda x, s: forward(model, x, s)),
+                ("artifact", card)):
             rows.append({"source": source,
                          **latency_row(call, X, subs, BENCH_ITERS, dev)})
     sizes = {f: os.path.getsize(os.path.join(out, f))
@@ -3123,7 +3449,8 @@ def serve_case(name, model, n_channels, seq_len, n_subjects, collate, seed,
             "export_s": export_s, "load_s": load_s, "rel_err": errs,
             "limit": EXPORT_RTOL, "card_vs_cpu_rel_err": cpu_err,
             "card_vs_cpu_limit": CARD_CPU_RTOL, "launches": launches,
-            "file_bytes": sizes, "latency": rows}
+            "restored_bit_identical": True, "file_bytes": sizes,
+            "latency": rows}
 
 
 def phase_serving_export(cfg, god_cfg, god_ds, seed, work) -> dict:
@@ -3331,10 +3658,11 @@ def same_draw_runs(make_state, batches_device, batches_spill) -> dict:
             "limit": SPILL_RTOL}
 
 
-def spill_cli(run, tcfg, work, name, expected) -> dict:
+def spill_cli(run, tcfg, work, name, expected, pools: int) -> dict:
     """A train CLI with ``host_resident: true, prefetch: 2`` and the epoch
-    traced: exact launches, and a trace holding the port's kernels and a
-    host-to-device copy on a stream other than the kernels'."""
+    traced: exact launches, its ``pools`` test pools through one eval
+    graph, and a trace holding the port's kernels and a host-to-device
+    copy on a stream other than the kernels'."""
     prof = os.path.join(work, f"profile_{name}")
     tcfg.host_resident, tcfg.prefetch = True, 2
     tcfg.profile_dir, tcfg.profile_epoch = prof, 0
@@ -3348,7 +3676,8 @@ def spill_cli(run, tcfg, work, name, expected) -> dict:
     if launches != expected:
         raise AssertionError(f"{name} spill CLI launches {launches}, "
                              f"expected {expected}")
-    graph_replays(f"{name} spill CLI", 0)  # the spill route steps eagerly
+    # the spill route steps eagerly; its test pools replay the eval graph
+    graph_replays(f"{name} spill CLI", 0, pools)
     if best.get("train_skipped") != 0.0 or not math.isfinite(best["train_loss"]):
         raise AssertionError(f"{name} spill CLI: {best}")
     (trace,) = os.listdir(prof)
@@ -3515,6 +3844,8 @@ def phase_spill_speech(cfg, seed, work, unfused_launches) -> dict:
     train_pool, test_pool = evaluate_speech.load_speech_splits(
         Config(to_dict(cfg)), seed, dev)
     ds = train_pool.ds
+    pools = len(_test_pool_starts(len(test_pool), min(len(test_pool), BATCH),
+                                  True))
     L, T = int(ds.seq_len), int(ds.recordings.shape[-1])
     on = ds.meg_onsets
     between = int(((on > T - padded_window(L)) & (on <= T - L)).sum())
@@ -3561,7 +3892,7 @@ def phase_spill_speech(cfg, seed, work, unfused_launches) -> dict:
         f"batch_size={BATCH}", "epochs=1", f"updates={TRAIN_UPDATES}",
         "fuse_gather=false", "run_name=spill"])
     expected = dict(unfused_launches, window_gather=0)
-    cli = spill_cli(train_speech.run, tcfg, work, "speech", expected)
+    cli = spill_cli(train_speech.run, tcfg, work, "speech", expected, pools)
     emit({"phase": "spill_speech", **check, "pinned": pinned,
           "h2d_bytes_per_step": bytes_per_step,
           "onsets_between_clamps": between, "split": split,
@@ -3604,7 +3935,12 @@ def phase_spill_god(cfg, god_ds, seed, work, god_launches) -> dict:
     del host
     tcfg = Config(dict(to_dict(cfg), save_root=os.path.join(work, "spill_god"),
                        run_name="spill"))
-    cli = spill_cli(train_god.run, tcfg, work, "god", dict(god_launches))
+    n_train = int(round(len(god_ds) * 5 / 6))
+    pools = len(_test_pool_starts(len(god_ds) - n_train,
+                                  min(len(god_ds) - n_train, int(cfg.test_size)),
+                                  bool(cfg.get("test_sweep", True))))
+    cli = spill_cli(train_god.run, tcfg, work, "god", dict(god_launches),
+                    pools)
     emit({"phase": "spill_god", **check, "pinned": pinned, "split": split,
           "quantile_route": route, **cli})
     return cli["launches"]
@@ -4029,7 +4365,8 @@ def phase_dp_speech(cfg, ds, tr_idx, seed, work) -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     cli = dp_launches()
-    graph_replays("DP speech CLI", 0)  # the data-parallel route steps eagerly
+    # the data-parallel route steps and scores its pools eagerly
+    graph_replays("DP speech CLI", 0, 0)
     n_test = len(ds) - len(tr_idx)
     pools = len(_test_pool_starts(n_test, min(n_test, BATCH),
                                   bool(tcfg.get("test_sweep", True))))
@@ -4560,12 +4897,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke run of the port")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
-        "--phase", choices=("all", "brennan_kernels", "graphs"), default="all",
+        "--phase", choices=("all", "brennan_kernels", "graphs", "serve_graphs"),
+        default="all",
         help="brennan_kernels: build, then only that phase at Brennan's "
              "row length; copied into another checkout's root, it times that "
              "checkout's kernel the same way, for comparisons in turns; "
-             "graphs: build, the speech cache, the graphs phase's speech "
-             "paths, the GOD data and its GOD paths")
+             "graphs / serve_graphs: build, the speech cache, that phase's "
+             "speech paths, the GOD data and its GOD paths")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -4583,18 +4921,24 @@ def main(argv=None) -> int:
     phase_build()
     smi = phase_device()
     lap("build")
-    if args.phase == "graphs":
+    if args.phase in ("graphs", "serve_graphs"):
         work = os.path.join(ROOT, "runs_out", f"chip_smoke_{os.getpid()}")
         try:
             cfg, ds, tr_idx = full_width_speech(
                 work, args.seed, [f"save_root={os.path.join(work, 'out')}",
                                   f"batch_size={BATCH}"])
-            phase_graphs_speech(cfg, ds, tr_idx, args.seed, smi)
+            if args.phase == "graphs":
+                phase_graphs_speech(cfg, ds, tr_idx, args.seed, smi)
+            else:
+                phase_serve_graphs_speech(cfg, ds, tr_idx, args.seed, work, smi)
             del ds
-            lap("graphs_speech")
+            lap(f"{args.phase}_speech")
             god_cfg, god_ds = phase_god_data(work, args.seed)
-            phase_graphs_god(god_cfg, god_ds, args.seed, smi)
-            lap("graphs_god")
+            if args.phase == "graphs":
+                phase_graphs_god(god_cfg, god_ds, args.seed, smi)
+            else:
+                phase_serve_graphs_god(god_cfg, god_ds, args.seed, work, smi)
+            lap(f"{args.phase}_god")
         finally:
             shutil.rmtree(work, ignore_errors=True)
         emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
@@ -4632,6 +4976,8 @@ def main(argv=None) -> int:
         lap("training")
         graphs = phase_graphs_speech(cfg, ds, tr_idx, args.seed, smi)
         lap("graphs_speech")
+        phase_serve_graphs_speech(cfg, ds, tr_idx, args.seed, work, smi)
+        lap("serve_graphs_speech")
         unfused = phase_unfused_step(cfg, ds, tr_idx, args.seed, work)
         lap("unfused_step")
         flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
@@ -4656,6 +5002,8 @@ def main(argv=None) -> int:
         zoo = phase_model_zoo(god_cfg, god_ds, args.seed, flush)
         del flush
         lap("god")
+        phase_serve_graphs_god(god_cfg, god_ds, args.seed, work, smi)
+        lap("serve_graphs_god")
         dp_god = phase_dp_god(god_cfg, god_ds, args.seed, work)
         lap("dp_god")
         kamitani = phase_kamitani(god_cfg, work)

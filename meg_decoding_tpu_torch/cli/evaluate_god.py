@@ -78,7 +78,8 @@ def predict(cfg, model, dataset, batch_size: int = 256) -> torch.Tensor:
     """The encoder's eval-mode output for every epoch of ``dataset``, with
     the on-device collate chain, in batches of one size: the final batch
     overlaps the one before it (as the JAX package does, to keep one
-    compiled shape)."""
+    compiled shape), so that on the card every batch replays one captured
+    graph (``serving/export.py:make_serving_forward``)."""
     forward = make_serving_forward(collate_config(cfg))
     n = len(dataset)
     bs = min(batch_size, n)

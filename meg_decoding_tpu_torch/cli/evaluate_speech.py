@@ -3,8 +3,10 @@ Brennan2018).  Port of ``run`` from ``meg_decoding_tpu/cli/evaluate_speech.py``.
 
 Scores the whole test split in candidate pools of ``test_size`` segments:
 segment-retrieval top-1/top-10 and pairwise identification (correlation),
-and writes ``{save_root}/eval_results.json``.  It reads the same YAML
-configs through the port's ``core/config.py``.  The test split is the
+and writes ``{save_root}/eval_results.json``.  On the card the forward of
+every pool is a replay of one captured CUDA graph
+(``serving/export.py:make_serving_forward``, JAX's ``jax.jit(fwd)``).  It
+reads the same YAML configs through the port's ``core/config.py``.  The test split is the
 trainer's, from the same seed; Brennan's segments were scaled when the
 dataset was built, so they take no collate.
 
@@ -270,7 +272,9 @@ def run(cfg: Config, device: str | torch.device = "cuda") -> dict:
     forward = make_serving_forward(collate_config(cfg))
 
     # score the whole test split in candidate pools of `test_size` segments;
-    # the final pool overlaps backwards to keep every pool full
+    # the final pool overlaps backwards to keep every pool full, so one
+    # captured graph of the forward serves every pool (the metrics stay
+    # outside it, as they are outside JAX's jitted forward)
     pool = min(len(test_set), int(cfg.get("test_size", cfg.batch_size)))
     n_pools = max(-(-len(test_set) // pool), 1)
     top1s, top10s, pids = [], [], []

@@ -65,7 +65,7 @@ from meg_decoding_tpu_torch.train.schedules import make_optimizer
 from meg_decoding_tpu_torch.train.state import create_train_state
 from meg_decoding_tpu_torch.train.steps import make_train_step
 
-__all__ = ["kernel_group", "busy_us", "main"]
+__all__ = ["kernel_group", "busy_us", "nvidia_smi", "main"]
 
 WARMUP, STEPS, SEED = 3, 10, 0
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -104,7 +104,7 @@ def busy_us(intervals) -> float:
     return total
 
 
-def _nvidia_smi() -> str:
+def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -230,7 +230,7 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("overrides", nargs="*", help="key=value config overrides")
     args = ap.parse_args(argv)
     resolve_device("cuda")  # raises without a GPU; TF32 off
-    smi = _nvidia_smi()
+    smi = nvidia_smi()
     print(smi, flush=True)
     work = os.path.join(_ROOT, "runs_out", f"profile_train_step_{os.getpid()}")
     make = {"speech": speech_step, "god": god_step}[args.workload]

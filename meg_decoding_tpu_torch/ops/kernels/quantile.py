@@ -199,6 +199,12 @@ def _launch_rows(x2d: torch.Tensor, qs):
         err = fn(x2d.data_ptr(), out.data_ptr(), N, T, ctypes.byref(spec),
                  stream)
     else:
+        # the zeroed scratch outlives the call, so a graph must not hold
+        # it: no captured program has rows this long (a serving or eval
+        # collate's rows hold one window's keys, 360 at the speech shape)
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"rows of {T} keys take the global-memory "
+                               "path, which is not captured in a CUDA graph")
         n_zeroed, n_work = long_scratch_words(N, T, len(qs))
         key = (x2d.device.index, stream)
         zeroed = _ZEROED.get(key)

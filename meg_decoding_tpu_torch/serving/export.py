@@ -27,12 +27,24 @@ code:
 ``load_artifact`` imports ``ops/kernels/quantile.py`` (which registers the
 op) before it loads the program, and moves program and weights to the
 device asked for.
+
+On the card both the serving forward and a loaded artifact replay captured
+CUDA graphs (``train/graph.py``): the forward one per (model, input
+signature), the artifact one per request batch size, as JAX's jitted
+forward compiles once per shape and its ``Exported.call`` once per batch
+size.  The first request of a size pays the capture.  On the CPU the same
+route runs eagerly.  The percentiles inside these graphs take the
+kernel's register or shared-memory path: a serving row holds at most
+the window's keys (360 at the speech shape), far below the global-memory
+path's rows, which are never captured (``ops/kernels/quantile.py``).
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
+import weakref
 
 import torch
 import torch.nn as nn
@@ -40,6 +52,7 @@ import torch.nn as nn
 from meg_decoding_tpu_torch.device import resolve_device
 from meg_decoding_tpu_torch.ops.kernels.quantile import OP_NAME
 from meg_decoding_tpu_torch.ops.scaling import collate_preprocess
+from meg_decoding_tpu_torch.train.graph import GraphedStep
 
 __all__ = ["make_serving_forward", "export_serving", "save_artifact",
            "load_artifact", "ServingModel", "ARTIFACT_PROGRAM",
@@ -67,17 +80,40 @@ def make_serving_forward(collate_cfg=None):
     """Returns ``forward(model, X, subject_idxs) -> Z``: the collate chain
     (when ``collate_cfg`` is given and enabled) and the eval-mode encoder
     (the JAX forward's ``variables`` argument is the module here).  X:
-    (B, C, T) raw windows on the model's device."""
+    (B, C, T) raw windows, on the model's device or on the host.
+
+    ``forward`` replays one captured graph per (model, input signature) on
+    the model's device, captured at the first call with that signature
+    (module docstring); Z is a copy, so no two calls share storage.  The
+    graphs read the model's parameters and buffers where they are: weights
+    loaded in place (``load_state_dict``) are served, a model whose tensors
+    were rebound (``.to()``, new parameters) needs a new forward.
+    ``forward.body(model, X, subject_idxs)`` is the same forward run
+    eagerly, for tests and latency comparisons; ``forward.graphs`` maps
+    each model served to its ``GraphedStep``."""
     enabled = _collate_enabled(collate_cfg)
 
     @torch.no_grad()
-    def forward(model, X, subject_idxs):
+    def body(model, X, subject_idxs):
         model.eval()
         if enabled:
             X = collate_preprocess(X, collate_cfg.baseline_len_samp,
                                    collate_cfg.clamp_lim, collate_cfg.clamp)
         return model(X, subject_idxs)
 
+    graphs = weakref.WeakKeyDictionary()  # model → its GraphedStep
+
+    def forward(model, X, subject_idxs):
+        graphed = graphs.get(model)
+        if graphed is None:
+            ref = weakref.ref(model)
+            graphed = graphs[model] = GraphedStep(
+                lambda X, subject_idxs: body(ref(), X, subject_idxs),
+                device=next(model.parameters()).device,
+                reads=[*model.parameters(), *model.buffers()])
+        return graphed({"X": X, "subject_idxs": subject_idxs})
+
+    forward.body, forward.graphs = body, graphs
     return forward
 
 
@@ -191,14 +227,20 @@ def _weight_specs(program: torch.export.ExportedProgram) -> dict:
     return {k: (tuple(vals[n].shape), vals[n].dtype) for k, n in weights.items()}
 
 
+# a fresh number for every entry set in any _Weights
+_WEIGHT_SETS = itertools.count()
+
+
 class _Weights(dict):
     """The weights a program takes: every entry set is checked against the
     program's input of that name (shape, dtype), since the program itself
-    no longer checks dtypes (``_prune_noop_casts``)."""
+    no longer checks dtypes (``_prune_noop_casts``).  ``version`` changes
+    with every entry set."""
 
     def __init__(self, specs: dict, weights: dict):
         super().__init__()
         self._specs = specs
+        self.version = next(_WEIGHT_SETS)
         if set(weights) != set(specs):
             raise ValueError(f"weights {sorted(set(weights) ^ set(specs))}: "
                              "not the program's names")
@@ -213,17 +255,39 @@ class _Weights(dict):
             raise ValueError(f"weights[{name!r}]: {tuple(w.shape)} {w.dtype}, "
                              f"the program takes {shape} {dtype}")
         super().__setitem__(name, w)
+        self.version = next(_WEIGHT_SETS)
 
     def update(self, other=(), **kw) -> None:
         for k, v in dict(other, **kw).items():
             self[k] = v
 
 
+def _in_place_writes(weights: dict) -> int | None:
+    """The sum of the tensors' version counters, which every in-place write
+    raises; None when a tensor keeps none (an inference tensor)."""
+    try:
+        return sum(w._version for w in weights.values())
+    except RuntimeError:
+        return None
+
+
 class ServingModel:
-    """A loaded artifact: ``__call__(X, subject_idxs) -> Z`` on its device.
+    """A loaded artifact: ``__call__(X, subject_idxs) -> Z`` on its device,
+    X and the subject ids on the device or on the host (numpy too).
     ``weights`` is the state_dict the program takes (a dict of tensors on
     the device, checked against the program's inputs as it or an entry is
-    set): replacing or scaling an entry changes what it serves."""
+    set): replacing or scaling an entry changes what it serves.
+
+    A call replays the unlifted program (``program.module()``, the
+    percentile op inside) as one captured graph per request batch size
+    (``train/graph.py``; the first request of a size pays the capture, as
+    JAX's ``Exported.call`` compiles per size), all of them reading one
+    set of static weight buffers.  Those are copied from ``weights``
+    before a call only when an entry was set, or written in place, since
+    the last copy; ``weights`` keeps the caller's own tensors.  One call
+    at a time: the graphs share their buffers.  ``graphed`` is the
+    program's ``GraphedStep``; ``body(X, subject_idxs)`` runs the program
+    eagerly on ``weights``, for tests and latency comparisons."""
 
     def __init__(self, program: torch.export.ExportedProgram, weights: dict,
                  meta: dict, device: torch.device):
@@ -233,6 +297,14 @@ class ServingModel:
         self.meta = meta
         self.device = device
         self._module = program.module()
+        # the program's order: its input spec is a plain dict's
+        self._static = {k: torch.empty(shape, dtype=dtype, device=device)
+                        for k, (shape, dtype) in self._specs.items()}
+        self._copied = None  # what the static buffers were copied from
+        self.graphed = GraphedStep(
+            lambda X, subject_idxs: self._module(self._static, X,
+                                                 subject_idxs),
+            device=device, reads=list(self._static.values()))
 
     @property
     def weights(self) -> dict:
@@ -248,11 +320,22 @@ class ServingModel:
 
     @torch.no_grad()
     def __call__(self, X, subject_idxs) -> torch.Tensor:
+        X = torch.as_tensor(X, dtype=torch.float32)
+        subs = torch.as_tensor(subject_idxs, dtype=torch.int32)
+        seen = (self._weights.version, _in_place_writes(self._weights))
+        if seen != self._copied or seen[1] is None:
+            for k, w in self._weights.items():
+                self._static[k].copy_(w)
+            self._copied = seen
+        return self.graphed({"X": X, "subject_idxs": subs})
+
+    @torch.no_grad()
+    def body(self, X, subject_idxs) -> torch.Tensor:
         X = torch.as_tensor(X).to(device=self.device, dtype=torch.float32)
         subs = torch.as_tensor(subject_idxs).to(device=self.device,
                                                 dtype=torch.int32)
         # a plain dict: the program's input spec is a dict's
-        return self._module(dict(self.weights), X, subs)
+        return self._module(dict(self._weights), X, subs)
 
 
 def load_artifact(out_dir: str, device: str | torch.device = "cuda"

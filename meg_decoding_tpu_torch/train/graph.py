@@ -1,29 +1,55 @@
-"""The train step as one captured CUDA graph: the port's counterpart of
-``jax.jit(train_step)`` (``meg_decoding_tpu/train/steps.py:257``) and,
-replayed ``updates`` times, of ``_build_epoch``'s ``lax.scan``
-(``meg_decoding_tpu/train/scan_loop.py:291-326``).
+"""Programs captured as CUDA graphs and replayed on the card: the port's
+counterpart of JAX's compiled programs.
 
-Eagerly the host issues every operation of a step (~2,300–2,600 a step on
-the card); replayed, it issues one graph launch plus the copies of the
-step's inputs into the graph's static buffers.  ``GraphedStep`` wraps a
-``TrainStep``'s device part (``train/steps.py``: ``body(state, **inputs)
-→ metrics``), which reads nothing back to the host and copies nothing from
-it; the step's host part (its draws) runs before each replay.
+* ``train``: the train step, ``jax.jit(train_step)``
+  (``meg_decoding_tpu/train/steps.py:257``) and, replayed ``updates``
+  times, ``_build_epoch``'s ``lax.scan``
+  (``meg_decoding_tpu/train/scan_loop.py:291-326``).
+* ``forward``: the programs that only read: ``jax.jit(eval_step)``
+  (``meg_decoding_tpu/train/steps.py:301``), the eval CLIs' ``jax.jit(fwd)``
+  (``meg_decoding_tpu/cli/evaluate_speech.py:67-75``,
+  ``meg_decoding_tpu/cli/evaluate_god.py:60-68``) and the served artifact,
+  whose ``Exported.call`` compiles once per batch size
+  (``meg_decoding_tpu/serving/export.py:145-163``).
 
-On the first call it allocates the static input buffers, runs the body
-``WARMUP`` times on a side stream (the autograd engine, cuDNN and cuBLAS
-set up their workspaces there, as ``torch.cuda.graph`` requires), puts
-back every tensor of the state the warm-up moved (parameters, Adam's
-moments and count, the BN buffers, the step counter) and the kernels'
-launch counters, then captures one body.  Each call copies the inputs in
-(device inputs device to device; host inputs through a pinned buffer,
-without a sync), replays, credits the kernels' launch counters with the
-launches the capture recorded (a replay does not run the wrappers' Python,
-and ``chip_smoke.py`` checks the counts), and returns a copy of the
-metrics, so that no two steps' metrics share storage.  The captured
-pointers are the state's own tensors: a caller that rebinds one (instead
-of writing it in place, as ``TrainState.load_state_dict`` does) needs a new
-``GraphedStep``.
+Eagerly the host issues every operation of a program (~2,300–2,600 a train
+step on the card); replayed, it issues one graph launch plus the copies of
+the inputs into the graph's static buffers.  ``GraphedStep`` wraps a
+program's device part, which reads nothing back to the host and copies
+nothing from it: a ``TrainStep``'s ``body(state, **inputs) → metrics``
+(``train/steps.py``), which writes the state in place, or a forward body
+``body(**inputs) → outputs``, which writes nothing.  The host part (the
+step's draws, a request's casts) runs before each call.
+
+A train step keeps one input signature (structure, shapes, dtypes): a
+changed one raises.  A forward has one graph per input signature, captured
+at the first call with it, as ``jax.jit`` compiles once per shape; the
+graphs of one ``GraphedStep`` share one memory pool, which is safe because
+their replays run one after another on one stream and each call copies
+its outputs out before the next replay.
+
+The first call of a signature allocates its static input buffers, runs the
+body ``WARMUP`` times on a side stream (the autograd engine, cuDNN and
+cuBLAS set up their workspaces there, as ``torch.cuda.graph`` requires),
+then captures one body.  For a train step it first saves, and after the
+warm-up puts back, every tensor of the state (parameters, Adam's moments
+and count, the BN buffers, the step counter); for a forward it checks that
+the warm-up left the tensors it ``reads`` bit-equal, and raises otherwise.
+The kernels' launch counters are put back as they were before the warm-up.
+Each call copies the inputs in (device inputs device to device; host
+inputs through a pinned buffer, without a sync), replays, credits the
+kernels' launch counters with the launches the capture recorded (a replay
+does not run the wrappers' Python, and ``chip_smoke.py`` checks the
+counts), and returns a copy of the outputs (any pytree of tensors; the
+0-dim ones of one dtype copied out in one operation), so that no two
+calls' outputs share storage.  The captured pointers are the caller's own
+tensors (the state's, the model's): a caller that rebinds one instead of
+writing it in place (as ``TrainState.load_state_dict`` and
+``load_state_dict`` do) needs a new ``GraphedStep``.
+
+A replay runs what its capture ran, whatever Python flags say now: a
+forward body captured with ``model.eval()`` stays an eval-mode forward,
+and a train body captured with ``model.train()`` a training step.
 
 On the CPU it runs the body eagerly on the same static buffers, so that
 the tests here exercise the copy-in and copy-out.  A failed capture
@@ -44,15 +70,16 @@ from meg_decoding_tpu_torch.ops.kernels import (
     window_gather,
 )
 
-__all__ = ["GraphedStep", "WARMUP", "replays", "captures", "reset_counts",
-           "launch_counts"]
+__all__ = ["GraphedStep", "WARMUP", "KINDS", "replays", "captures",
+           "reset_counts", "launch_counts", "state_tensors"]
 
 WARMUP = 3
+KINDS = ("train", "forward")
 
-# replays and captures since the last reset_counts(), over every
-# GraphedStep (read by chip_smoke.py to show that training ran the graph)
-replays = 0
-captures = 0
+# replays and captures by kind since the last reset_counts(), over every
+# GraphedStep (read by chip_smoke.py to show that a path ran its graphs)
+replays = dict.fromkeys(KINDS, 0)
+captures = dict.fromkeys(KINDS, 0)
 
 # the kernels' launch counters: (module, attribute), each an int or a dict
 # of ints
@@ -63,8 +90,8 @@ _COUNTERS = ((window_gather, "launches"), (quantile, "launches"),
 
 
 def reset_counts() -> None:
-    global replays, captures
-    replays = captures = 0
+    for kind in KINDS:
+        replays[kind] = captures[kind] = 0
 
 
 def launch_counts() -> dict:
@@ -92,7 +119,7 @@ def _add_counts(delta: dict) -> None:
             getattr(m, attr)[key] += n
 
 
-def _state_tensors(state) -> list:
+def state_tensors(state) -> list:
     """Every tensor a step writes: parameters (the temperature among
     them), Adam's moments and count, the model's buffers, the step."""
     opt = state.opt_state
@@ -100,77 +127,127 @@ def _state_tensors(state) -> list:
             opt.count, *state.model.buffers(), state.step]
 
 
-class GraphedStep:
-    """``graphed(inputs) → metrics``: ``body(state, **inputs)`` replayed as
-    one CUDA graph on the card (module docstring), eagerly on the CPU.
-    ``inputs`` is a dict of tensors (nested dicts and tuples, None leaves
-    allowed) of the same structure, shapes and dtypes on every call.
-    ``capture_seconds`` is the warm-up and capture's wall time, None
-    before the first call on the card."""
+def _signature(leaves: list) -> tuple:
+    return tuple(None if t is None else (tuple(t.shape), t.dtype)
+                 for t in leaves)
 
-    def __init__(self, body, state):
-        self.body, self.state = body, state
-        # raises for a CUDA state on a machine without a card
-        self.device = resolve_device(state.step.device)
+
+class _Program:
+    """One input signature: its static and pinned input buffers, its graph
+    and the launches its capture recorded, and the body's outputs on the
+    static inputs (``leaves`` under ``spec``; the 0-dim leaves of one
+    dtype, at ``scalars``, also stacked into ``stacked``)."""
+
+    def __init__(self, leaves: list, device: torch.device):
+        self.static = [None if t is None else
+                       torch.empty(t.shape, dtype=t.dtype, device=device)
+                       for t in leaves]
+        self.pinned = [None] * len(leaves)
         self.graph = None
+        self.delta = {}
+        self.spec = self.leaves = self.scalars = self.stacked = None
+
+    def keep(self, out) -> None:
+        self.leaves, self.spec = tree_flatten(out)
+        scalars = [i for i, t in enumerate(self.leaves)
+                   if t is not None and t.dim() == 0]
+        if len({self.leaves[i].dtype for i in scalars}) > 1:
+            scalars = []
+        self.scalars = scalars
+        self.stacked = (torch.stack([self.leaves[i] for i in scalars])
+                        if scalars else None)
+
+    def copy_out(self):
+        leaves = list(self.leaves)
+        if self.scalars:
+            flat = self.stacked.clone()
+            for j, i in enumerate(self.scalars):
+                leaves[i] = flat[j]
+        scalars = set(self.scalars)
+        for i, t in enumerate(self.leaves):
+            if i not in scalars and t is not None:
+                leaves[i] = t.clone()
+        return tree_unflatten(leaves, self.spec)
+
+
+class GraphedStep:
+    """``graphed(inputs) → outputs``: the body replayed as a CUDA graph on
+    the card (module docstring), eagerly on the CPU.  ``inputs`` is a dict
+    of tensors (nested dicts and tuples, None leaves allowed).
+
+    With a ``state`` (a train state), ``body(state, **inputs)`` is a train
+    step: kind ``"train"``, one input signature, on the state's device.
+    Without one, ``body(**inputs)`` is a forward: kind ``"forward"``, one
+    graph per input signature, on ``device``; ``reads`` are tensors the
+    body reads (the weights), checked unchanged by each capture's warm-up.
+    ``capture_seconds`` is the last warm-up and capture's wall time, None
+    before the first capture on the card; ``programs`` maps each signature
+    seen to its buffers and graph."""
+
+    def __init__(self, body, state=None, device="cuda", reads=()):
+        self.body, self.state = body, state
+        self.kind = "forward" if state is None else "train"
+        # raises for a CUDA device on a machine without a card
+        self.device = resolve_device(device if state is None
+                                     else state.step.device)
+        self.reads = list(reads)
         self.capture_seconds = None
-        self._spec = self._static = self._pinned = None
-        self._staged = None   # event after the last copies out of _pinned
-        self._delta = {}      # launches recorded by the capture
-        self._keys = self._out = None
+        self.programs: dict = {}
+        self._pool = None     # the graphs' shared memory pool
+        self._staged = None   # event after the last copies out of a pinned buffer
 
-    def __call__(self, inputs: dict) -> dict:
-        global replays
+    def __call__(self, inputs: dict):
         leaves, spec = tree_flatten(inputs)
-        if self._spec is None:
-            self._allocate(leaves, spec)
-        elif spec != self._spec:
-            raise ValueError("a GraphedStep's inputs keep one structure: "
-                             f"{spec} after {self._spec}")
-        self._copy_in(leaves)
+        prog = self._program(leaves, spec)
+        self._copy_in(prog, leaves)
         if self.device.type != "cuda":
-            self._run()
+            self._run(prog, spec)
         else:
-            if self.graph is None:
-                self._capture()
-            self.graph.replay()
-            _add_counts(self._delta)
-            replays += 1
-        flat = self._out.clone()
-        return {k: flat[i] for i, k in enumerate(self._keys)}
+            if prog.graph is None:
+                self._capture(prog, spec)
+            prog.graph.replay()
+            _add_counts(prog.delta)
+            replays[self.kind] += 1
+        return prog.copy_out()
 
-    def _allocate(self, leaves: list, spec) -> None:
-        self._spec = spec
-        self._static, self._pinned = [], []
-        for t in leaves:
-            if t is None:
-                self._static.append(None)
-                self._pinned.append(None)
-                continue
-            self._static.append(torch.empty(t.shape, dtype=t.dtype,
-                                            device=self.device))
-            host = self.device.type == "cuda" and t.device.type == "cpu"
-            self._pinned.append(torch.empty(t.shape, dtype=t.dtype,
-                                            pin_memory=True) if host else None)
+    def _program(self, leaves: list, spec) -> _Program:
+        key = (spec, _signature(leaves))
+        prog = self.programs.get(key)
+        if prog is not None:
+            return prog
+        if self.kind == "train" and self.programs:
+            (spec0, _), prog0 = next(iter(self.programs.items()))
+            if spec != spec0:
+                raise ValueError("a GraphedStep's inputs keep one structure: "
+                                 f"{spec} after {spec0}")
+            for t, static in zip(leaves, prog0.static):
+                if (t is None) != (static is None):
+                    raise ValueError("a GraphedStep input is None on one call "
+                                     "and a tensor on another")
+                if t is not None and (t.shape != static.shape
+                                      or t.dtype != static.dtype):
+                    raise ValueError(
+                        f"a GraphedStep input changed from "
+                        f"{tuple(static.shape)} {static.dtype} to "
+                        f"{tuple(t.shape)} {t.dtype}")
+        prog = self.programs[key] = _Program(leaves, self.device)
+        return prog
 
-    def _copy_in(self, leaves: list) -> None:
+    def _copy_in(self, prog: _Program, leaves: list) -> None:
         if self._staged is not None:
             # the last call's copies out of the pinned buffers are done
             self._staged.synchronize()
+            self._staged = None
         staged = False
-        for t, static, pinned in zip(leaves, self._static, self._pinned):
-            if (t is None) != (static is None):
-                raise ValueError("a GraphedStep input is None on one call "
-                                 "and a tensor on another")
+        for i, (t, static) in enumerate(zip(leaves, prog.static)):
             if t is None:
                 continue
-            if t.shape != static.shape or t.dtype != static.dtype:
-                raise ValueError(
-                    f"a GraphedStep input changed from {tuple(static.shape)} "
-                    f"{static.dtype} to {tuple(t.shape)} {t.dtype}")
-            if pinned is not None and t.device.type == "cpu":
-                pinned.copy_(t)
-                static.copy_(pinned, non_blocking=True)
+            if self.device.type == "cuda" and t.device.type == "cpu":
+                if prog.pinned[i] is None:
+                    prog.pinned[i] = torch.empty(t.shape, dtype=t.dtype,
+                                                 pin_memory=True)
+                prog.pinned[i].copy_(t)
+                static.copy_(prog.pinned[i], non_blocking=True)
                 staged = True
             else:
                 static.copy_(t, non_blocking=True)
@@ -178,40 +255,44 @@ class GraphedStep:
             self._staged = torch.cuda.Event()
             self._staged.record()
 
-    def _run(self) -> None:
-        """The body on the static buffers; its metrics into one flat
-        tensor, so that a call copies them out in one operation."""
-        out = self.body(self.state, **tree_unflatten(self._static, self._spec))
-        self._keys = tuple(out)
-        self._out = torch.stack([out[k] for k in self._keys])
+    def _run(self, prog: _Program, spec) -> None:
+        """The body on the static buffers; its outputs kept on ``prog``."""
+        inputs = tree_unflatten(prog.static, spec)
+        prog.keep(self.body(**inputs) if self.state is None
+                  else self.body(self.state, **inputs))
 
-    def _capture(self) -> None:
-        global captures
+    def _capture(self, prog: _Program, spec) -> None:
         torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         counts = launch_counts()
+        watched = (self.reads if self.state is None
+                   else state_tensors(self.state))
         with torch.no_grad():
-            saved = [t.clone() for t in _state_tensors(self.state)]
+            saved = [t.clone() for t in watched]
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             for _ in range(WARMUP):
-                self._run()
+                self._run(prog, spec)
         torch.cuda.current_stream(self.device).wait_stream(side)
         with torch.no_grad():
-            for t, s in zip(_state_tensors(self.state), saved):
-                t.copy_(s)
+            if self.state is not None:
+                for t, s in zip(watched, saved):
+                    t.copy_(s)
+            elif not all(torch.equal(t, s) for t, s in zip(watched, saved)):
+                raise RuntimeError("a forward body wrote a tensor it reads")
         del saved
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._run()
+        with torch.cuda.graph(graph, pool=self._pool):
+            self._run(prog, spec)
+        self._pool = graph.pool()
         after = launch_counts()
-        self._delta = {k: after[k] - before[k] for k in after}
+        prog.delta = {k: after[k] - before[k] for k in after}
         # neither the warm-up nor the capture counts as launches on the
         # card's path: each replay does
         _add_counts({k: counts[k] - after[k] for k in after})
-        self.graph = graph
+        prog.graph = graph
         torch.cuda.synchronize(self.device)
         self.capture_seconds = time.perf_counter() - t0
-        captures += 1
+        captures[self.kind] += 1

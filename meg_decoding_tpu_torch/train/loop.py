@@ -17,7 +17,13 @@ replayed once a step (``train/graph.py``: the counterpart of
 ``jax.jit(train_step)``; on the CPU the same route runs the step's body
 eagerly), and the whole-epoch forms replay theirs ``updates`` times an
 epoch.  The data-parallel route (collectives) and a train set spilled to
-host memory (copies on a side stream) run the step eagerly.
+host memory (copies on a side stream) run the step eagerly.  Without a
+data-parallel mesh, the test pools of ``fit`` and ``fit_scan`` replay one
+captured graph of the eval step's body (``EvalStep``, the counterpart of
+``jax.jit(eval_step)``), captured at the first pool of the call: every
+pool has one shape (``_test_pool_starts``).  The train graph and the eval
+graph read the same parameters and BN buffers, which the step writes in
+place, so each epoch's pools see that epoch's weights.
 
 Reference skeleton: ``train.py:178-274`` (epoch loop with per-batch
 updates, a test pass, epoch metric means, model_last each epoch) and
@@ -55,7 +61,8 @@ from meg_decoding_tpu_torch.data.sampling import (
     shuffle_batches,
 )
 from meg_decoding_tpu_torch.train.checkpoint import CheckpointManager
-from meg_decoding_tpu_torch.train.graph import GraphedStep
+from meg_decoding_tpu_torch.train.graph import GraphedStep, state_tensors
+from meg_decoding_tpu_torch.train.steps import EvalStep
 from meg_decoding_tpu_torch.utils.logging import RunLogger
 from meg_decoding_tpu_torch.utils.profiling import StepTimer, profile_trace
 
@@ -104,6 +111,18 @@ def _test_pool_starts(n: int, pool: int, sweep: bool) -> list[int]:
     if starts[-1] + pool < n:
         starts.append(n - pool)
     return starts
+
+
+def _eval_route(eval_step, state) -> Callable:
+    """The test pools' eval step: an ``EvalStep`` without a mesh as its
+    host part then a replay of one ``GraphedStep`` of its body (the state's
+    tensors checked unchanged by the capture's warm-up); any other as it
+    is, eagerly."""
+    if not isinstance(eval_step, EvalStep) or eval_step.mesh is not None:
+        return eval_step
+    graphed = GraphedStep(eval_step.body, device=state.step.device,
+                          reads=state_tensors(state))
+    return lambda *args: graphed(eval_step.prepare(*args))
 
 
 def _eval_test_pools(cfg, test_set, eval_step, state, test_size: int,
@@ -183,7 +202,9 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
     (``train_step.mesh``) and with the train set on the device, each step
     is its host draws then a replay of one ``GraphedStep`` of its body,
     captured at the first step of this call; the metrics are the replay's
-    copies.  Otherwise the step runs eagerly.
+    copies.  Otherwise the step runs eagerly.  An ``EvalStep`` without a
+    mesh scores the test pools through one graph of its body, captured at
+    the first pool of this call, also on a spilled train set.
 
     A ``train_set`` with ``host_resident`` gathers on the host, and its
     batches reach the state's device through ``prefetch_to_device`` with
@@ -211,6 +232,7 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
     profile_epoch = int(cfg.get("profile_epoch", 1)) if profile_dir else -1
     graphed = (GraphedStep(train_step.body, state)
                if train_step.mesh is None and not host_resident else None)
+    eval_step = _eval_route(eval_step, state)
 
     for epoch in range(start_epoch, epochs):
         egen = derived_generator(seed, epoch, _SAMPLE)
@@ -313,8 +335,8 @@ def fit_scan(cfg, train_set, test_set, state, scan_epoch: Callable,
     """Epoch driver over a whole-epoch form (``train/scan_loop.py``): one
     ``scan_epoch(state, generator)`` call an epoch, its generator on the
     state's device seeded from (seed, epoch), the metrics read once, then
-    the test pools, the log and the checkpoints as in ``fit`` (and its
-    aborts).  ``batch_multiple`` and ``shard_fn`` as in ``fit`` (the test
+    the test pools (through one eval graph, as in ``fit``), the log and
+    the checkpoints as in ``fit`` (and its aborts).  ``batch_multiple`` and ``shard_fn`` as in ``fit`` (the test
     pools).  Returns ``(state, best_metrics)``."""
     epochs = int(cfg.epochs)
     test_size, sharded = _test_sharding(
@@ -322,6 +344,7 @@ def fit_scan(cfg, train_set, test_set, state, scan_epoch: Callable,
         batch_multiple)
     dev = state.step.device
     best_top10, best_metrics = -1.0, {}
+    eval_step = _eval_route(eval_step, state)
     for epoch in range(start_epoch, epochs):
         state, means = scan_epoch(
             state, derived_generator(seed, epoch, _SAMPLE, device=dev))

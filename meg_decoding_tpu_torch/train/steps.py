@@ -16,6 +16,9 @@ randomness from ``state.generator`` (the spatial-dropout centre, EEGNet's
 dropout masks: ``draw_dropout``) in the order the eager forward drew it,
 and ``body`` on the device does the rest, reading nothing back to the
 host and copying nothing from it.  Calling the step runs both eagerly.
+The eval step is an ``EvalStep``, split the same way (its ``prepare``
+makes the temperature a tensor input), so that ``fit`` replays its body
+as a graph too (JAX's ``jax.jit(eval_step)``).
 
 Under a data-parallel ``mesh`` (``core/mesh.py``; JAX's ``mesh=``,
 ``:86-307``) each rank steps on its rows of the global batch.  Its loss is
@@ -70,8 +73,8 @@ from meg_decoding_tpu_torch.ops.scaling import (
 from meg_decoding_tpu_torch.train.optim import Adam, global_norm
 from meg_decoding_tpu_torch.train.state import TrainState
 
-__all__ = ["LossConfig", "CollateConfig", "TrainStep", "draw_dropout",
-           "make_train_step", "make_eval_step"]
+__all__ = ["LossConfig", "CollateConfig", "TrainStep", "EvalStep",
+           "draw_dropout", "make_train_step", "make_eval_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -290,23 +293,57 @@ def make_train_step(model, optimizer: Adam, loss_cfg: LossConfig,
     return TrainStep(prepare, body, mesh)
 
 
+@dataclasses.dataclass
+class EvalStep:
+    """An eval step in its two parts, as ``TrainStep``.  ``prepare(X, Y,
+    subject_idxs, temp, labels=None) → inputs``: the host part, a dict of
+    the body's inputs, ``temp`` as a 0-dim f32 tensor (a device tensor
+    stays on the device, a Python number becomes a host tensor) and None
+    labels left out.  ``body(X, Y, subject_idxs, temp, labels=None,
+    sharded=True) → (metrics, Z)``: the device part, on inputs on the
+    model's device; it writes nothing.  ``mesh``: the data-parallel mesh
+    the body's collectives run over, or None.
+
+    ``step(X, Y, subject_idxs, temp, labels=None, sharded=True) →
+    (metrics, Z)`` runs both eagerly."""
+    prepare: Callable
+    body: Callable
+    mesh: object = None
+
+    def __call__(self, X, Y, subject_idxs, temp, labels=None,
+                 sharded: bool = True):
+        inputs = to_device(self.prepare(X, Y, subject_idxs, temp, labels),
+                           X.device, non_blocking=True)
+        return self.body(**inputs, sharded=sharded)
+
+
 def make_eval_step(model, loss_cfg: LossConfig, collate_cfg: CollateConfig,
                    gallery=None, gallery_self_sim=None, top_ks=(1, 10),
-                   mesh=None):
+                   mesh=None) -> EvalStep:
     """Build the eval step: collate → forward (running BN stats, no dropout)
     → loss and retrieval metrics.
 
-    Returns ``step(X, Y, subject_idxs, temp, labels=None, sharded=True) →
-    (metrics, Z)``; ``temp`` is the CLIP temperature (the JAX step reads it
-    from ``params['loss']``), metrics are 0-dim tensors on the model's
-    device.  Under a ``mesh`` with ``sharded``, the inputs are this rank's
-    rows of the pool: the forward runs on them, then Z, Y and the labels
-    are all-gathered and the loss and metrics are the whole pool's on
-    every rank (Z is the pool's too); ``sharded=False`` is a pool that
-    every rank holds whole (a test set too small to split)."""
+    Returns an ``EvalStep``, ``step(X, Y, subject_idxs, temp, labels=None,
+    sharded=True) → (metrics, Z)``; ``temp`` is the CLIP temperature (the
+    JAX step reads it from ``params['loss']``), metrics are 0-dim tensors
+    on the model's device.  Its body reads no device value back to the
+    host, so that ``fit`` replays it as a captured CUDA graph
+    (``train/graph.py``, JAX's ``jax.jit(eval_step)``); the gallery and
+    its self-similarity are fixed device tensors it closes over.  Under a
+    ``mesh`` with ``sharded``, the inputs are this rank's rows of the
+    pool: the forward runs on them, then Z, Y and the labels are
+    all-gathered and the loss and metrics are the whole pool's on every
+    rank (Z is the pool's too); ``sharded=False`` is a pool that every
+    rank holds whole (a test set too small to split)."""
+
+    def prepare(X, Y, subject_idxs, temp, labels=None) -> dict:
+        inputs = {"X": X, "Y": Y, "subject_idxs": subject_idxs,
+                  "temp": torch.as_tensor(temp, dtype=torch.float32),
+                  "labels": labels}
+        return {k: v for k, v in inputs.items() if v is not None}
 
     @torch.no_grad()
-    def step(X, Y, subject_idxs, temp, labels=None, sharded: bool = True):
+    def body(X, Y, subject_idxs, temp, labels=None, sharded: bool = True):
         model.eval()
         if collate_cfg.enabled:
             X = collate_preprocess(X, collate_cfg.baseline_len_samp,
@@ -315,11 +352,10 @@ def make_eval_step(model, loss_cfg: LossConfig, collate_cfg: CollateConfig,
         if mesh is not None and sharded:
             Z, Y = mesh.all_gather(Z), mesh.all_gather(Y)
             labels = None if labels is None else mesh.all_gather(labels)
-        temp = torch.as_tensor(temp, dtype=torch.float32, device=Z.device)
         loss, sim, _ = _compute_loss(loss_cfg, Z, Y, labels, temp, model,
                                      gallery, gallery_self_sim, train=False)
         metrics = {"loss": loss, "temp": temp}
         metrics.update(_accuracy(sim, Z, Y, top_ks))
         return metrics, Z
 
-    return step
+    return EvalStep(prepare, body, mesh)

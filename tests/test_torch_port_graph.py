@@ -19,9 +19,11 @@ the body eagerly on its static input buffers.
   ``tests/test_torch_port_train_slice.py`` holds it, with the 2·n·lr rule
   for gradients that are zero by construction).
 * Each call returns its own metrics: no two steps share storage.
-* ``fit`` replays one ``GraphedStep`` a step on a device-resident set and
-  steps eagerly on a spilled one, with the same result; the kernels'
-  launch counters are read and credited as a replay credits them.
+* ``fit`` replays one train ``GraphedStep`` a step on a device-resident
+  set and steps eagerly on a spilled one, with the same result, and on
+  both scores every test pool through one eval ``GraphedStep``; the
+  kernels' launch counters are read and credited as a replay credits
+  them.
 """
 
 import numpy as np
@@ -367,8 +369,11 @@ def test_each_call_returns_its_own_metrics(god_setup):
 
 def test_fit_replays_one_graphed_step_a_step(god_setup, monkeypatch):
     """``fit`` on a device-resident packed set runs every step through one
-    ``GraphedStep`` (here, on the CPU, its eager mode); on the same set
-    spilled to host memory it steps eagerly; both end in the same state."""
+    train ``GraphedStep`` and every test pool through one forward
+    ``GraphedStep`` of the eval step's body, each with one graph (here, on
+    the CPU, their eager mode); on the same set spilled to host memory it
+    steps eagerly, still scoring the pools through one eval graph; both
+    end in the same state."""
     from meg_decoding_tpu_torch.train import graph, loop
     from meg_decoding_tpu_torch.train.steps import (
         LossConfig,
@@ -378,24 +383,29 @@ def test_fit_replays_one_graphed_step_a_step(god_setup, monkeypatch):
 
     s = god_setup
     ds = _packed_god(s)
-    calls, made = [], []
+    calls = {kind: [] for kind in graph.KINDS}
+    made = {kind: [] for kind in graph.KINDS}
 
     class Counting(graph.GraphedStep):
         def __init__(self, *a, **k):
-            made.append(self)
             super().__init__(*a, **k)
+            made[self.kind].append(self)
 
         def __call__(self, inputs):
-            calls.append(inputs)
+            calls[self.kind].append(inputs)
             return super().__call__(inputs)
 
     monkeypatch.setattr(loop, "GraphedStep", Counting)
-    cfg = Config({"epochs": 2, "batch_size": BATCH, "updates": 3,
-                  "test_size": 8})
+    epochs, updates, test_size = 2, 3, 8
+    cfg = Config({"epochs": epochs, "batch_size": BATCH, "updates": updates,
+                  "test_size": test_size})
+    pools = len(loop._test_pool_starts(len(ds), test_size, True))
+    assert pools > 1
     ends = {}
     for spilled in (False, True):
-        calls.clear()
-        made.clear()
+        for kind in graph.KINDS:
+            calls[kind].clear()
+            made[kind].clear()
         (model, opt, state), = _states("god", s, ds, 1)
         collate = _collate("god", s)
         step = make_train_step(model, opt, LossConfig(), collate)
@@ -404,8 +414,13 @@ def test_fit_replays_one_graphed_step_a_step(god_setup, monkeypatch):
         state, best = loop.fit(cfg, train, ds, state, step, evaluate, None,
                                seed=1)
         assert np.isfinite(best["train_loss"])
-        assert len(made) == (0 if spilled else 1)
-        assert len(calls) == (0 if spilled else 2 * 3)
+        assert len(made["train"]) == (0 if spilled else 1)
+        assert len(calls["train"]) == (0 if spilled else epochs * updates)
+        assert len(made["forward"]) == 1
+        assert len(calls["forward"]) == epochs * pools
+        # every pool has one shape: one eval graph
+        assert len(made["forward"][0].programs) == 1
+        assert all(len(g.programs) == 1 for g in made["train"])
         ends[spilled] = state
     _assert_state_equal(ends[False], ends[True])
 
