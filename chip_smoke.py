@@ -113,12 +113,11 @@ Phases, each printed as one JSON line:
               graph ms a step (median), capture seconds, peak memory, then
               each route under torch.profiler with cuDNN's default
               algorithms (the graph captured again): ms, device operations
-              and busy ms a step, idle share.  Every train CLI run on one
-              card with its set on the card (``training``, ``unfused_step``,
-              ``presets``, ``scan_epochs``, ``god_training``, ``model_zoo``,
-              ``brennan_cli``) must replay its graph once a step, after one
-              capture; the
-              spill and data-parallel CLIs step eagerly (no train replay);
+              and busy ms a step, idle share.  Every train CLI
+              (``training``, ``unfused_step``, ``presets``,
+              ``scan_epochs``, ``god_training``, ``model_zoo``,
+              ``brennan_cli``, the spill and data-parallel CLIs) must
+              replay its graph once a step, after one capture;
     serve_graphs — (speech after ``graphs``, GOD after ``model_zoo``) the
               forward-only programs as captured CUDA graphs: the serving
               forward (``serving/export.py:make_serving_forward``) and the
@@ -229,19 +228,24 @@ Phases, each printed as one JSON line:
               every entry and Z bit-identical;
     spill_speech — the `training` phase's cache at B = 64: unfused steps on
               host-gathered, pinned batches through ``prefetch_to_device``
-              against the device-resident unfused steps on the same draws
-              (cuDNN deterministic; losses and state within 1e-5), the step
-              time of each, each run again under torch.profiler for its
-              split (the compute thread's time in and out of operators,
-              the card's busy time, the spill producer's time a batch),
+              against the device-resident unfused steps on the same draws,
+              each stepped eagerly and replayed as one graph (cuDNN
+              deterministic; each graph route bit-identical to its eager
+              route, spilled against device-resident within 1e-5), the
+              step time, capture s and peak memory of each, each run again
+              under torch.profiler for its split (the compute thread's
+              time in and out of operators, the card's busy time,
+              operations and idle share, the spill producer's time a
+              batch),
               the collate's
               percentiles through the registered op against a direct call
               of the launch (a call's host time, the step's time), the
               onsets between the two gathers' clamps,
               then the train CLI with ``host_resident`` and its epoch traced
               (``profile_dir``): the unfused CLI's launches without its
-              gathers, the port's kernels and a host-to-device copy on a
-              stream other than the kernels' in the trace;
+              gathers, one train replay an update, the port's kernels in
+              the replays and a host-to-device copy on a stream other than
+              the replays' in the trace;
     spill_god — the same for the GOD trainer: the spilled train split's
               host batches against the device-resident ones, the split and
               the route's cost, then
@@ -263,13 +267,19 @@ Phases, each printed as one JSON line:
               launches (``bn_bwd_stats``'s sums alone and ``bn_bwd_dx``
               once per BN layer a step), both forms under torch.profiler
               (wall and kernel ms a step, the collectives a step and the
-              NCCL kernels' device time), the loose entries by tensor
+              NCCL kernels' device time), the DP step's graph route against
+              its eager route bit for bit (times, operations, idle share,
+              capture s, peak memory; the collectives the capture records
+              against those the eager step issues, none from the host in
+              a replay), the loose entries by tensor
               (count, share, |g| beside the tensor's, |Δg|/|g|), the split
               BN backward's dx bit-identical to the fused ``bn_bwd``'s and
               ``bn_bwd_dx`` against its plain version (timed, with its host
               time beside the library's, at (64, 320, 360) and (64, 320,
               24), f32 and bf16); then the speech train CLI for one epoch
-              with a ``distributed:`` block of one process;
+              with a ``distributed:`` block of one process, per step and
+              with ``use_scan_epochs`` (one train replay an update, one
+              eval replay a pool); the NCCL version;
     kamitani — the Kamitani baseline on the GOD set: the CLI's ``run``
               (SCP time-mean, 512 units, 22 channels, 200 iterations),
               then ``feature_prediction`` card against CPU (rates equal,
@@ -284,9 +294,9 @@ Phases, each printed as one JSON line:
     spill_brennan — (after brennan_training) the subject-wise Brennan set
               spilled through ``BrennanPacked.to_host``: unfused steps on
               its host batches through ``prefetch_to_device`` against the
-              device-resident steps on the same chunk and subject draws
-              (losses and state within 1e-5), the ms a step of each, exact
-              launches;
+              device-resident steps on the same chunk and subject draws,
+              eager and graph (as spill_speech), the ms a step of each,
+              exact launches;
     import_cli — (these five after entry_points) a random
               ``configs/config.yaml`` encoder written as a reference
               ``.pt`` and imported by ``cli/import_torch_checkpoint.py``
@@ -2092,7 +2102,7 @@ class EagerStep:
     (host inputs copied to the device), so that ``fit`` runs both of its
     routes eagerly for a comparison."""
 
-    def __init__(self, body, state=None, device="cuda", reads=()):
+    def __init__(self, body, state=None, device="cuda", reads=(), mesh=None):
         self.body, self.state = body, state
         self.device = torch.device(device) if state is None else state.step.device
 
@@ -3624,18 +3634,48 @@ def phase_torch_import(cfg, seed, work) -> dict:
     return launches
 
 
+def graphed(make_state):
+    """``make_state`` whose step replays one ``GraphedStep`` of the step's
+    body (under the step's mesh), captured at its first call: the route
+    ``fit`` takes.  The step's ``graph`` is that ``GraphedStep``."""
+    def make():
+        model, state, step = make_state()
+        graph = GraphedStep(step.body, state, mesh=step.mesh)
+
+        def run(state, *batch, **kw):
+            return state, graph(step.prepare(state, *batch, **kw))
+
+        run.graph = graph
+        return model, state, run
+    return make
+
+
+SPILL_ROUTES = ("device", "spill", "device_graph", "spill_graph")
+
+
 def same_draw_runs(make_state, batches_device, batches_spill) -> dict:
-    """SPILL_STEPS unfused steps on the device-resident batches and on the
-    spilled ones (host gathers through ``prefetch_to_device``), the same
-    draws and init, cuDNN deterministic: losses and every state entry
-    within SPILL_RTOL; the wall time a step of each, its first step
-    untimed, one synchronize at the end."""
+    """SPILL_STEPS + 1 unfused steps on the device-resident batches and on
+    the spilled ones (host gathers through ``prefetch_to_device``), each
+    stepped eagerly and through one graph (``graphed``), the same draws and
+    init, cuDNN deterministic: each graph route bit-identical to its eager
+    route (losses and every state entry), one capture, one replay and the
+    eager route's launches a step; the spilled routes against the
+    device-resident ones within SPILL_RTOL (the host gather clamps an
+    onset past T − padded_window(L) to T − L, the device gather to
+    T − padded_window(L)). The wall time a step of each, its first step
+    (the graph's capture) untimed, one synchronize at the end; the graph
+    routes' capture s and every route's peak memory."""
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     out = {}
     try:
-        for kind, batches in (("device", batches_device), ("spill", batches_spill)):
-            model, state, step = make_state()
+        for kind in SPILL_ROUTES:
+            make = graphed(make_state) if kind.endswith("graph") else make_state
+            batches = batches_spill if kind.startswith("spill") else batches_device
+            model, state, step = make()
+            before, graphs = tg.launch_counts(), graph_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             losses = []
             for i, batch in enumerate(batches()):
                 if i == 1:
@@ -3644,25 +3684,52 @@ def same_draw_runs(make_state, batches_device, batches_spill) -> dict:
                 state, m = step(state, *batch)
                 losses.append(m["loss"])
             torch.cuda.synchronize()
-            out[kind] = (model, [float(v) for v in losses],
-                         (time.perf_counter() - t0) * 1e3 / (len(losses) - 1))
+            after = tg.launch_counts()
+            out[kind] = {
+                "entries": state_entries(state), "losses": [float(v) for v in losses],
+                "ms": (time.perf_counter() - t0) * 1e3 / (len(losses) - 1),
+                "launches": {k: after[k] - before[k] for k in after},
+                "graphs": {k: v - graphs[k] for k, v in graph_counts().items()},
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "capture_s": getattr(getattr(step, "graph", None),
+                                     "capture_seconds", None)}
+            del model, state, step
     finally:
         torch.backends.cudnn.deterministic = prev
-    (dm, dl, dt), (sm, sl, st) = out["device"], out["spill"]
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(sl, dl))
-    p_rel = params_rel_err(sm, dm)
-    if len(sl) != len(dl) or not (loss_rel <= SPILL_RTOL and p_rel <= SPILL_RTOL):
-        raise AssertionError(f"spill vs device: losses {sl} / {dl}, params {p_rel}")
-    return {"steps": len(dl), "device_step_ms": dt, "spill_step_ms": st,
-            "losses": dl, "loss_rel_err": loss_rel, "params_rel_err": p_rel,
-            "limit": SPILL_RTOL}
+    n = len(out["device"]["losses"])
+    for kind in ("device_graph", "spill_graph"):
+        g, e = out[kind], out[kind[:-6]]
+        _, same = rel_diff(g["entries"], e["entries"])
+        if not (same and g["losses"] == e["losses"]):
+            raise AssertionError(f"spill check: {kind} not bit-identical to "
+                                 f"its eager route: {g['losses']} / {e['losses']}")
+        if g["launches"] != e["launches"]:
+            raise AssertionError(f"spill check: {kind} launches {g['launches']}, "
+                                 f"eager {e['launches']}")
+        graph_replays(f"spill check {kind}", n, 0, got=g["graphs"])
+    d, sp = out["device"], out["spill"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(sp["losses"], d["losses"]))
+    p_rel, same = rel_diff(sp["entries"], d["entries"])
+    if len(sp["losses"]) != n or not (loss_rel <= SPILL_RTOL and p_rel <= SPILL_RTOL):
+        raise AssertionError(f"spill vs device: losses {sp['losses']} / "
+                             f"{d['losses']}, state {p_rel}")
+    return {"steps": n, **{f"{k}_step_ms": out[k]["ms"] for k in SPILL_ROUTES},
+            "capture_s": {k: out[k]["capture_s"] for k in SPILL_ROUTES[2:]},
+            "peak_gb": {k: out[k]["peak_gb"] for k in SPILL_ROUTES},
+            "graphs_bit_identical_to_eager": True,
+            "spill_bit_identical_to_device": same and sp["losses"] == d["losses"],
+            "losses": d["losses"], "loss_rel_err": loss_rel,
+            "state_rel_err": p_rel, "limit": SPILL_RTOL,
+            "launches_per_step": per_unit(out["spill_graph"]["launches"], n)}
 
 
-def spill_cli(run, tcfg, work, name, expected, pools: int) -> dict:
+def spill_cli(run, tcfg, work, name, expected, updates: int, pools: int) -> dict:
     """A train CLI with ``host_resident: true, prefetch: 2`` and the epoch
-    traced: exact launches, its ``pools`` test pools through one eval
-    graph, and a trace holding the port's kernels and a host-to-device
-    copy on a stream other than the kernels'."""
+    traced: exact launches, its ``updates`` steps through one train graph
+    and its ``pools`` test pools through one eval graph, and a trace
+    holding the port's kernels in the train graph's replays and a
+    host-to-device copy on a stream other than the one those replays ran
+    on."""
     prof = os.path.join(work, f"profile_{name}")
     tcfg.host_resident, tcfg.prefetch = True, 2
     tcfg.profile_dir, tcfg.profile_epoch = prof, 0
@@ -3676,14 +3743,21 @@ def spill_cli(run, tcfg, work, name, expected, pools: int) -> dict:
     if launches != expected:
         raise AssertionError(f"{name} spill CLI launches {launches}, "
                              f"expected {expected}")
-    # the spill route steps eagerly; its test pools replay the eval graph
-    graph_replays(f"{name} spill CLI", 0, pools)
+    # one train replay an update, one eval replay a pool
+    graph_replays(f"{name} spill CLI", updates, pools)
     if best.get("train_skipped") != 0.0 or not math.isfinite(best["train_loss"]):
         raise AssertionError(f"{name} spill CLI: {best}")
     (trace,) = os.listdir(prof)
     with open(os.path.join(prof, trace)) as f:
         events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
+    # the kernels of the train graph's replays: those launched by a
+    # cudaGraphLaunch (its correlation id); the warm-up before the capture
+    # ran the same kernels eagerly on a side stream
+    replay_ids = {e.get("args", {}).get("correlation") for e in events
+                  if e.get("cat") == "cuda_runtime"
+                  and "GraphLaunch" in str(e.get("name"))}
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and e.get("args", {}).get("correlation") in replay_ids]
     copies_h2d = [e for e in events if e.get("cat") == "gpu_memcpy"
                   and "HtoD" in str(e.get("name"))]
     ours = {"robust_quantiles": 0, "bn_stats": 0, "bn_bwd": 0}
@@ -3698,7 +3772,8 @@ def spill_cli(run, tcfg, work, name, expected, pools: int) -> dict:
         raise AssertionError(f"{name} trace: kernels {ours}, H2D copies on "
                              f"{streams(copies_h2d)}, kernels on {sorted(compute)}")
     return {"train_cli_s": run_s, "launches": launches,
-            "trace": {"events": len(events), "port_kernels": ours,
+            "trace": {"events": len(events), "graph_launches": len(replay_ids),
+                      "port_kernels_in_replays": ours,
                       "h2d_copies": len(copies_h2d), "h2d_off_compute": len(side),
                       "h2d_streams": streams(copies_h2d),
                       "compute_streams": sorted(compute)},
@@ -3759,11 +3834,12 @@ def busy_ms(spans) -> float:
 
 
 def traced_steps(make_state, batches, path: str) -> dict:
-    """The steps of ``batches()`` (its first untimed) under torch.profiler,
-    the trace written to ``path``, split per step: wall time; the host
-    thread that launches the kernels (the compute thread), its time inside
-    operators and outside them (Python, waits); the card's busy time
-    (kernels and copies)."""
+    """The steps of ``batches()`` (its first untimed: a graph route's
+    capture) under torch.profiler, the trace written to ``path``, split per
+    step: wall time; the host thread that launches the kernels or the
+    graph (the compute thread), its time inside operators and outside them
+    (Python, waits); the card's busy time and operations (kernels, copies,
+    memsets) and its idle share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     _, state, step = make_state()
@@ -3783,16 +3859,20 @@ def traced_steps(make_state, batches, path: str) -> dict:
         events = [e for e in json.load(f)["traceEvents"] if "dur" in e]
     launches = {}
     for e in events:
-        if e.get("cat") == "cuda_runtime" and "LaunchKernel" in str(e.get("name")):
+        if e.get("cat") == "cuda_runtime" and (
+                "LaunchKernel" in str(e.get("name"))
+                or "GraphLaunch" in str(e.get("name"))):
             launches[e["tid"]] = launches.get(e["tid"], 0) + 1
     compute = max(launches, key=launches.get, default=None)
     ops = busy_ms((e["ts"], e["dur"]) for e in events
                   if e.get("cat") == "cpu_op" and e["tid"] == compute)
-    on_card = busy_ms((e["ts"], e["dur"]) for e in events
-                      if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    device = [(e["ts"], e["dur"]) for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    on_card = busy_ms(device)
     return {"step_ms": wall_ms / n, "compute_thread_ops_ms": ops / n,
             "compute_thread_other_ms": (wall_ms - ops) / n,
-            "device_busy_ms": on_card / n, "steps": n}
+            "device_busy_ms": on_card / n, "device_ops_per_step": len(device) / n,
+            "idle_share": 1.0 - on_card / wall_ms, "steps": n}
 
 
 def producer_timed(batches, spent: list):
@@ -3811,19 +3891,23 @@ def producer_timed(batches, spent: list):
 
 def spill_split(make_state, batches_device, host_batches, work, name) -> dict:
     """``traced_steps`` of the device-resident run and of the spill run
-    (``host_batches()`` through ``prefetch_to_device``), with the spill
-    producer's thread CPU and wall time per batch (the profiler traces the
-    compute thread's operators only)."""
-    spent = []
-    out = {"device": traced_steps(make_state, batches_device,
-                                  os.path.join(work, f"split_{name}_device.json")),
-           "spill": traced_steps(
-               make_state,
-               lambda: prefetch_to_device(producer_timed(host_batches(), spent),
-                                          size=2, device="cuda"),
-               os.path.join(work, f"split_{name}_spill.json"))}
-    out["spill"]["producer_cpu_ms"] = sum(c for c, _ in spent) * 1e3 / len(spent)
-    out["spill"]["producer_wall_ms"] = sum(w for _, w in spent) * 1e3 / len(spent)
+    (``host_batches()`` through ``prefetch_to_device``), each stepped
+    eagerly and through one graph (``graphed``), with the spill producer's
+    thread CPU and wall time per batch (the profiler traces the compute
+    thread's operators only)."""
+    out = {}
+    for route, make in (("", make_state), ("_graph", graphed(make_state))):
+        spent = []
+        out["device" + route] = traced_steps(
+            make, batches_device,
+            os.path.join(work, f"split_{name}_device{route}.json"))
+        spill = out["spill" + route] = traced_steps(
+            make,
+            lambda: prefetch_to_device(producer_timed(host_batches(), spent),
+                                       size=2, device="cuda"),
+            os.path.join(work, f"split_{name}_spill{route}.json"))
+        spill["producer_cpu_ms"] = sum(c for c, _ in spent) * 1e3 / len(spent)
+        spill["producer_wall_ms"] = sum(w for _, w in spent) * 1e3 / len(spent)
     return out
 
 
@@ -3892,7 +3976,8 @@ def phase_spill_speech(cfg, seed, work, unfused_launches) -> dict:
         f"batch_size={BATCH}", "epochs=1", f"updates={TRAIN_UPDATES}",
         "fuse_gather=false", "run_name=spill"])
     expected = dict(unfused_launches, window_gather=0)
-    cli = spill_cli(train_speech.run, tcfg, work, "speech", expected, pools)
+    cli = spill_cli(train_speech.run, tcfg, work, "speech", expected,
+                    TRAIN_UPDATES, pools)
     emit({"phase": "spill_speech", **check, "pinned": pinned,
           "h2d_bytes_per_step": bytes_per_step,
           "onsets_between_clamps": between, "split": split,
@@ -3940,7 +4025,7 @@ def phase_spill_god(cfg, god_ds, seed, work, god_launches) -> dict:
                                   min(len(god_ds) - n_train, int(cfg.test_size)),
                                   bool(cfg.get("test_sweep", True))))
     cli = spill_cli(train_god.run, tcfg, work, "god", dict(god_launches),
-                    pools)
+                    n_train // BATCH, pools)
     emit({"phase": "spill_god", **check, "pinned": pinned, "split": split,
           "quantile_route": route, **cli})
     return cli["launches"]
@@ -4166,9 +4251,10 @@ def profile_steps(step_fn, n: int = 3) -> dict:
     """``n`` steps under torch.profiler (after one untimed): wall ms a step,
     the card's kernel time a step (device events only), the host's
     collectives a step (``nccl:*`` / ``gloo:*`` operations) and the host
-    time inside the ``c10d::`` collective operations, and the NCCL kernels
+    time inside the ``c10d::`` collective operations, the NCCL kernels
     and their device time a step (a one-rank group may run its
-    collectives as copies, with no NCCL kernel: then 0)."""
+    collectives as copies, with no NCCL kernel: then 0), and the device
+    operations a step, in all and by name."""
     from torch.profiler import ProfilerActivity, profile
 
     step_fn(0)
@@ -4180,12 +4266,14 @@ def profile_steps(step_fn, n: int = 3) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     host, kernels, nccl_us, device_us, c10d_us = {}, 0, 0.0, 0.0, 0.0
+    by_name = {}
     for ev in prof.key_averages():
         name = ev.key.lower()
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
             dt = float(getattr(ev, "self_device_time_total", 0.0)
                        or getattr(ev, "self_cuda_time_total", 0.0))
             device_us += dt
+            by_name[ev.key] = ev.count / n
             if "nccl" in name:
                 kernels += ev.count
                 nccl_us += dt
@@ -4199,7 +4287,85 @@ def profile_steps(step_fn, n: int = 3) -> dict:
             "host_collectives_per_step": sum(host.values()),
             "host_c10d_ms_per_step": c10d_us / n / 1e3,
             "nccl_kernels_per_step": kernels / n,
-            "nccl_device_us_per_step": nccl_us / n}
+            "nccl_device_us_per_step": nccl_us / n,
+            "device_ops_per_step": sum(by_name.values()),
+            "device_ops_by_name": by_name}
+
+
+DIST_COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter",
+                    "all_gather_into_tensor", "reduce_scatter_tensor")
+
+
+def dist_calls(fn, bodies: int = 1) -> dict:
+    """The collectives ``fn()`` issues through ``torch.distributed`` (the
+    mesh's and autograd's alike), by name, per one of its ``bodies`` runs
+    of a step body: counted by wrapping the module's functions, so that a
+    graph's capture is counted without a profiler inside it."""
+    import torch.distributed as dist
+
+    counts = dict.fromkeys(DIST_COLLECTIVES, 0)
+    real = {name: getattr(dist, name) for name in DIST_COLLECTIVES}
+
+    def counting(name):
+        def call(*a, **k):
+            counts[name] += 1
+            return real[name](*a, **k)
+        return call
+
+    for name in DIST_COLLECTIVES:
+        setattr(dist, name, counting(name))
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for name, f in real.items():
+            setattr(dist, name, f)
+    by_name = {k: n / bodies for k, n in counts.items() if n}
+    return {"per_body": sum(by_name.values()), "by_name": by_name}
+
+
+def dp_graph_check(name: str, cfg, make, smi: str) -> dict:
+    """The data-parallel step's graph route against its eager route
+    (``graph_path``: DP_STEPS same draws from one init, cuDNN
+    deterministic, launches a step equal, one capture, a replay a step;
+    both routes profiled), bit-identical; then the collectives of each
+    route on a new state: the eager step's a step (host operations, NCCL
+    kernels, host ms in ``c10d::`` ops; ``profile_steps``), the graph's
+    recorded in its capture (``dist_calls`` over the warm-up and the
+    capture) and a replay's (none from the host; its NCCL kernels and
+    ``c10d::`` host ms)."""
+    row = graph_path(name, cfg, make, DP_STEPS, 1, smi)
+    if not (row["state_bit_identical"] and row["metrics_bit_identical"]):
+        raise AssertionError(f"{name}: the DP graph route is not bit-identical "
+                             f"to the eager DP route ({row['state_rel_err']}, "
+                             f"{row['metrics_rel_err']})")
+    _, eager, _, _ = make()
+    calls = {"eager": dist_calls(lambda: eager(0))}
+    eager_prof = profile_steps(eager)
+    del eager
+    _, _, graphed_fn, graph_of = make()
+    calls["captured"] = dist_calls(lambda: graphed_fn(0), tg.WARMUP + 1)
+    calls["replay"] = dist_calls(lambda: graphed_fn(1))
+    graph_prof = profile_steps(graphed_fn)
+    capture_s = graph_of().capture_seconds
+    del graphed_fn, graph_of
+    if not (calls["captured"] == calls["eager"] and calls["eager"]["per_body"] > 0
+            and calls["replay"]["per_body"] == 0
+            and graph_prof["host_collectives_per_step"] == 0):
+        raise AssertionError(f"{name} collectives: calls {calls}, eager "
+                             f"{eager_prof}, replay {graph_prof}")
+    # what a replay runs on the card in place of the eager step's device
+    # operations, by name (the NCCL work among them)
+    e_ops, g_ops = (p.pop("device_ops_by_name") for p in (eager_prof, graph_prof))
+    graph_prof["device_ops_changed"] = {
+        k: [e_ops.get(k, 0), g_ops.get(k, 0)] for k in sorted({*e_ops, *g_ops})
+        if e_ops.get(k, 0) != g_ops.get(k, 0)}
+    return {"graph_vs_eager": {k: row[k] for k in (
+                "state_bit_identical", "metrics_bit_identical", "eager_ms_median",
+                "graph_ms_median", "capture_s", "launches_per_step", "replays",
+                "peak_gb", "profile")},
+            "collectives": {"calls": calls, "eager": eager_prof,
+                            "graph": graph_prof, "capture_s": capture_s}}
 
 
 def bn_split_rows(mesh, B: int, T: int, flush) -> dict:
@@ -4281,15 +4447,19 @@ def bn_split_rows(mesh, B: int, T: int, flush) -> dict:
     return rows
 
 
-def phase_dp_speech(cfg, ds, tr_idx, seed, work) -> dict:
+def phase_dp_speech(cfg, ds, tr_idx, seed, work, smi: str) -> dict:
     """Data parallelism on the speech path at full width: DP_STEPS fused
     steps through ``setup_data_parallel``'s one-rank NCCL mesh (session-
     sharded gather, collate, synced BN by the split route, sharded CLIP
     loss, the flat gradient all-reduce) against the fused single-device
     step on the same draws; the collectives a step from a profiler trace;
+    the DP step's graph route against its eager route (``dp_graph_check``);
     the split BN backward against the fused one; then the train CLI for
-    one epoch with a ``distributed:`` block of one process.  Returns the
-    launches of the DP steps and of the CLI."""
+    one epoch with a ``distributed:`` block of one process (a train replay
+    an update, an eval replay a pool), and the same with
+    ``use_scan_epochs`` on the sentence split (``fit_scan``: the DP epoch
+    through its graph).  Returns the launches of the DP steps and of the
+    two CLIs."""
     dev = torch.device("cuda")
     loc = ch_locations_2d(cfg)
     loss_cfg = dataclasses.replace(train_speech.loss_config(cfg), grad_norms=True)
@@ -4342,62 +4512,106 @@ def phase_dp_speech(cfg, ds, tr_idx, seed, work) -> dict:
                                  f"expected {expected}")
         collectives = {"dp": profile_steps(dp.step),
                        "single": profile_steps(single.step)}
+
+        # the DP step's graph route (what ``fit`` runs) against its eager
+        # route on the same draws
+        def make_dp():
+            model = get_model(cfg, loc, device=dev, seed=seed,
+                              num_channels=int(ds.recordings.shape[2]))
+            opt = make_optimizer(cfg, DP_STEPS)
+            state = replicate_fn(create_train_state(
+                model, opt, float(cfg.init_temperature), seed))
+            fused = make_fused_speech_step(model, opt, loss_cfg, collate, ds,
+                                           mesh=mesh)
+            graph = GraphedStep(fused.body, state, mesh=mesh)
+
+            def args(i):
+                u = i % DP_STEPS
+                return (idx[u],), {"sess_ids": sess[u], "centre": int(centres[u])}
+
+            def eager(i):
+                a, kw = args(i)
+                return fused(state, *a, **kw)[1]
+
+            def graphed_fn(i):
+                a, kw = args(i)
+                return graph(fused.prepare(state, *a, **kw))
+            return state, eager, graphed_fn, lambda: graph
+
+        dp_graph = dp_graph_check("dp_speech_f32_b64", cfg, make_dp, smi)
         split = bn_split_rows(mesh, BATCH, 360, flush)
     finally:
         finish_distributed()
     del flush
 
-    # the main path: the train CLI with a distributed: block of one process
-    out = os.path.join(work, "dp_out")
-    tcfg = compose(CONFIGS_DIR, "config", [
-        f"cache_dir={cfg.cache_dir}", f"save_root={out}", f"seed={seed}",
-        f"batch_size={BATCH}", "epochs=1", f"updates={TRAIN_UPDATES}",
-        "run_name=dp",
-        "+distributed.coordinator_address=file://" + os.path.join(work, "dp_cli_store"),
-        "+distributed.num_processes=1", "+distributed.process_id=0"])
-    reset_all_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
-        best = train_speech.run(tcfg, device="cuda")
-    finally:
-        finish_distributed()
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    cli = dp_launches()
-    # the data-parallel route steps and scores its pools eagerly
-    graph_replays("DP speech CLI", 0, 0)
-    n_test = len(ds) - len(tr_idx)
-    pools = len(_test_pool_starts(n_test, min(n_test, BATCH),
-                                  bool(tcfg.get("test_sweep", True))))
-    want = {"window_gather": 2 * (TRAIN_UPDATES + pools),
-            "robust_quantiles": TRAIN_UPDATES + pools,
-            "bn_stats": BN_PER_STEP * TRAIN_UPDATES,
-            "bn_bwd_stats": BN_PER_STEP * TRAIN_UPDATES,
-            "bn_bwd_sums_only": BN_PER_STEP * TRAIN_UPDATES,
-            "bn_bwd_dx": BN_PER_STEP * TRAIN_UPDATES}
-    if cli != want:
-        raise AssertionError(f"DP train CLI launches {cli}, expected {want}")
-    with open(os.path.join(out, "runs", "dp", "metrics.jsonl")) as f:
-        rows = [json.loads(line) for line in f]
-    if len(rows) != 1 or rows[0]["train_skipped"] != 0.0 \
-            or not math.isfinite(rows[0]["train_loss"]):
-        raise AssertionError(f"DP train CLI: {rows}")
+    # the main path: the train CLI with a distributed: block of one
+    # process, per step (``fit``) and the whole-epoch form (``fit_scan``
+    # on the sentence split)
+    clis = {}
+    for form, updates, extra in (
+            ("fit", TRAIN_UPDATES, []),
+            ("fit_scan", SCAN_UPDATES, ["split_mode=sentence",
+                                        "use_scan_epochs=true"])):
+        out = os.path.join(work, f"dp_out_{form}")
+        tcfg = compose(CONFIGS_DIR, "config", [
+            f"cache_dir={cfg.cache_dir}", f"save_root={out}", f"seed={seed}",
+            f"batch_size={BATCH}", "epochs=1", f"updates={updates}",
+            "run_name=dp", *extra,
+            "+distributed.coordinator_address=file://"
+            + os.path.join(work, f"dp_cli_store_{form}"),
+            "+distributed.num_processes=1", "+distributed.process_id=0"])
+        n_test = (len(ds) - len(tr_idx) if form == "fit" else
+                  len(evaluate_speech.load_gwilliams_splits(
+                      Config(to_dict(tcfg)), seed, "cpu")[1]))
+        pools = len(_test_pool_starts(n_test, min(n_test, BATCH),
+                                      bool(tcfg.get("test_sweep", True))))
+        reset_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            best = train_speech.run(tcfg, device="cuda")
+        finally:
+            finish_distributed()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        cli = dp_launches()
+        # the data-parallel route replays its train graph once an update
+        # and its eval graph once a pool, one capture each
+        replays = graph_replays(f"DP speech CLI ({form})", updates, pools)
+        want = {"window_gather": 2 * (updates + pools),
+                "robust_quantiles": updates + pools,
+                "bn_stats": BN_PER_STEP * updates,
+                "bn_bwd_stats": BN_PER_STEP * updates,
+                "bn_bwd_sums_only": BN_PER_STEP * updates,
+                "bn_bwd_dx": BN_PER_STEP * updates}
+        if cli != want:
+            raise AssertionError(f"DP train CLI ({form}) launches {cli}, "
+                                 f"expected {want}")
+        with open(os.path.join(out, "runs", "dp", "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        if len(rows) != 1 or rows[0]["train_skipped"] != 0.0 \
+                or not math.isfinite(rows[0]["train_loss"]):
+            raise AssertionError(f"DP train CLI ({form}): {rows}")
+        clis[form] = {"train_cli_s": run_s, "launches": cli, "test_pools": pools,
+                      "graphs": replays,
+                      "train_cli": {k: best[k] for k in (
+                          "train_loss", "train_skipped", "test_loss",
+                          "test_top10")}}
     emit({"phase": "data_parallel", "workload": "speech", "world_size": 1,
-          "backend": "nccl", "batch_size": BATCH, "steps": DP_STEPS, **check,
-          "launches": launches, "collectives": collectives,
-          "bn_split_backward": split, "train_cli_s": run_s,
-          "train_cli_launches": cli, "test_pools": pools,
-          "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
-                                             "test_loss", "test_top10")}})
-    return {"steps": launches, "cli": cli, "split": split}
+          "backend": "nccl", "nccl": list(torch.cuda.nccl.version()),
+          "device": smi, "batch_size": BATCH, "steps": DP_STEPS, **check,
+          "launches": launches, "collectives": collectives, "graph": dp_graph,
+          "bn_split_backward": split, "train_clis": clis})
+    return {"steps": launches, "cli": clis["fit"]["launches"],
+            "scan_cli": clis["fit_scan"]["launches"], "split": split}
 
 
-def phase_dp_god(cfg, ds, seed, work) -> dict:
+def phase_dp_god(cfg, ds, seed, work, smi: str) -> dict:
     """The GOD per-step path under the one-rank NCCL mesh
     (``configs/config_GOD.yaml``, B = 64): DP_STEPS steps of
     ``make_train_step(mesh=)`` on ``shard_fn``'s rows against the
     single-device step on the same batches, the collectives a step, the
+    step's graph route against its eager route (``dp_graph_check``), the
     split BN backward at the GOD shape.  Returns the DP steps' launches."""
     dev = torch.device("cuda")
     cfg.num_subjects = ds.num_subjects
@@ -4448,12 +4662,36 @@ def phase_dp_god(cfg, ds, seed, work) -> dict:
                                  f"expected {expected}")
         collectives = {"dp": profile_steps(dp.step),
                        "single": profile_steps(single.step)}
+
+        def make_dp():
+            model = get_model(cfg, loc, device=dev, seed=seed)
+            opt = make_optimizer(cfg, int(cfg.updates))
+            state = replicate_fn(create_train_state(
+                model, opt, float(cfg.init_temperature), seed))
+            step = make_train_step(model, opt, loss_cfg, collate, mesh=mesh)
+            graph = GraphedStep(step.body, state, mesh=mesh)
+
+            def args(i):
+                u = i % DP_STEPS
+                return shard_fn(batches[u]), {"centre": int(centres[u])}
+
+            def eager(i):
+                a, kw = args(i)
+                return step(state, *a, **kw)[1]
+
+            def graphed_fn(i):
+                a, kw = args(i)
+                return graph(step.prepare(state, *a, **kw))
+            return state, eager, graphed_fn, lambda: graph
+
+        dp_graph = dp_graph_check("dp_god_b64", cfg, make_dp, smi)
         split = bn_split_rows(mesh, BATCH, int(ds.X.shape[2]), flush)
     finally:
         finish_distributed()
     emit({"phase": "data_parallel", "workload": "god", "world_size": 1,
-          "backend": "nccl", "batch_size": BATCH, "steps": DP_STEPS, **check,
-          "launches": launches, "collectives": collectives,
+          "backend": "nccl", "nccl": list(torch.cuda.nccl.version()),
+          "device": smi, "batch_size": BATCH, "steps": DP_STEPS, **check,
+          "launches": launches, "collectives": collectives, "graph": dp_graph,
           "bn_split_backward": split})
     return {"steps": launches, "split": split}
 
@@ -4621,8 +4859,8 @@ def phase_spill_brennan(ds, seed, work) -> dict:
     subject-wise set spilled through ``BrennanPacked.to_host``, its host
     batches through the prefetch against the device-resident batches on
     the same chunk and subject draws, the same init, cuDNN deterministic
-    (losses and state within SPILL_RTOL); the ms a step of each.  Returns
-    the launches of both runs."""
+    (``same_draw_runs``: eager and graph routes); the ms a step of each.
+    Returns the launches of the four runs."""
     dev = torch.device("cuda")
     cfg = brennan_cfg(seed)
     cfg.num_subjects, cfg.num_channels = ds.num_subjects, int(ds.X.shape[2])
@@ -4654,9 +4892,10 @@ def phase_spill_brennan(ds, seed, work) -> dict:
     reset_all_launches()
     check = same_draw_runs(make_state, batches_device, batches_spill)
     launches = brennan_launches()
+    routes = len(SPILL_ROUTES)
     want = {"window_gather": 0, "robust_quantiles": 0,
-            "bn_stats": 2 * BN_PER_STEP * (SPILL_STEPS + 1),
-            "bn_bwd_stats": 2 * BN_PER_STEP * (SPILL_STEPS + 1),
+            "bn_stats": routes * BN_PER_STEP * (SPILL_STEPS + 1),
+            "bn_bwd_stats": routes * BN_PER_STEP * (SPILL_STEPS + 1),
             "robust_quantiles_long": 0}
     if launches != want:
         raise AssertionError(f"Brennan spill launches {launches}, expected {want}")
@@ -4897,13 +5136,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke run of the port")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
-        "--phase", choices=("all", "brennan_kernels", "graphs", "serve_graphs"),
+        "--phase", choices=("all", "brennan_kernels", "graphs", "serve_graphs",
+                            "spill_dp"),
         default="all",
         help="brennan_kernels: build, then only that phase at Brennan's "
              "row length; copied into another checkout's root, it times that "
              "checkout's kernel the same way, for comparisons in turns; "
              "graphs / serve_graphs: build, the speech cache, that phase's "
-             "speech paths, the GOD data and its GOD paths")
+             "speech paths, the GOD data and its GOD paths; spill_dp: build, "
+             "the speech cache, unfused_step, spill_speech, data_parallel "
+             "(speech), the GOD data, god_training, spill_god, "
+             "data_parallel (GOD)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -4939,6 +5182,29 @@ def main(argv=None) -> int:
             else:
                 phase_serve_graphs_god(god_cfg, god_ds, args.seed, work, smi)
             lap(f"{args.phase}_god")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
+        return 0
+    if args.phase == "spill_dp":
+        work = os.path.join(ROOT, "runs_out", f"chip_smoke_{os.getpid()}")
+        try:
+            cfg, ds, tr_idx = full_width_speech(
+                work, args.seed, [f"save_root={os.path.join(work, 'out')}",
+                                  f"batch_size={BATCH}"])
+            unfused = phase_unfused_step(cfg, ds, tr_idx, args.seed, work)
+            phase_spill_speech(cfg, args.seed, work, unfused)
+            lap("spill_speech")
+            phase_dp_speech(cfg, ds, tr_idx, args.seed, work, smi)
+            del ds
+            lap("dp_speech")
+            god_cfg, god_ds = phase_god_data(work, args.seed)
+            god_training = phase_god_training(god_cfg, god_ds, args.seed)
+            phase_spill_god(god_cfg, god_ds, args.seed, work,
+                            god_training["launches"])
+            lap("spill_god")
+            phase_dp_god(god_cfg, god_ds, args.seed, work, smi)
+            lap("dp_god")
         finally:
             shutil.rmtree(work, ignore_errors=True)
         emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
@@ -4986,7 +5252,7 @@ def main(argv=None) -> int:
         lap("presets")
         scan_speech = phase_scan_speech(cfg, ds, tr_idx, args.seed, work)
         lap("scan_speech")
-        dp_speech = phase_dp_speech(cfg, ds, tr_idx, args.seed, work)
+        dp_speech = phase_dp_speech(cfg, ds, tr_idx, args.seed, work, smi)
         del ds
         lap("dp_speech")
 
@@ -5004,7 +5270,7 @@ def main(argv=None) -> int:
         lap("god")
         phase_serve_graphs_god(god_cfg, god_ds, args.seed, work, smi)
         lap("serve_graphs_god")
-        dp_god = phase_dp_god(god_cfg, god_ds, args.seed, work)
+        dp_god = phase_dp_god(god_cfg, god_ds, args.seed, work, smi)
         lap("dp_god")
         kamitani = phase_kamitani(god_cfg, work)
         lap("kamitani")
@@ -5125,6 +5391,7 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{name}: no launch on the {path} path")
     # the data-parallel paths: every kernel of the step, BN by the split route
     dp_paths = {"dp_speech": dp_speech["steps"], "dp_speech_cli": dp_speech["cli"],
+                "dp_speech_scan_cli": dp_speech["scan_cli"],
                 "dp_god": dp_god["steps"]}
     for path, launches in dp_paths.items():
         needed = ("bn_stats", "bn_bwd_stats", "bn_bwd_sums_only", "bn_bwd_dx",

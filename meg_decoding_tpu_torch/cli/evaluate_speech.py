@@ -126,14 +126,18 @@ class SpeechPool:
         b = len(ids) // n
         mine = slice(mesh.rank * b, (mesh.rank + 1) * b)
         if isinstance(self.ds, GwilliamsPacked) and self.ds.session_shard:
-            if self._sharded_gather is None:
-                from meg_decoding_tpu_torch.train.scan_loop import (
-                    _make_sharded_gather,
-                )
+            from meg_decoding_tpu_torch.train.scan_loop import (
+                _local_ids,
+                _make_sharded_gather,
+            )
 
+            if self._sharded_gather is None:
                 self._sharded_gather = _make_sharded_gather(mesh, self.ds)
-            out = self._sharded_gather(ids, draw_local_sessions(
-                gen, len(ids), n, len(self.ds.session_subject)))
+            sess = draw_local_sessions(gen, len(ids), n,
+                                       len(self.ds.session_subject))
+            dev = self.ds.recordings.device
+            out = self._sharded_gather(*(_local_ids(mesh, a).to(dev)
+                                         for a in (ids, sess)))
             if whole:
                 return tuple(mesh.all_gather(t)[:m] for t in out)
             return out

@@ -2,9 +2,10 @@
 counterpart of JAX's compiled programs.
 
 * ``train``: the train step, ``jax.jit(train_step)``
-  (``meg_decoding_tpu/train/steps.py:257``) and, replayed ``updates``
-  times, ``_build_epoch``'s ``lax.scan``
-  (``meg_decoding_tpu/train/scan_loop.py:291-326``).
+  (``meg_decoding_tpu/train/steps.py:257``), also on a spilled set and
+  over a data-parallel mesh (``meg_decoding_tpu/train/scan_loop.py:232,
+  267``), and, replayed ``updates`` times, ``_build_epoch``'s
+  ``lax.scan`` (``meg_decoding_tpu/train/scan_loop.py:291-326``).
 * ``forward``: the programs that only read: ``jax.jit(eval_step)``
   (``meg_decoding_tpu/train/steps.py:301``), the eval CLIs' ``jax.jit(fwd)``
   (``meg_decoding_tpu/cli/evaluate_speech.py:67-75``,
@@ -51,9 +52,30 @@ A replay runs what its capture ran, whatever Python flags say now: a
 forward body captured with ``model.eval()`` stays an eval-mode forward,
 and a train body captured with ``model.train()`` a training step.
 
+Every route takes its graph: the device-resident and the spilled train
+sets alike (a spilled set's batches arrive as device tensors from the
+prefetch's side stream, ``data/prefetch.py``, and are copied device to
+device into the static inputs on the compute stream, after its wait on
+the copy's event), and the data-parallel steps, test pools and epochs.
+A body under a data-parallel ``mesh`` (``core/mesh.py``) holds NCCL
+collectives: ``c10d``'s all-reduce, all-gather and reduce-scatter, also
+inside autograd's backward (``torch.distributed.nn.functional``, the
+synced BatchNorm's backward).  NCCL joins its internal stream to the
+captured one through events, so the collectives are recorded in the
+graph and a replay issues them with no host work.  The warm-up runs them
+on every rank in the same order (it also makes the communicator before
+the capture), and every rank's capture records the same sequence.  Before
+the first capture under a mesh the group's backend must be NCCL, at
+least 2.9.6 (the first that supports stream capture); otherwise it
+raises.  The capture's error mode is thread-local: the calls of other
+threads (the prefetch's copies, NCCL's watchdog, which polls the events
+of eager collectives) neither fail nor spoil it, while an unsafe call of
+the capturing thread (a read back to the host) still fails it.
+
 On the CPU it runs the body eagerly on the same static buffers, so that
-the tests here exercise the copy-in and copy-out.  A failed capture
-raises; there is no eager fallback.
+the tests here exercise the copy-in and copy-out (under a gloo group,
+its collectives too).  A failed capture raises; there is no eager
+fallback.
 """
 
 from __future__ import annotations
@@ -61,6 +83,7 @@ from __future__ import annotations
 import time
 
 import torch
+import torch.distributed as dist
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from meg_decoding_tpu_torch.device import resolve_device
@@ -70,11 +93,12 @@ from meg_decoding_tpu_torch.ops.kernels import (
     window_gather,
 )
 
-__all__ = ["GraphedStep", "WARMUP", "KINDS", "replays", "captures",
-           "reset_counts", "launch_counts", "state_tensors"]
+__all__ = ["GraphedStep", "WARMUP", "KINDS", "NCCL_CAPTURE", "replays",
+           "captures", "reset_counts", "launch_counts", "state_tensors"]
 
 WARMUP = 3
 KINDS = ("train", "forward")
+NCCL_CAPTURE = (2, 9, 6)  # the first NCCL whose collectives a capture records
 
 # replays and captures by kind since the last reset_counts(), over every
 # GraphedStep (read by chip_smoke.py to show that a path ran its graphs)
@@ -182,10 +206,11 @@ class GraphedStep:
     body reads (the weights), checked unchanged by each capture's warm-up.
     ``capture_seconds`` is the last warm-up and capture's wall time, None
     before the first capture on the card; ``programs`` maps each signature
-    seen to its buffers and graph."""
+    seen to its buffers and graph.  ``mesh``: the data-parallel mesh whose
+    collectives the body issues, or None."""
 
-    def __init__(self, body, state=None, device="cuda", reads=()):
-        self.body, self.state = body, state
+    def __init__(self, body, state=None, device="cuda", reads=(), mesh=None):
+        self.body, self.state, self.mesh = body, state, mesh
         self.kind = "forward" if state is None else "train"
         # raises for a CUDA device on a machine without a card
         self.device = resolve_device(device if state is None
@@ -261,7 +286,21 @@ class GraphedStep:
         prog.keep(self.body(**inputs) if self.state is None
                   else self.body(self.state, **inputs))
 
+    def _check_collectives(self) -> None:
+        """A body under a mesh is captured only over NCCL that records its
+        collectives in a capture."""
+        backend = dist.get_backend(self.mesh.group)
+        if backend != "nccl":
+            raise RuntimeError(f"a data-parallel body is captured over NCCL, "
+                               f"not {backend}")
+        version = tuple(torch.cuda.nccl.version()[:3])
+        if version < NCCL_CAPTURE:
+            raise RuntimeError(f"NCCL {version} cannot record collectives in a "
+                               f"CUDA graph; {NCCL_CAPTURE} or later can")
+
     def _capture(self, prog: _Program, spec) -> None:
+        if self.mesh is not None:
+            self._check_collectives()
         torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         counts = launch_counts()
@@ -284,7 +323,8 @@ class GraphedStep:
         del saved
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
+        with torch.cuda.graph(graph, pool=self._pool,
+                              capture_error_mode="thread_local"):
             self._run(prog, spec)
         self._pool = graph.pool()
         after = launch_counts()

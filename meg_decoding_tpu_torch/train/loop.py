@@ -11,19 +11,20 @@ traces the epoch ``profile_epoch`` (``utils/profiling.py``).
 ``fit_scan`` drives the whole-epoch forms of ``train/scan_loop.py``
 instead: one call an epoch.
 
-On one device with the train set on the device, ``fit`` runs its step
-(a ``TrainStep``, ``train/steps.py``) as one captured CUDA graph,
-replayed once a step (``train/graph.py``: the counterpart of
-``jax.jit(train_step)``; on the CPU the same route runs the step's body
-eagerly), and the whole-epoch forms replay theirs ``updates`` times an
-epoch.  The data-parallel route (collectives) and a train set spilled to
-host memory (copies on a side stream) run the step eagerly.  Without a
-data-parallel mesh, the test pools of ``fit`` and ``fit_scan`` replay one
-captured graph of the eval step's body (``EvalStep``, the counterpart of
-``jax.jit(eval_step)``), captured at the first pool of the call: every
-pool has one shape (``_test_pool_starts``).  The train graph and the eval
-graph read the same parameters and BN buffers, which the step writes in
-place, so each epoch's pools see that epoch's weights.
+``fit`` runs its step (a ``TrainStep``, ``train/steps.py``) as one
+captured CUDA graph, replayed once a step (``train/graph.py``: the
+counterpart of ``jax.jit(train_step)``; on the CPU the same route runs
+the step's body eagerly), and the whole-epoch forms replay theirs
+``updates`` times an epoch: on a device-resident set and on one spilled
+to host memory (its batches reach the graph's inputs by a device-to-device
+copy after the prefetch's), on one device and under a data-parallel mesh
+(the graph holds the collectives).  The test pools of ``fit`` and
+``fit_scan`` replay one captured graph of the eval step's body
+(``EvalStep``, the counterpart of ``jax.jit(eval_step)``), captured at
+the first pool of the call: every pool has one shape
+(``_test_pool_starts``).  The train graph and the eval graph read the
+same parameters and BN buffers, which the step writes in place, so each
+epoch's pools see that epoch's weights.
 
 Reference skeleton: ``train.py:178-274`` (epoch loop with per-batch
 updates, a test pass, epoch metric means, model_last each epoch) and
@@ -45,6 +46,7 @@ other ranks get no logger and a ``CheckpointManager(writer=False)``.
 
 from __future__ import annotations
 
+import functools
 import glob
 import json
 import os
@@ -113,35 +115,37 @@ def _test_pool_starts(n: int, pool: int, sweep: bool) -> list[int]:
     return starts
 
 
-def _eval_route(eval_step, state) -> Callable:
-    """The test pools' eval step: an ``EvalStep`` without a mesh as its
-    host part then a replay of one ``GraphedStep`` of its body (the state's
-    tensors checked unchanged by the capture's warm-up); any other as it
-    is, eagerly."""
-    if not isinstance(eval_step, EvalStep) or eval_step.mesh is not None:
-        return eval_step
-    graphed = GraphedStep(eval_step.body, device=state.step.device,
-                          reads=state_tensors(state))
+def _eval_route(eval_step, state, sharded: bool | None = None) -> Callable:
+    """The test pools' eval step, ``step(X, Y, subject_idxs, temp,
+    labels)``: an ``EvalStep`` as its host part then a replay of one
+    ``GraphedStep`` of its body (the state's tensors checked unchanged by
+    the capture's warm-up; under a mesh the graph holds its collectives);
+    any other as it is, eagerly.  ``sharded`` (data parallelism only: the
+    pools are this rank's rows, or whole on every rank) is fixed once a
+    call by ``_test_sharding`` and bound here, not passed as an input."""
+    kw = {} if sharded is None else {"sharded": sharded}
+    if not isinstance(eval_step, EvalStep):
+        return functools.partial(eval_step, **kw)
+    graphed = GraphedStep(functools.partial(eval_step.body, **kw),
+                          device=state.step.device,
+                          reads=state_tensors(state), mesh=eval_step.mesh)
     return lambda *args: graphed(eval_step.prepare(*args))
 
 
 def _eval_test_pools(cfg, test_set, eval_step, state, test_size: int,
                      seed: int, epoch: int, with_labels: bool,
-                     shard_fn: Callable | None = None,
-                     sharded: bool | None = None) -> dict:
+                     shard_fn: Callable | None = None) -> dict:
     """Epoch test pass: every pool of ``test_size`` segments of the shuffled
     test split is scored and the metrics averaged (``test_sweep: false``
     scores one pool, as the reference does).  A ``PackedDataset`` pool is a
     plain gather (then ``shard_fn``'s rows of it); any other draws its
     sessions from a derived generator (a session-sharded pool gives this
     rank's rows itself).  A host-resident pool's batch is copied to the
-    state's device.  ``sharded`` (data parallelism only) tells the eval
-    step whether the batch is this rank's rows or the whole pool."""
+    state's device.  ``eval_step`` is ``_eval_route``'s."""
     n = len(test_set)
     dev = state.step.device
     perm = torch.randperm(n, generator=derived_generator(seed, epoch, _TEST)).numpy()
     sweep = bool(cfg.get("test_sweep", True))
-    kw = {} if sharded is None else {"sharded": sharded}
     hist = []
     for j, s in enumerate(_test_pool_starts(n, test_size, sweep)):
         idx = perm[s:s + test_size]
@@ -154,7 +158,7 @@ def _eval_test_pools(cfg, test_set, eval_step, state, test_size: int,
                 idx, generator=derived_generator(seed, epoch, _TEST, j + 1))
         batch = to_device(batch, dev)
         labels = batch[3] if with_labels else None
-        m, _ = eval_step(*batch[:3], state.temp.detach(), labels, **kw)
+        m, _ = eval_step(*batch[:3], state.temp.detach(), labels)
         hist.append(m)
     return _mean_metrics(hist)
 
@@ -198,13 +202,12 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
     ``eval_step(X, Y, subject_idxs, temp, labels)``.  ``start_epoch``
     continues the epoch numbering after a resume.
 
-    ``train_step`` is a ``TrainStep``.  Without a data-parallel mesh
-    (``train_step.mesh``) and with the train set on the device, each step
-    is its host draws then a replay of one ``GraphedStep`` of its body,
-    captured at the first step of this call; the metrics are the replay's
-    copies.  Otherwise the step runs eagerly.  An ``EvalStep`` without a
-    mesh scores the test pools through one graph of its body, captured at
-    the first pool of this call, also on a spilled train set.
+    ``train_step`` is a ``TrainStep``: each step is its host draws then a
+    replay of one ``GraphedStep`` of its body, captured at the first step
+    of this call (under ``train_step.mesh`` with its collectives); the
+    metrics are the replay's copies.  An ``EvalStep`` scores the test
+    pools through one graph of its body, captured at the first pool of
+    this call.
 
     A ``train_set`` with ``host_resident`` gathers on the host, and its
     batches reach the state's device through ``prefetch_to_device`` with
@@ -230,9 +233,8 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
     prefetch_n = int(cfg.get("prefetch", 2 if host_resident else 0) or 0)
     profile_dir = cfg.get("profile_dir")
     profile_epoch = int(cfg.get("profile_epoch", 1)) if profile_dir else -1
-    graphed = (GraphedStep(train_step.body, state)
-               if train_step.mesh is None and not host_resident else None)
-    eval_step = _eval_route(eval_step, state)
+    graphed = GraphedStep(train_step.body, state, mesh=train_step.mesh)
+    eval_step = _eval_route(eval_step, state, sharded)
 
     for epoch in range(start_epoch, epochs):
         egen = derived_generator(seed, epoch, _SAMPLE)
@@ -267,17 +269,14 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
         with profile_trace(profile_dir if epoch == profile_epoch else None):
             for batch in batch_iter:
                 with timer.phase("step"):
-                    if graphed is None:
-                        state, metrics = train_step(state, *batch)
-                    else:
-                        metrics = graphed(train_step.prepare(state, *batch))
+                    metrics = graphed(train_step.prepare(state, *batch))
                 train_hist.append(metrics)
 
         tm = _mean_metrics(train_hist)
         best_top10, best_metrics = _end_epoch(
             cfg, test_set, eval_step, state, test_size, seed, epoch,
             with_labels, tm, timer.means_ms(), logger, ckpt, best_top10,
-            best_metrics, shard_fn if sharded else None, sharded)
+            best_metrics, shard_fn if sharded else None)
         timer.reset()
 
     return state, best_metrics
@@ -287,7 +286,7 @@ def _end_epoch(cfg, test_set, eval_step, state, test_size: int, seed: int,
                epoch: int, with_labels: bool, tm: dict, extra: dict,
                logger: RunLogger | None, ckpt: CheckpointManager | None,
                best_top10: float, best_metrics: dict,
-               shard_fn: Callable | None = None, sharded: bool | None = None):
+               shard_fn: Callable | None = None):
     """An epoch's end, in ``fit`` and ``fit_scan``: abort before the
     checkpoint when every step was skipped or the loss is not finite, else
     the test pools, the log row, model_last and (on a better test top-10)
@@ -308,7 +307,7 @@ def _end_epoch(cfg, test_set, eval_step, state, test_size: int, seed: int,
             "model_last and lower the learning rate")
     test_metrics = _eval_test_pools(cfg, test_set, eval_step, state,
                                     test_size, seed, epoch, with_labels,
-                                    shard_fn, sharded)
+                                    shard_fn)
     em = {f"test_{k}": float(v) for k, v in test_metrics.items()}
     row = {"epoch": epoch, **{f"train_{k}": v for k, v in tm.items()},
            **em, **extra}
@@ -344,7 +343,7 @@ def fit_scan(cfg, train_set, test_set, state, scan_epoch: Callable,
         batch_multiple)
     dev = state.step.device
     best_top10, best_metrics = -1.0, {}
-    eval_step = _eval_route(eval_step, state)
+    eval_step = _eval_route(eval_step, state, sharded)
     for epoch in range(start_epoch, epochs):
         state, means = scan_epoch(
             state, derived_generator(seed, epoch, _SAMPLE, device=dev))
@@ -352,7 +351,7 @@ def fit_scan(cfg, train_set, test_set, state, scan_epoch: Callable,
         best_top10, best_metrics = _end_epoch(
             cfg, test_set, eval_step, state, test_size, seed, epoch, False,
             tm, {}, logger, ckpt, best_top10, best_metrics,
-            shard_fn if sharded else None, sharded)
+            shard_fn if sharded else None)
     return state, best_metrics
 
 

@@ -17,14 +17,15 @@ percentiles (``collate_preprocess_cached``).
 
 JAX runs a whole epoch as one ``lax.scan`` program.  Here an epoch
 (``ScanEpoch``) is one captured graph of the step, replayed ``updates``
-times on the card: every draw of the epoch (the (updates, B) segment ids,
-with replacement whatever ``use_sampler`` says, and, for Gwilliams, the
-(updates, B) sessions) is made up front on the device from one
-``torch.Generator``; before each replay the host copies that update's row
-of the draws into the graph's inputs (on the device) and draws the step's
-dropout (the centre, from the state's CPU generator); nothing in the loop
-waits for the device, and the metrics are averaged on the device
-(``epoch_means``); the caller reads them once.  On the CPU the same loop
+times on the card, also under a data-parallel mesh: every draw of the
+epoch (the (updates, B) segment ids, with replacement whatever
+``use_sampler`` says, and, for Gwilliams, the (updates, B) sessions) is
+made up front on the device from one ``torch.Generator``; before each
+replay the host copies that update's row of the draws into the graph's
+inputs (on the device) and draws the step's dropout (the centre, from the
+state's CPU generator); nothing in the loop waits for the device, and the
+metrics are averaged on the device (``epoch_means``); the caller reads
+them once.  On the CPU the same loop
 runs the body eagerly; ``epoch.eager`` runs it step by step.
 
 Under a data-parallel ``mesh`` (``core/mesh.py``; JAX ``:40-180`` and the
@@ -33,7 +34,9 @@ Under a data-parallel ``mesh`` (``core/mesh.py``; JAX ``:40-180`` and the
 batch from its own shard (``_make_sharded_gather``), and the step is
 ``make_train_step(mesh=)``'s.  Every draw is of the global batch — the
 segment ids and the shard-local sessions — made alike on every rank from
-its copy of one seeded generator; each rank takes its rows.
+its copy of one seeded generator; each rank takes its rows in the step's
+host part, and its device part (gather, step, collectives) runs as one
+captured graph, as on one device.
 """
 
 from __future__ import annotations
@@ -121,23 +124,33 @@ def _shard_gwilliams(ds: GwilliamsPacked, mesh) -> GwilliamsPacked:
     return ds if is_session_sharded(ds, mesh) else shard_gwilliams_splits(mesh, ds)[0]
 
 
+def _ids(x) -> torch.Tensor:
+    """Integer ids (a numpy array, a list or a tensor) as an int64 tensor
+    where they lie: a host array stays on the host."""
+    return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
+                           dtype=torch.int64)
+
+
+def _local_ids(mesh, x) -> torch.Tensor:
+    """This rank's rows of a global batch of integer ids (a numpy array, a
+    list or a tensor) as an int64 tensor where they lie (``_ids``)."""
+    b = local_batch_size(len(x), mesh)
+    return _ids(x)[mesh.rank * b:(mesh.rank + 1) * b]
+
+
 def _make_sharded_gather(mesh, ds: GwilliamsPacked, y_dtype=None, stats=None):
     """``gather(idx, sess) → (X, Y, subject_idxs[, stats rows])``: this
-    rank's rows of a global batch of segment ids ``idx`` (B,) and of its
-    shard-local sessions ``sess`` (B,), gathered from the rank's shard of
+    rank's rows of a global batch, ``idx`` (b,) their segment ids and
+    ``sess`` (b,) their shard-local sessions (``_local_ids`` of the global
+    draws, int64 on the shard's device), gathered from the rank's shard of
     the session-sharded ``ds`` (``local_shard_gather``); with ``stats``
-    (the shard's collate-stats table) the rows' statistics too."""
-    dev = ds.recordings.device
-    seg = torch.as_tensor(ds.segment_table(), device=dev)
+    (the shard's collate-stats table) the rows' statistics too.  It reads
+    nothing from the host, so a captured step can hold it."""
+    seg = torch.as_tensor(ds.segment_table(), device=ds.recordings.device)
 
     def gather(idx, sess):
-        b = local_batch_size(len(idx), mesh)
-        rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
-        idx_l = torch.as_tensor(np.asarray(idx) if not torch.is_tensor(idx)
-                                else idx)[rows].to(dev, torch.int64)
-        sess_l = torch.as_tensor(sess)[rows].to(dev, torch.int64)
         return local_shard_gather(
-            idx_l, sess_l, ds.recordings, ds.meg_onsets, ds.y_stream,
+            idx, sess, ds.recordings, ds.meg_onsets, ds.y_stream,
             ds.speech_onsets, ds.session_subject, seg, int(ds.seq_len),
             mesh.rank, y_dtype=y_dtype, stats_local=stats)
 
@@ -168,13 +181,6 @@ def _stats_table(ds: GwilliamsPacked, collate_cfg: CollateConfig,
     return None
 
 
-def _ids(x) -> torch.Tensor:
-    """Integer ids (a numpy array, a list or a tensor) as an int64 tensor
-    where they lie: a host array stays on the host."""
-    return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
-                           dtype=torch.int64)
-
-
 def make_fused_speech_step(model, optimizer: Adam, loss_cfg: LossConfig,
                            collate_cfg: CollateConfig, ds: GwilliamsPacked,
                            cache_collate_stats: bool = False,
@@ -196,8 +202,10 @@ def make_fused_speech_step(model, optimizer: Adam, loss_cfg: LossConfig,
     With ``mesh``: ``ds`` is session-sharded here unless it already is
     (``fused.ds``), the table is the shard's, ``idx`` is the global batch
     and ``sess_ids`` (B,) its device-major shard-local sessions
-    (``draw_local_sessions``, drawn with ``generator`` when None); each
-    rank gathers and steps on its rows."""
+    (``draw_local_sessions``, drawn with ``generator`` when None); the host
+    part takes this rank's rows of both, and the device part gathers and
+    steps on them, so that ``fit`` replays it as one graph as on one
+    device."""
     step = make_train_step(model, optimizer, loss_cfg, collate_cfg, mesh=mesh)
     y_dtype = _loss_y_dtype(model, loss_cfg)
     T = int(ds.seq_len)
@@ -216,7 +224,8 @@ def make_fused_speech_step(model, optimizer: Adam, loss_cfg: LossConfig,
                 sess_ids = draw_local_sessions(generator, len(idx),
                                                mesh.world_size, n_sessions)
             b = local_batch_size(len(idx), mesh)
-            return {"idx": idx, "sess": sess_ids,
+            return {"idx": _local_ids(mesh, idx),
+                    "sess": _local_ids(mesh, sess_ids),
                     "draws": draw_dropout(model, state.generator, b, T,
                                           centre)}
 
@@ -289,13 +298,13 @@ class ScanEpoch:
     ``step.prepare`` an update; ``means`` are 0-dim tensors on the device
     (``epoch_means``).
 
-    On one device the epoch is the ``lax.scan``'s counterpart: one captured
-    graph of the step's body (``train/graph.py``), made at the first call
-    for this state and replayed once an update, each replay on its
-    update's row of the draws (copied device to device into the graph's
-    inputs) and the step's host draws.  ``epoch.eager`` runs the same
-    epoch step by step, eagerly; under a data-parallel mesh the epoch is
-    always eager (the collectives stay outside a graph)."""
+    The epoch is the ``lax.scan``'s counterpart: one captured graph of the
+    step's body (``train/graph.py``), made at the first call for this
+    state and replayed once an update, each replay on its update's row of
+    the draws (under a data-parallel mesh this rank's columns of it),
+    copied device to device into the graph's inputs, and the step's host
+    draws; under a mesh the graph holds the step's collectives.
+    ``epoch.eager`` runs the same epoch step by step, eagerly."""
 
     def __init__(self, step: TrainStep, draw):
         self.step, self.draw = step, draw
@@ -303,10 +312,9 @@ class ScanEpoch:
 
     def __call__(self, state, generator: torch.Generator | None = None,
                  **given):
-        if self.step.mesh is not None:
-            return self.eager(state, generator, **given)
         if self.graphed is None or self.graphed.state is not state:
-            self.graphed = GraphedStep(self.step.body, state)
+            self.graphed = GraphedStep(self.step.body, state,
+                                       mesh=self.step.mesh)
         calls = self.draw(generator, **given)
         history = [self.graphed(self.step.prepare(state, *a, **kw))
                    for a, kw in calls]

@@ -30,7 +30,11 @@ its value / n.  The BatchNorms take synced statistics
 (``models/layers.py:set_data_parallel``).  Every gradient is SUM
 all-reduced in one flat buffer; the non-finite skip is decided after it
 from the global loss and gradient norm, so every rank decides alike.
-Metrics are the global batch's, the same on every rank.
+Metrics are the global batch's, the same on every rank.  The body reads
+nothing back to the host under a mesh either (the collectives, the
+sharded losses and the synced BN's sums stay on the device; only
+``DataMesh._check`` runs on the host, on metadata), so the data-parallel
+step, eval step and epoch replay graphs as on one device.
 
 Loss kinds, as the reference entry points (SURVEY §2.9):
 * ``clip``            — train.py / train_wowandb_cv.py;

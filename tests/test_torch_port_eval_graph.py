@@ -461,7 +461,7 @@ class _Eager:
     """A stand-in for ``GraphedStep`` that runs the body eagerly on the
     inputs as given: ``fit`` with both routes eager."""
 
-    def __init__(self, body, state=None, device="cuda", reads=()):
+    def __init__(self, body, state=None, device="cuda", reads=(), mesh=None):
         self.body, self.state = body, state
 
     def __call__(self, inputs):

@@ -20,9 +20,10 @@ the body eagerly on its static input buffers.
   for gradients that are zero by construction).
 * Each call returns its own metrics: no two steps share storage.
 * ``fit`` replays one train ``GraphedStep`` a step on a device-resident
-  set and steps eagerly on a spilled one, with the same result, and on
-  both scores every test pool through one eval ``GraphedStep``; the
-  kernels' launch counters are read and credited as a replay credits
+  set and on the same set spilled to host memory (GOD's packed set and a
+  speech pool, the latter through the prefetch), with the same result,
+  and on both scores every test pool through one eval ``GraphedStep``;
+  the kernels' launch counters are read and credited as a replay credits
   them.
 """
 
@@ -372,8 +373,8 @@ def test_fit_replays_one_graphed_step_a_step(god_setup, monkeypatch):
     train ``GraphedStep`` and every test pool through one forward
     ``GraphedStep`` of the eval step's body, each with one graph (here, on
     the CPU, their eager mode); on the same set spilled to host memory it
-    steps eagerly, still scoring the pools through one eval graph; both
-    end in the same state."""
+    does the same, one train call an update; both end in the same
+    state."""
     from meg_decoding_tpu_torch.train import graph, loop
     from meg_decoding_tpu_torch.train.steps import (
         LossConfig,
@@ -414,13 +415,74 @@ def test_fit_replays_one_graphed_step_a_step(god_setup, monkeypatch):
         state, best = loop.fit(cfg, train, ds, state, step, evaluate, None,
                                seed=1)
         assert np.isfinite(best["train_loss"])
-        assert len(made["train"]) == (0 if spilled else 1)
-        assert len(calls["train"]) == (0 if spilled else epochs * updates)
+        assert len(made["train"]) == 1
+        assert len(calls["train"]) == epochs * updates
         assert len(made["forward"]) == 1
         assert len(calls["forward"]) == epochs * pools
         # every pool has one shape: one eval graph
         assert len(made["forward"][0].programs) == 1
         assert all(len(g.programs) == 1 for g in made["train"])
+        ends[spilled] = state
+    _assert_state_equal(ends[False], ends[True])
+
+
+def test_fit_on_a_spilled_speech_pool_replays_one_graph(stats_setup,
+                                                       monkeypatch):
+    """``fit`` on a speech pool spilled to host memory (host gathers
+    streamed through the prefetch) makes one train ``GraphedStep`` and
+    calls it once an update, as on the device-resident pool, and ends in
+    the same state, bit for bit."""
+    from meg_decoding_tpu_torch.cli.evaluate_speech import SpeechPool
+    from meg_decoding_tpu_torch.data import prefetch
+    from meg_decoding_tpu_torch.data.gwilliams import to_host
+    from meg_decoding_tpu_torch.train import graph, loop
+    from meg_decoding_tpu_torch.train.steps import (
+        LossConfig,
+        make_eval_step,
+        make_train_step,
+    )
+
+    s = stats_setup
+    ds = s["t_tr"]
+    made, calls, streamed = [], [], []
+
+    class Counting(graph.GraphedStep):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            if self.kind == "train":
+                made.append(self)
+
+        def __call__(self, inputs):
+            if self.kind == "train":
+                calls.append(inputs)
+            return super().__call__(inputs)
+
+    def counted_prefetch(batches, **kw):
+        streamed.append(kw)
+        return prefetch.prefetch_to_device(batches, **kw)
+
+    monkeypatch.setattr(loop, "GraphedStep", Counting)
+    monkeypatch.setattr(loop, "prefetch_to_device", counted_prefetch)
+    epochs, updates = 2, 3
+    cfg = Config({"epochs": epochs, "batch_size": BATCH, "updates": updates,
+                  "test_size": 8})
+    ends = {}
+    for spilled in (False, True):
+        made.clear()
+        calls.clear()
+        streamed.clear()
+        (model, opt, state), = _states("speech", s, ds, 1)
+        collate = _collate("speech", s)
+        train = SpeechPool(to_host(ds) if spilled else ds, seed=2)
+        assert train.host_resident == spilled
+        state, best = loop.fit(cfg, train, SpeechPool(ds, seed=3), state,
+                               make_train_step(model, opt, LossConfig(), collate),
+                               make_eval_step(model, LossConfig(), collate),
+                               None, seed=1)
+        assert np.isfinite(best["train_loss"]) and best["train_skipped"] == 0.0
+        assert len(made) == 1 and len(made[0].programs) == 1
+        assert len(calls) == epochs * updates
+        assert len(streamed) == (epochs if spilled else 0)
         ends[spilled] = state
     _assert_state_equal(ends[False], ends[True])
 

@@ -17,6 +17,7 @@ import sys
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from meg_decoding_tpu_torch.core.config import Config
 from meg_decoding_tpu_torch.core.mesh import make_mesh, shard_batch
@@ -89,6 +90,7 @@ def case_gather(mesh, inp):
         pad_sessions,
     )
     from meg_decoding_tpu_torch.train.scan_loop import (
+        _local_ids,
         _make_sharded_gather,
         shard_gwilliams_splits,
     )
@@ -97,7 +99,8 @@ def case_gather(mesh, inp):
     tr, te = _speech_splits(inp)
     padded = pad_sessions(tr, mesh.world_size)
     str_, ste = shard_gwilliams_splits(mesh, tr, te)
-    X, Y, subs = _make_sharded_gather(mesh, str_)(g["idx"], _t(g["sess"]))
+    X, Y, subs = _make_sharded_gather(mesh, str_)(
+        _local_ids(mesh, g["idx"]), _local_ids(mesh, g["sess"]))
     return {"padded_recordings": padded.recordings.numpy(),
             "padded_subjects": padded.session_subject.numpy(),
             "aliased": str_.recordings is ste.recordings,
@@ -228,9 +231,191 @@ def case_resume(mesh, inp):
             "state": {k: v.numpy() for k, v in state.model.state_dict().items()}}
 
 
+def _fused_speech(mesh, inp):
+    from meg_decoding_tpu_torch.models.brain_encoder import BrainEncoder
+    from meg_decoding_tpu_torch.train.scan_loop import make_fused_speech_step
+    from meg_decoding_tpu_torch.train.steps import CollateConfig, LossConfig
+
+    m = inp["speech"]
+    model, opt, state = _state(inp, "speech", lambda m: BrainEncoder(
+        m["loc"], **m["model"], device="cpu"))
+    tr, _ = _speech_splits(inp)
+    fused = make_fused_speech_step(model, opt, LossConfig(),
+                                   CollateConfig(**m["collate"]), tr, mesh=mesh,
+                                   cache_collate_stats=m["cache_stats"])
+    return model, state, fused
+
+
+def _god_step(mesh, inp):
+    from meg_decoding_tpu_torch.models.brain_encoder import BrainEncoder
+    from meg_decoding_tpu_torch.train.steps import (
+        CollateConfig,
+        LossConfig,
+        make_eval_step,
+        make_train_step,
+    )
+
+    m = inp["god"]
+    model, opt, state = _state(inp, "god", lambda m: BrainEncoder(
+        m["loc"], **m["model"], device="cpu"))
+    loss, collate = LossConfig(**m["loss"]), CollateConfig(**m["collate"])
+    return (model, state, make_train_step(model, opt, loss, collate, mesh=mesh),
+            make_eval_step(model, loss, collate, mesh=mesh))
+
+
+def case_speech_graph(mesh, inp):
+    """``case_speech``'s steps through a ``GraphedStep`` of the fused DP
+    step's body (its CPU mode: the body on the static buffers)."""
+    from meg_decoding_tpu_torch.train.graph import GraphedStep
+
+    _, state, fused = _fused_speech(mesh, inp)
+    graphed = GraphedStep(fused.body, state, mesh=mesh)
+    history = [graphed(fused.prepare(state, idx, sess_ids=_t(sess)))
+               for idx, sess in inp["speech"]["steps"]]
+    return _result(state, history)
+
+
+def case_god_graph(mesh, inp):
+    """``case_god``'s steps through a ``GraphedStep`` of the DP step's
+    body."""
+    from meg_decoding_tpu_torch.train.graph import GraphedStep
+
+    _, state, step, _ = _god_step(mesh, inp)
+    graphed = GraphedStep(step.body, state, mesh=mesh)
+    history = [graphed(step.prepare(state, *shard_batch(mesh, batch)))
+               for batch in inp["god"]["steps"]]
+    return _result(state, history)
+
+
+class _Ops(TorchDispatchMode):
+    """The name of every operation dispatched under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.seen.add(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+def case_host_reads(mesh, inp):
+    """The operations of the fused DP body, the per-step DP body (GOD, the
+    same-label term) and the DP eval body (a sharded pool), each run once
+    under ``_Ops``; the test looks for host reads among them."""
+    _, state, fused = _fused_speech(mesh, inp)
+    idx, sess = inp["speech"]["steps"][0]
+    inputs = fused.prepare(state, idx, sess_ids=_t(sess))
+    out = {}
+    with _Ops() as ops:
+        fused.body(state, **inputs)
+    out["fused_speech"] = ops.seen
+    _, state, step, evaluate = _god_step(mesh, inp)
+    batch = shard_batch(mesh, inp["god"]["steps"][0])
+    inputs = step.prepare(state, *batch)
+    with _Ops() as ops:
+        step.body(state, **inputs)
+    out["god_step"] = ops.seen
+    X, Y, subs, labels = batch
+    inputs = evaluate.prepare(X, Y, subs, state.temp.detach(), labels)
+    with _Ops() as ops:
+        evaluate.body(**inputs, sharded=True)
+    out["eval"] = ops.seen
+    return out
+
+
+def case_eval_graph(mesh, inp):
+    """The DP test pools (``fit``'s ``_eval_test_pools``) through the
+    forward graph of the eval body and through the eager eval step, with
+    ``sharded`` True (this rank's rows of each pool) and False (every
+    pool whole on every rank), after two DP steps."""
+    from meg_decoding_tpu_torch.data.packed import PackedDataset
+    from meg_decoding_tpu_torch.train import loop
+
+    _, state, step, evaluate = _god_step(mesh, inp)
+    for batch in inp["god"]["steps"]:
+        step(state, *shard_batch(mesh, batch))
+    pool = [np.concatenate(a) for a in zip(*inp["god"]["steps"])]
+    test_set = PackedDataset(X=_t(pool[0]), Y=_t(pool[1]),
+                             subject_idxs=_t(pool[2]), labels=_t(pool[3]),
+                             num_subjects=2)
+    cfg = Config({"test_sweep": True})
+    out = {}
+    for sharded in (True, False):
+        graphed = []
+        real = loop.GraphedStep
+
+        def counting(*a, **k):
+            graphed.append(real(*a, **k))
+            return graphed[-1]
+
+        loop.GraphedStep = counting
+        try:
+            route = loop._eval_route(evaluate, state, sharded)
+        finally:
+            loop.GraphedStep = real
+        shard_fn = (lambda b: shard_batch(mesh, b)) if sharded else None
+        runs = {}
+        for name, fn in (("graph", route),
+                         ("eager", lambda *a, s=sharded: evaluate(*a, sharded=s))):
+            runs[name] = loop._eval_test_pools(cfg, test_set, fn, state, 8, 0,
+                                               1, True, shard_fn)
+        (g,) = graphed
+        runs["programs"] = len(g.programs)
+        out[sharded] = runs
+    return out
+
+
+def case_scan_graph(mesh, inp):
+    """The data-parallel whole-epoch forms (Gwilliams and GOD) through
+    their graph, and through ``epoch.eager``, on the same global draws."""
+    from meg_decoding_tpu_torch.data.packed import PackedDataset
+    from meg_decoding_tpu_torch.models.brain_encoder import BrainEncoder
+    from meg_decoding_tpu_torch.train.scan_loop import (
+        make_gwilliams_scan_epoch,
+        make_scan_epoch,
+    )
+    from meg_decoding_tpu_torch.train.steps import CollateConfig, LossConfig
+
+    updates = 3
+    out = {}
+    for form in ("gwilliams", "god"):
+        key = "speech" if form == "gwilliams" else "god"
+        m = inp[key]
+        runs = {}
+        for route in ("graph", "eager"):
+            model, opt, state = _state(inp, key, lambda m: BrainEncoder(
+                m["loc"], **m["model"], device="cpu"))
+            collate = CollateConfig(**m["collate"])
+            gen = torch.Generator().manual_seed(7)
+            if form == "gwilliams":
+                tr, _ = _speech_splits(inp)
+                B = len(m["steps"][0][0])
+                epoch = make_gwilliams_scan_epoch(
+                    model, opt, LossConfig(), collate, tr, updates, B,
+                    cache_collate_stats=m["cache_stats"], mesh=mesh)
+            else:
+                pool = [np.concatenate(a) for a in zip(*m["steps"])]
+                ds = PackedDataset(X=_t(pool[0]), Y=_t(pool[1]),
+                                   subject_idxs=_t(pool[2]), num_subjects=2)
+                B = len(m["steps"][0][0])
+                epoch = make_scan_epoch(model, opt, LossConfig(), collate, ds,
+                                        updates, B, mesh=mesh)
+            run = epoch if route == "graph" else epoch.eager
+            state, means = run(state, gen)
+            runs[route] = {"means": {k: float(v) for k, v in means.items()},
+                           "graphed": epoch.graphed is not None,
+                           **_result(state, [])}
+        out[form] = runs
+    return out
+
+
 CASES = {"clip": case_clip, "bn": case_bn, "gather": case_gather,
          "spill": case_spill, "speech": case_speech, "god": case_god,
-         "cli": case_cli, "resume": case_resume}
+         "cli": case_cli, "resume": case_resume,
+         "speech_graph": case_speech_graph, "god_graph": case_god_graph,
+         "host_reads": case_host_reads, "eval_graph": case_eval_graph,
+         "scan_graph": case_scan_graph}
 
 
 def main(argv):
