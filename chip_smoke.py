@@ -25,6 +25,14 @@ Phases, each printed as one JSON line:
               robust_quantiles, batchnorm_stats; one nvcc per source, in
               parallel);
 2. device   — the card's name and power limit, as nvidia-smi reports them;
+    bench    — (after ``brennan_kernels``) ``bench_torch.py --scale small
+              --steps 5 --windows 2 --big-batches ''`` in a fresh process:
+              the port's benchmark (``cli/bench.py``) at the full model
+              width on 2 subjects × 2 sessions × 120 s, every row of it
+              (f32 and bf16 B = 64, the whole epoch, the cached statistics,
+              an eval pool, the sentence split, the promoted recipe, B =
+              256), none skipped, every MFU in (0, 1.05], and each kernel
+              launched, as its ``# bench-launches:`` line counts them;
 3. kernels  — each of the four kernels against its plain PyTorch version
               on the card at the main path's shapes (gather bit-exact,
               percentiles ≤ 1 ulp, BN sums within 1e-5 of the sum of
@@ -349,7 +357,8 @@ of the repository beside it, it exits non-zero and prints no result.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``;
 ``--phase graphs`` (or ``serve_graphs``) runs the build, the speech cache,
-that phase's speech paths, the GOD data and its GOD paths, and stops.
+that phase's speech paths, the GOD data and its GOD paths, and stops;
+``--phase bench`` runs the build and the ``bench`` phase.
 """
 
 from __future__ import annotations
@@ -5132,12 +5141,79 @@ def phase_quickstart(work) -> dict:
     return launches
 
 
+BENCH_ARGS = ("--scale", "small", "--steps", "5", "--windows", "2",
+              "--big-batches", "")
+# the rows of bench_torch.py at those flags (B = 64, B2 = 256)
+BENCH_ROWS = (
+    "value", "vs_baseline", "device", "sec_per_step", "sec_per_step_windows",
+    "mfu_vs_h100_f32_peak", "scan_epoch_samples_per_sec", "scan_epoch_mfu",
+    "bf16_samples_per_sec", "bf16_mfu_vs_h100_bf16_peak",
+    "collate_stats_sweep_sec", "collate_stats_hbm_gb",
+    "cached_stats_samples_per_sec", "eval_ms_per_pool",
+    "eval_sweep_epoch_fraction", "sentence_split_full_scale_ok",
+    "scan_epoch_promoted_samples_per_sec", "scan_epoch_promoted_mfu",
+    "b256_bf16_samples_per_sec", "b256_bf16_mfu_vs_h100_bf16_peak",
+    "b256_bf16_peak_gb", "b256_samples_per_sec", "b256_mfu_vs_h100_f32_peak",
+    "b256_peak_gb", "b256_bf16_cached_stats_samples_per_sec",
+    "b256_bf16_cached_stats_mfu",
+    "b256_bf16_cached_stats_gelu_tanh_samples_per_sec",
+    "b256_bf16_cached_stats_gelu_tanh_mfu", "vs_baseline_1thread")
+
+
+def phase_bench(smi: str) -> dict:
+    """``bench_torch.py`` at the small scale (2 subjects × 2 sessions ×
+    120 s, the full model width, B = 64 and 256) in a fresh process: every
+    row present, none skipped or failed, the sentence split run, every MFU
+    in (0, 1.05], the card named as nvidia-smi names it, and each kernel
+    (``bn_bwd``, the fused BN backward, counted as ``bn_bwd_stats``, its
+    sums alone apart) launched on the bench's path.  Returns its
+    launches."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py"),
+                          *BENCH_ARGS], cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"bench_torch.py exited {out.returncode}:\n"
+                             f"{out.stderr[-4000:]}")
+    lines = out.stdout.strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench_torch.py printed {len(lines)} lines")
+    row = json.loads(lines[0])
+    missing = [k for k in BENCH_ROWS if k not in row]
+    failed = [k for k in row if k.endswith(("_skipped", "_error"))]
+    mfus = {k: v for k, v in row.items() if "mfu" in k}
+    bad_mfu = {k: v for k, v in mfus.items()
+               if v is None or not 0.0 < v <= 1.05}
+    if missing or failed or bad_mfu or row["value"] <= 0:
+        raise AssertionError(f"bench row: missing {missing}, skipped or "
+                             f"failed {failed}, MFU out of (0, 1.05] "
+                             f"{bad_mfu}, value {row['value']}")
+    if row["sentence_split_full_scale_ok"] is not True:
+        raise AssertionError("bench: the sentence split did not run")
+    if row["device"] != smi:
+        raise AssertionError(f"bench ran on {row['device']!r}, not {smi!r}")
+    tagged = [ln.split(": ", 1)[1] for ln in out.stderr.splitlines()
+              if ln.startswith("# bench-launches: ")]
+    if len(tagged) != 1:
+        raise AssertionError("bench: no bench-launches line")
+    launches = json.loads(tagged[0])
+    launches["bn_bwd"] = launches["bn_bwd_stats"] - launches["bn_bwd_sums_only"]
+    for name in ("window_gather", "robust_quantiles", "bn_stats",
+                 "bn_bwd_stats", "bn_bwd"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name}: no launch on the bench path")
+    emit({"phase": "bench", "seconds": time.perf_counter() - t0,
+          "args": list(BENCH_ARGS), "mfu": mfus, "launches": launches,
+          "row": row})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke run of the port")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
         "--phase", choices=("all", "brennan_kernels", "graphs", "serve_graphs",
-                            "spill_dp"),
+                            "spill_dp", "bench"),
         default="all",
         help="brennan_kernels: build, then only that phase at Brennan's "
              "row length; copied into another checkout's root, it times that "
@@ -5146,7 +5222,8 @@ def main(argv=None) -> int:
              "speech paths, the GOD data and its GOD paths; spill_dp: build, "
              "the speech cache, unfused_step, spill_speech, data_parallel "
              "(speech), the GOD data, god_training, spill_god, "
-             "data_parallel (GOD)")
+             "data_parallel (GOD); bench: build, then only bench_torch.py "
+             "at the small scale")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -5164,6 +5241,11 @@ def main(argv=None) -> int:
     phase_build()
     smi = phase_device()
     lap("build")
+    if args.phase == "bench":
+        phase_bench(smi)
+        lap("bench")
+        emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
+        return 0
     if args.phase in ("graphs", "serve_graphs"):
         work = os.path.join(ROOT, "runs_out", f"chip_smoke_{os.getpid()}")
         try:
@@ -5218,6 +5300,10 @@ def main(argv=None) -> int:
     lap("brennan_kernels")
     if args.phase == "brennan_kernels":
         return 0
+    # the benchmark in a process of its own, before this one holds the
+    # later phases' memory
+    bench_launches = phase_bench(smi)
+    lap("bench")
 
     work = os.path.join(ROOT, "runs_out", f"chip_smoke_{os.getpid()}")
     try:
@@ -5423,7 +5509,8 @@ def main(argv=None) -> int:
              **new_paths, **{k: v for k, (v, _) in brennan_paths.items()},
              **god_extra_paths, **artifact_spill_paths, **dp_paths,
              "kamitani_cli": kamitani,
-             **{k: v for k, (v, _) in driver_paths.items()}}
+             **{k: v for k, (v, _) in driver_paths.items()},
+             "bench": bench_launches}
     for name in training["launches"]:
         if paths["god_training"][name] + paths["god_eval"][name] <= 0:
             raise AssertionError(f"{name}: no launch on the GOD paths")

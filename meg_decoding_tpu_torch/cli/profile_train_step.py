@@ -59,8 +59,8 @@ from meg_decoding_tpu_torch.data.roi import roi
 from meg_decoding_tpu_torch.data.synthetic import full_width_god, full_width_speech
 from meg_decoding_tpu_torch.device import resolve_device
 from meg_decoding_tpu_torch.models.factory import get_model
-from meg_decoding_tpu_torch.train.graph import GraphedStep
 from meg_decoding_tpu_torch.train.scan_loop import make_fused_speech_step
+from meg_decoding_tpu_torch.train.loop import train_route
 from meg_decoding_tpu_torch.train.schedules import make_optimizer
 from meg_decoding_tpu_torch.train.state import create_train_state
 from meg_decoding_tpu_torch.train.steps import make_train_step
@@ -127,14 +127,14 @@ def speech_step(work: str, seed: int, overrides, config_name: str = "config"):
     rng = np.random.RandomState(seed)
     B = int(cfg.batch_size)
 
-    graphed = GraphedStep(fused.body, state)
+    graphed = train_route(fused, state)
 
     def args(i):
         idx = pool.segment_ids(rng.randint(0, len(pool), B))
         return idx, torch.Generator().manual_seed(i)
 
     return cfg, {"eager": lambda i: fused(state, *args(i))[1],
-                 "graph": lambda i: graphed(fused.prepare(state, *args(i)))}
+                 "graph": lambda i: graphed(*args(i))}
 
 
 def god_step(work: str, seed: int, overrides, config_name: str = "config_GOD"):
@@ -152,10 +152,10 @@ def god_step(work: str, seed: int, overrides, config_name: str = "config_GOD"):
     rng = np.random.RandomState(seed)
     B = int(cfg.batch_size)
 
-    graphed = GraphedStep(step.body, state)
+    graphed = train_route(step, state)
     batch = lambda: ds.gather(rng.randint(0, len(ds), B))[:3]  # noqa: E731
     return cfg, {"eager": lambda i: step(state, *batch())[1],
-                 "graph": lambda i: graphed(step.prepare(state, *batch()))}
+                 "graph": lambda i: graphed(*batch())}
 
 
 def profile_config(cfg, one, warmup: int, steps: int) -> dict:

@@ -69,7 +69,7 @@ from meg_decoding_tpu_torch.utils.logging import RunLogger
 from meg_decoding_tpu_torch.utils.profiling import StepTimer, profile_trace
 
 __all__ = ["fit", "fit_scan", "steps_per_epoch", "resume_if_requested",
-           "derived_generator"]
+           "derived_generator", "train_route", "eval_route"]
 
 _SAMPLE, _TEST, _GATHER = 0, 1, 2  # streams of an epoch's generators
 
@@ -115,7 +115,16 @@ def _test_pool_starts(n: int, pool: int, sweep: bool) -> list[int]:
     return starts
 
 
-def _eval_route(eval_step, state, sharded: bool | None = None) -> Callable:
+def train_route(train_step, state) -> Callable:
+    """The train step as ``fit`` runs it, ``step(*args, **kw) → metrics``:
+    ``train_step.prepare(state, *args, **kw)`` on the host, then a replay
+    of one ``GraphedStep`` of its body, captured at the first call (under
+    ``train_step.mesh`` with its collectives)."""
+    graphed = GraphedStep(train_step.body, state, mesh=train_step.mesh)
+    return lambda *args, **kw: graphed(train_step.prepare(state, *args, **kw))
+
+
+def eval_route(eval_step, state, sharded: bool | None = None) -> Callable:
     """The test pools' eval step, ``step(X, Y, subject_idxs, temp,
     labels)``: an ``EvalStep`` as its host part then a replay of one
     ``GraphedStep`` of its body (the state's tensors checked unchanged by
@@ -141,7 +150,7 @@ def _eval_test_pools(cfg, test_set, eval_step, state, test_size: int,
     plain gather (then ``shard_fn``'s rows of it); any other draws its
     sessions from a derived generator (a session-sharded pool gives this
     rank's rows itself).  A host-resident pool's batch is copied to the
-    state's device.  ``eval_step`` is ``_eval_route``'s."""
+    state's device.  ``eval_step`` is ``eval_route``'s."""
     n = len(test_set)
     dev = state.step.device
     perm = torch.randperm(n, generator=derived_generator(seed, epoch, _TEST)).numpy()
@@ -233,8 +242,8 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
     prefetch_n = int(cfg.get("prefetch", 2 if host_resident else 0) or 0)
     profile_dir = cfg.get("profile_dir")
     profile_epoch = int(cfg.get("profile_epoch", 1)) if profile_dir else -1
-    graphed = GraphedStep(train_step.body, state, mesh=train_step.mesh)
-    eval_step = _eval_route(eval_step, state, sharded)
+    step = train_route(train_step, state)
+    eval_step = eval_route(eval_step, state, sharded)
 
     for epoch in range(start_epoch, epochs):
         egen = derived_generator(seed, epoch, _SAMPLE)
@@ -269,7 +278,7 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
         with profile_trace(profile_dir if epoch == profile_epoch else None):
             for batch in batch_iter:
                 with timer.phase("step"):
-                    metrics = graphed(train_step.prepare(state, *batch))
+                    metrics = step(*batch)
                 train_hist.append(metrics)
 
         tm = _mean_metrics(train_hist)
@@ -343,7 +352,7 @@ def fit_scan(cfg, train_set, test_set, state, scan_epoch: Callable,
         batch_multiple)
     dev = state.step.device
     best_top10, best_metrics = -1.0, {}
-    eval_step = _eval_route(eval_step, state, sharded)
+    eval_step = eval_route(eval_step, state, sharded)
     for epoch in range(start_epoch, epochs):
         state, means = scan_epoch(
             state, derived_generator(seed, epoch, _SAMPLE, device=dev))

@@ -1,6 +1,7 @@
 """Import guard and device policy of the port (meg_decoding_tpu_torch).
 
-* No module of the port, and not ``chip_smoke.py``, imports JAX, flax,
+* No module of the port, and neither ``chip_smoke.py`` nor ``bench_torch.py``,
+  imports JAX, flax,
   optax, orbax, transformers, safetensors or anything of the JAX package:
   an AST scan of every file, plus a subprocess that imports every module
   with those, matplotlib and wandb blocked; matplotlib is imported only
@@ -33,7 +34,8 @@ LAZY_ONLY = ("matplotlib", "seaborn", "wandb")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "bench_torch.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -56,13 +58,15 @@ def _forbidden(name: str) -> bool:
 def test_ast_scan_finds_no_jax_imports():
     files = _port_files()
     assert len(files) > 20
-    # the example drivers, the import CLI and the captured step are
-    # scanned too
+    # the example drivers, the import CLI, the captured step and the
+    # benchmark are scanned too
     assert {os.path.join(PKG, "examples", f"{n}.py") for n in (
         "inference", "quickstart_synthetic", "kamitani_regression",
         "attention_check")} | {os.path.join(PKG, "cli",
                                             "import_torch_checkpoint.py"),
-                               os.path.join(PKG, "train", "graph.py")} \
+                               os.path.join(PKG, "train", "graph.py"),
+                               os.path.join(PKG, "cli", "bench.py"),
+                               os.path.join(ROOT, "bench_torch.py")} \
         <= set(files)
     bad = [(os.path.relpath(f, ROOT), n) for f in files
            for n in _imported_names(f) if _forbidden(n)]
@@ -89,6 +93,8 @@ def test_every_module_imports_with_jax_blocked():
         "import meg_decoding_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "import bench_torch\n"
+        "from meg_decoding_tpu_torch.cli.bench import main\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -351,7 +351,7 @@ def case_eval_graph(mesh, inp):
 
         loop.GraphedStep = counting
         try:
-            route = loop._eval_route(evaluate, state, sharded)
+            route = loop.eval_route(evaluate, state, sharded)
         finally:
             loop.GraphedStep = real
         shard_fn = (lambda b: shard_batch(mesh, b)) if sharded else None
