@@ -90,6 +90,7 @@ from meg_decoding_tpu_torch.train.steps import (
     make_train_step,
 )
 from meg_decoding_tpu_torch.utils.logging import RunLogger
+from meg_decoding_tpu_torch.utils.profiling import batch_ids, span
 
 __all__ = ["run", "loss_config", "spill_speech_splits"]
 
@@ -113,7 +114,8 @@ class _FusedPool:
         return len(self.pool)
 
     def gather(self, idx, generator: torch.Generator):
-        return self.pool.segment_ids(idx), generator
+        with span("data.gather", "batch", next(batch_ids)):
+            return self.pool.segment_ids(idx), generator
 
 
 def spill_speech_splits(train_set, test_set) -> None:

@@ -39,6 +39,7 @@ from meg_decoding_tpu_torch.features import wav2vec
 from meg_decoding_tpu_torch.ops.fir import bandpass_filter
 from meg_decoding_tpu_torch.ops.resample import resample_fft
 from meg_decoding_tpu_torch.ops.scaling import baseline_correct, robust_scale
+from meg_decoding_tpu_torch.utils.profiling import batch_ids, span
 
 __all__ = ["EXCLUDED_SUBJECTS", "load_brennan_eeg", "build_brennan_dataset",
            "embed_brennan_audio",
@@ -102,24 +103,27 @@ class BrennanPacked:
         """``(X[idx, subs], Y[idx], subs, idx)``: one subject per chunk,
         from ``subject_idxs`` when given, else drawn uniformly with
         ``generator`` (never a global RNG).  idx doubles as the chunk ids
-        (reference train.py:193)."""
-        dev = self.X.device
-        idx = np.asarray(idx)
-        if subject_idxs is None:
-            if generator is None:
-                raise ValueError("pass subject_idxs or a torch.Generator to "
-                                 "draw them")
-            subject_idxs = torch.randint(0, self.num_subjects, (len(idx),),
-                                         generator=generator,
-                                         device=generator.device)
-        subs = torch.as_tensor(subject_idxs, dtype=torch.int64, device=dev)
-        if self.host_resident:  # host slices, into pinned memory
-            N, S = self.X.shape[:2]
-            flat = self.X.reshape(N * S, *self.X.shape[2:])
-            return (host_index(flat, torch.as_tensor(idx) * S + subs),
-                    host_index(self.Y, idx), subs, idx)
-        idx_t = torch.as_tensor(idx, dtype=torch.int64, device=dev)
-        return self.X[idx_t, subs], self.Y[idx_t], subs, idx
+        (reference train.py:193).  A ``data.gather`` span
+        (``utils/profiling.py``)."""
+        with span("data.gather", "batch", next(batch_ids)):
+            dev = self.X.device
+            idx = np.asarray(idx)
+            if subject_idxs is None:
+                if generator is None:
+                    raise ValueError("pass subject_idxs or a torch.Generator "
+                                     "to draw them")
+                subject_idxs = torch.randint(
+                    0, self.num_subjects, (len(idx),), generator=generator,
+                    device=generator.device)
+            subs = torch.as_tensor(subject_idxs, dtype=torch.int64,
+                                   device=dev)
+            if self.host_resident:  # host slices, into pinned memory
+                N, S = self.X.shape[:2]
+                flat = self.X.reshape(N * S, *self.X.shape[2:])
+                return (host_index(flat, torch.as_tensor(idx) * S + subs),
+                        host_index(self.Y, idx), subs, idx)
+            idx_t = torch.as_tensor(idx, dtype=torch.int64, device=dev)
+            return self.X[idx_t, subs], self.Y[idx_t], subs, idx
 
     def subset(self, idx) -> "BrennanPacked":
         if self.host_resident:

@@ -49,6 +49,7 @@ from meg_decoding_tpu_torch.ops.kernels.window_gather import (
 )
 from meg_decoding_tpu_torch.ops.resample import resample_fft
 from meg_decoding_tpu_torch.ops.scaling import baseline_correct, robust_stats
+from meg_decoding_tpu_torch.utils.profiling import batch_ids, span
 
 __all__ = ["GwilliamsPacked", "load_gwilliams_cache", "parse_sessions",
            "build_gwilliams_dataset", "sentence_split", "deep_split",
@@ -202,8 +203,10 @@ class GwilliamsPacked:
 
     def gather(self, segment_ids, generator: torch.Generator | None = None):
         """``gather_speech_batch`` with the sessions drawn from
-        ``generator``: ``(X, Y, subject_idxs, segment_ids)``."""
-        return gather_speech_batch(self, segment_ids, generator=generator)
+        ``generator``: ``(X, Y, subject_idxs, segment_ids)``; a
+        ``data.gather`` span (``utils/profiling.py``)."""
+        with span("data.gather", "batch", next(batch_ids)):
+            return gather_speech_batch(self, segment_ids, generator=generator)
 
     def segment_table(self) -> np.ndarray:
         """(N, 2) rows (task, i_in_task) for global segment ids (cached)."""

@@ -21,6 +21,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from meg_decoding_tpu_torch.utils.profiling import batch_ids, span
+
 __all__ = ["PackedDataset", "host_copy", "host_index"]
 
 
@@ -71,7 +73,9 @@ class PackedDataset:
         if self.host_resident:
             take = lambda t: host_index(t, idx)  # noqa: E731
         else:
-            idx = torch.as_tensor(idx, dtype=torch.int64, device=self.X.device)
+            with span("data.upload_idx"):
+                idx = torch.as_tensor(idx, dtype=torch.int64,
+                                      device=self.X.device)
             take = lambda t: t[idx]  # noqa: E731
         out = [take(self.X), take(self.Y), take(self.subject_idxs)]
         return out + [None if self.labels is None else take(self.labels)]
@@ -79,8 +83,10 @@ class PackedDataset:
     def gather(self, idx) -> tuple:
         """``(X, Y, subject_idxs[, labels])`` at ``idx`` (host or device
         ints), on the dataset's device; on a host-resident set, host
-        slices (moved to the card by the prefetch, ``data/prefetch.py``)."""
-        out = self._take(idx)
+        slices (moved to the card by the prefetch, ``data/prefetch.py``).
+        A ``data.gather`` span (``utils/profiling.py``)."""
+        with span("data.gather", "batch", next(batch_ids)):
+            out = self._take(idx)
         return tuple(out if self.labels is not None else out[:3])
 
     def subset(self, idx) -> "PackedDataset":

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from meg_decoding_tpu_torch.ops.batchnorm import batch_norm_train
 from meg_decoding_tpu_torch.ops.gelu import gelu
+from meg_decoding_tpu_torch.utils.profiling import scope
 
 __all__ = [
     "fourier_basis",
@@ -183,18 +184,21 @@ class FusedBatchNorm(nn.Module):
         self.mesh = None  # a core/mesh.py DataMesh: synced statistics
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            y, mean, var = batch_norm_train(x, self.scale, self.bias,
-                                            self.epsilon, self.mesh)
-            m = self.momentum
-            with torch.no_grad():
-                self.proposed = (m * self.mean + (1.0 - m) * mean,
-                                 m * self.var + (1.0 - m) * var)
+        # the scope "batchnorm" of a captured body (utils/profiling.py):
+        # the statistics, the affine and the proposed running statistics
+        with scope("batchnorm"):
+            if self.training:
+                y, mean, var = batch_norm_train(x, self.scale, self.bias,
+                                                self.epsilon, self.mesh)
+                m = self.momentum
+                with torch.no_grad():
+                    self.proposed = (m * self.mean + (1.0 - m) * mean,
+                                     m * self.var + (1.0 - m) * var)
+                return y.to(self.dtype or x.dtype)
+            a = self.scale * torch.rsqrt(self.var + self.epsilon)
+            b = self.bias - self.mean * a
+            y = x.to(torch.float32) * a[:, None] + b[:, None]
             return y.to(self.dtype or x.dtype)
-        a = self.scale * torch.rsqrt(self.var + self.epsilon)
-        b = self.bias - self.mean * a
-        y = x.to(torch.float32) * a[:, None] + b[:, None]
-        return y.to(self.dtype or x.dtype)
 
 
 @torch.no_grad()
@@ -202,13 +206,15 @@ def commit_running_stats(model: nn.Module, ok: torch.Tensor) -> None:
     """Write the proposed running statistics of every ``FusedBatchNorm`` in
     ``model`` where ``ok`` (a 0-dim bool tensor) holds and keep the old ones
     where it does not — on the device, without a sync — then clear the
-    proposals, so none can be committed twice or by a later step."""
-    for mod in model.modules():
-        if isinstance(mod, FusedBatchNorm) and mod.proposed is not None:
-            new_mean, new_var = mod.proposed
-            mod.mean.copy_(torch.where(ok, new_mean, mod.mean))
-            mod.var.copy_(torch.where(ok, new_var, mod.var))
-            mod.proposed = None
+    proposals, so none can be committed twice or by a later step.  The
+    scope ``bn_commit`` of a captured body (``utils/profiling.py``)."""
+    with scope("bn_commit"):
+        for mod in model.modules():
+            if isinstance(mod, FusedBatchNorm) and mod.proposed is not None:
+                new_mean, new_var = mod.proposed
+                mod.mean.copy_(torch.where(ok, new_mean, mod.mean))
+                mod.var.copy_(torch.where(ok, new_var, mod.var))
+                mod.proposed = None
 
 
 def set_data_parallel(model: nn.Module, mesh) -> nn.Module:

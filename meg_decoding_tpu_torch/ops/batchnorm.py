@@ -9,6 +9,10 @@ x's dtype.  The statistics, and the whole backward, always come from
 the forward; ``bn_bwd``, one kernel for the sums and dx, in the backward),
 their plain versions on the CPU; there is no backend switch.
 
+The backwards are the scope ``batchnorm`` of a captured body
+(``utils/profiling.py``); the forward is, through its only caller,
+``models/layers.py:FusedBatchNorm``.
+
 Layout: x is NCW ``(B, C, T)``; the channel is dim 1 and M = B·T.
 
 Synced BatchNorm (``mesh``, a ``core/mesh.py:DataMesh``): the statistics
@@ -32,6 +36,7 @@ from meg_decoding_tpu_torch.ops.kernels.batchnorm import (
     bn_bwd_stats,
     bn_stats,
 )
+from meg_decoding_tpu_torch.utils.profiling import scope
 
 __all__ = ["batch_norm_train"]
 
@@ -65,9 +70,11 @@ class _BatchNormTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gmean, gvar):
         x, scale, mean, invstd = ctx.saved_tensors
-        if gy is None:
-            gy = torch.zeros_like(x)
-        dx, sg, sgx = bn_bwd(gy.contiguous(), x, scale, mean, invstd, gmean, gvar)
+        with scope("batchnorm"):
+            if gy is None:
+                gy = torch.zeros_like(x)
+            dx, sg, sgx = bn_bwd(gy.contiguous(), x, scale, mean, invstd,
+                                 gmean, gvar)
         return dx, sgx, sg, None
 
 
@@ -91,18 +98,20 @@ class _SyncedBatchNormTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gmean, gvar):
         x, scale, mean, invstd = ctx.saved_tensors
-        if gy is None:
-            gy = torch.zeros_like(x)
-        gy = gy.contiguous()
-        sg, sgx = bn_bwd_stats(gy, x, mean, invstd)
-        # one all-reduce: the two sums and any mean / var cotangents (every
-        # rank's cotangent of the global mean reaches every x)
-        parts = [sg, sgx] + [t for t in (gmean, gvar) if t is not None]
-        glob = ctx.mesh.all_reduce_(torch.stack(parts))
-        rest = iter(glob[2:])
-        gmean = None if gmean is None else next(rest)
-        gvar = None if gvar is None else next(rest)
-        dx = bn_bwd_dx(gy, x, scale, mean, invstd, glob[:2], ctx.M, gmean, gvar)
+        with scope("batchnorm"):
+            if gy is None:
+                gy = torch.zeros_like(x)
+            gy = gy.contiguous()
+            sg, sgx = bn_bwd_stats(gy, x, mean, invstd)
+            # one all-reduce: the two sums and any mean / var cotangents
+            # (every rank's cotangent of the global mean reaches every x)
+            parts = [sg, sgx] + [t for t in (gmean, gvar) if t is not None]
+            glob = ctx.mesh.all_reduce_(torch.stack(parts))
+            rest = iter(glob[2:])
+            gmean = None if gmean is None else next(rest)
+            gvar = None if gvar is None else next(rest)
+            dx = bn_bwd_dx(gy, x, scale, mean, invstd, glob[:2], ctx.M,
+                           gmean, gvar)
         return dx, sgx, sg, None, None
 
 

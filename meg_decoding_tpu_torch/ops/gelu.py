@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from meg_decoding_tpu_torch.utils.profiling import scope
+
 __all__ = ["erf_poly", "gelu_erf_poly", "GeluErfPoly", "gelu", "resolve_impl"]
 
 
@@ -96,23 +98,28 @@ class GeluErfPoly(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
-        return gelu_erf_poly(x)
+        with scope("gelu"):
+            return gelu_erf_poly(x)
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        x32 = x.to(torch.float32)
-        cdf = 0.5 * (1.0 + erf_poly(x32 * _SQRT_HALF))
-        pdf = _INV_SQRT_2PI * torch.exp(-0.5 * x32 * x32)
-        return ((cdf + x32 * pdf) * g.to(torch.float32)).to(x.dtype)
+        with scope("gelu"):
+            x32 = x.to(torch.float32)
+            cdf = 0.5 * (1.0 + erf_poly(x32 * _SQRT_HALF))
+            pdf = _INV_SQRT_2PI * torch.exp(-0.5 * x32 * x32)
+            return ((cdf + x32 * pdf) * g.to(torch.float32)).to(x.dtype)
 
 
 def gelu(x: torch.Tensor, impl: str = "erf") -> torch.Tensor:
-    """GELU dispatcher: 'erf' | 'tanh' | 'erf_poly'."""
-    if impl == "erf":
-        return F.gelu(x)
-    if impl == "tanh":
-        return F.gelu(x, approximate="tanh")
-    if impl == "erf_poly":
-        return GeluErfPoly.apply(x)
+    """GELU dispatcher: 'erf' | 'tanh' | 'erf_poly'; the scope ``gelu``
+    of a captured body (``utils/profiling.py``).  The backward of 'erf'
+    and 'tanh' is autograd's, in the scope open where it runs."""
+    with scope("gelu"):
+        if impl == "erf":
+            return F.gelu(x)
+        if impl == "tanh":
+            return F.gelu(x, approximate="tanh")
+        if impl == "erf_poly":
+            return GeluErfPoly.apply(x)
     raise ValueError(f"unknown gelu impl {impl!r}")

@@ -53,6 +53,7 @@ from meg_decoding_tpu_torch.device import resolve_device
 from meg_decoding_tpu_torch.ops.kernels.quantile import OP_NAME
 from meg_decoding_tpu_torch.ops.scaling import collate_preprocess
 from meg_decoding_tpu_torch.train.graph import GraphedStep
+from meg_decoding_tpu_torch.utils.profiling import scope, span
 
 __all__ = ["make_serving_forward", "export_serving", "save_artifact",
            "load_artifact", "ServingModel", "ARTIFACT_PROGRAM",
@@ -90,28 +91,34 @@ def make_serving_forward(collate_cfg=None):
     were rebound (``.to()``, new parameters) needs a new forward.
     ``forward.body(model, X, subject_idxs)`` is the same forward run
     eagerly, for tests and latency comparisons; ``forward.graphs`` maps
-    each model served to its ``GraphedStep``."""
+    each model served to its ``GraphedStep``.  Each call is a
+    ``serve.request`` span (``request=`` the call's number;
+    ``utils/profiling.py``) over its ``GraphedStep``'s ``graph.*`` spans."""
     enabled = _collate_enabled(collate_cfg)
 
     @torch.no_grad()
     def body(model, X, subject_idxs):
         model.eval()
         if enabled:
-            X = collate_preprocess(X, collate_cfg.baseline_len_samp,
-                                   collate_cfg.clamp_lim, collate_cfg.clamp)
+            with scope("collate"):
+                X = collate_preprocess(X, collate_cfg.baseline_len_samp,
+                                       collate_cfg.clamp_lim,
+                                       collate_cfg.clamp)
         return model(X, subject_idxs)
 
     graphs = weakref.WeakKeyDictionary()  # model → its GraphedStep
+    calls = itertools.count()
 
     def forward(model, X, subject_idxs):
-        graphed = graphs.get(model)
-        if graphed is None:
-            ref = weakref.ref(model)
-            graphed = graphs[model] = GraphedStep(
-                lambda X, subject_idxs: body(ref(), X, subject_idxs),
-                device=next(model.parameters()).device,
-                reads=[*model.parameters(), *model.buffers()])
-        return graphed({"X": X, "subject_idxs": subject_idxs})
+        with span("serve.request", "request", next(calls)):
+            graphed = graphs.get(model)
+            if graphed is None:
+                ref = weakref.ref(model)
+                graphed = graphs[model] = GraphedStep(
+                    lambda X, subject_idxs: body(ref(), X, subject_idxs),
+                    device=next(model.parameters()).device,
+                    reads=[*model.parameters(), *model.buffers()])
+            return graphed({"X": X, "subject_idxs": subject_idxs})
 
     forward.body, forward.graphs = body, graphs
     return forward

@@ -72,6 +72,14 @@ threads (the prefetch's copies, NCCL's watchdog, which polls the events
 of eager collectives) neither fail nor spoil it, while an unsafe call of
 the capturing thread (a read back to the host) still fails it.
 
+Each call's phases are spans (``utils/profiling.py``): ``graph.copy_in``
+(with ``graph.wait_staged`` and ``graph.stage_pinned``),
+``graph.replay`` (``graph=`` the id of the program's capture table) and
+``graph.copy_out``.  Each capture records the program's
+``CaptureTable``: its nodes in replay order, each put down to the module
+scope that added it (``profiling.scope``); on the CPU the first eager run
+records the scopes' order.
+
 On the CPU it runs the body eagerly on the same static buffers, so that
 the tests here exercise the copy-in and copy-out (under a gloo group,
 its collectives too).  A failed capture raises; there is no eager
@@ -92,6 +100,7 @@ from meg_decoding_tpu_torch.ops.kernels import (
     quantile,
     window_gather,
 )
+from meg_decoding_tpu_torch.utils.profiling import capture_table, span
 
 __all__ = ["GraphedStep", "WARMUP", "KINDS", "NCCL_CAPTURE", "replays",
            "captures", "reset_counts", "launch_counts", "state_tensors"]
@@ -157,12 +166,15 @@ def _signature(leaves: list) -> tuple:
 
 
 class _Program:
-    """One input signature: its static and pinned input buffers, its graph
-    and the launches its capture recorded, and the body's outputs on the
-    static inputs (``leaves`` under ``spec``; the 0-dim leaves of one
-    dtype, at ``scalars``, also stacked into ``stacked``)."""
+    """One input signature (``key``): its static and pinned input buffers,
+    its graph, the launches its capture recorded and its capture table
+    (``utils/profiling.py``), and the body's outputs on the static inputs
+    (``leaves`` under ``spec``; the 0-dim leaves of one dtype, at
+    ``scalars``, also stacked into ``stacked``)."""
 
-    def __init__(self, leaves: list, device: torch.device):
+    def __init__(self, key, leaves: list, device: torch.device):
+        self.key = key
+        self.table = None
         self.static = [None if t is None else
                        torch.empty(t.shape, dtype=t.dtype, device=device)
                        for t in leaves]
@@ -224,16 +236,24 @@ class GraphedStep:
     def __call__(self, inputs: dict):
         leaves, spec = tree_flatten(inputs)
         prog = self._program(leaves, spec)
-        self._copy_in(prog, leaves)
+        with span("graph.copy_in"):
+            self._copy_in(prog, leaves)
         if self.device.type != "cuda":
-            self._run(prog, spec)
+            if prog.table is None:
+                # the first run records the scopes, as a capture does
+                self._record(prog, spec)
+            else:
+                with span("graph.replay", "graph", prog.table.id):
+                    self._run(prog, spec)
         else:
             if prog.graph is None:
                 self._capture(prog, spec)
-            prog.graph.replay()
+            with span("graph.replay", "graph", prog.table.id):
+                prog.graph.replay()
             _add_counts(prog.delta)
             replays[self.kind] += 1
-        return prog.copy_out()
+        with span("graph.copy_out"):
+            return prog.copy_out()
 
     def _program(self, leaves: list, spec) -> _Program:
         key = (spec, _signature(leaves))
@@ -255,13 +275,14 @@ class GraphedStep:
                         f"a GraphedStep input changed from "
                         f"{tuple(static.shape)} {static.dtype} to "
                         f"{tuple(t.shape)} {t.dtype}")
-        prog = self.programs[key] = _Program(leaves, self.device)
+        prog = self.programs[key] = _Program(key, leaves, self.device)
         return prog
 
     def _copy_in(self, prog: _Program, leaves: list) -> None:
         if self._staged is not None:
             # the last call's copies out of the pinned buffers are done
-            self._staged.synchronize()
+            with span("graph.wait_staged"):
+                self._staged.synchronize()
             self._staged = None
         staged = False
         for i, (t, static) in enumerate(zip(leaves, prog.static)):
@@ -271,7 +292,8 @@ class GraphedStep:
                 if prog.pinned[i] is None:
                     prog.pinned[i] = torch.empty(t.shape, dtype=t.dtype,
                                                  pin_memory=True)
-                prog.pinned[i].copy_(t)
+                with span("graph.stage_pinned"):
+                    prog.pinned[i].copy_(t)
                 static.copy_(prog.pinned[i], non_blocking=True)
                 staged = True
             else:
@@ -285,6 +307,13 @@ class GraphedStep:
         inputs = tree_unflatten(prog.static, spec)
         prog.keep(self.body(**inputs) if self.state is None
                   else self.body(self.state, **inputs))
+
+    def _record(self, prog: _Program, spec) -> None:
+        """``_run`` with its capture table recorded (on the card inside the
+        capture)."""
+        with capture_table(self.kind, prog.key) as table:
+            self._run(prog, spec)
+        prog.table = table
 
     def _check_collectives(self) -> None:
         """A body under a mesh is captured only over NCCL that records its
@@ -325,7 +354,7 @@ class GraphedStep:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool,
                               capture_error_mode="thread_local"):
-            self._run(prog, spec)
+            self._record(prog, spec)
         self._pool = graph.pool()
         after = launch_counts()
         prog.delta = {k: after[k] - before[k] for k in after}

@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import functools
 import glob
+import itertools
 import json
 import os
 import warnings
@@ -66,7 +67,11 @@ from meg_decoding_tpu_torch.train.checkpoint import CheckpointManager
 from meg_decoding_tpu_torch.train.graph import GraphedStep, state_tensors
 from meg_decoding_tpu_torch.train.steps import EvalStep
 from meg_decoding_tpu_torch.utils.logging import RunLogger
-from meg_decoding_tpu_torch.utils.profiling import StepTimer, profile_trace
+from meg_decoding_tpu_torch.utils.profiling import (
+    StepTimer,
+    profile_trace,
+    span,
+)
 
 __all__ = ["fit", "fit_scan", "steps_per_epoch", "resume_if_requested",
            "derived_generator", "train_route", "eval_route"]
@@ -119,9 +124,19 @@ def train_route(train_step, state) -> Callable:
     """The train step as ``fit`` runs it, ``step(*args, **kw) → metrics``:
     ``train_step.prepare(state, *args, **kw)`` on the host, then a replay
     of one ``GraphedStep`` of its body, captured at the first call (under
-    ``train_step.mesh`` with its collectives)."""
+    ``train_step.mesh`` with its collectives).  Each call is a
+    ``train.step`` span (``step=`` the call's number), the host draws its
+    child ``train.prepare`` (``utils/profiling.py``)."""
     graphed = GraphedStep(train_step.body, state, mesh=train_step.mesh)
-    return lambda *args, **kw: graphed(train_step.prepare(state, *args, **kw))
+    calls = itertools.count()
+
+    def step(*args, **kw):
+        with span("train.step", "step", next(calls)):
+            with span("train.prepare"):
+                inputs = train_step.prepare(state, *args, **kw)
+            return graphed(inputs)
+
+    return step
 
 
 def eval_route(eval_step, state, sharded: bool | None = None) -> Callable:
@@ -235,7 +250,7 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
     test_size, sharded = _test_sharding(
         min(len(test_set), int(cfg.get("test_size", batch_size))), batch_multiple)
     best_top10, best_metrics = -1.0, {}
-    timer = StepTimer()
+    timer = StepTimer({"data.gather": "gather", "train.step": "step"})
     packed = isinstance(train_set, PackedDataset)
     dev = state.step.device
     host_resident = bool(getattr(train_set, "host_resident", False))
@@ -255,31 +270,31 @@ def fit(cfg, train_set, test_set, state, train_step: Callable,
 
         def gathered_batches(epoch=epoch, idx_epoch=idx_epoch):
             for step_i, idx in enumerate(idx_epoch):
-                with timer.phase("gather"):
-                    if packed:
-                        batch = train_set.gather(idx)[:4 if with_labels else 3]
-                        if shard_fn is not None:
-                            batch = shard_fn(batch)
-                    else:
-                        batch = train_set.gather(
-                            idx, generator=derived_generator(
-                                seed, epoch, _GATHER, step_i))
+                if packed:
+                    batch = train_set.gather(idx)[:4 if with_labels else 3]
+                    if shard_fn is not None:
+                        batch = shard_fn(batch)
+                else:
+                    batch = train_set.gather(
+                        idx, generator=derived_generator(
+                            seed, epoch, _GATHER, step_i))
                 yield batch
 
-        if prefetch_n > 0:
-            batch_iter = prefetch_to_device(gathered_batches(),
-                                            size=prefetch_n, device=dev)
-        elif host_resident:
-            batch_iter = (to_device(b, dev) for b in gathered_batches())
-        else:
-            batch_iter = gathered_batches()
-
         train_hist = []
-        with profile_trace(profile_dir if epoch == profile_epoch else None):
-            for batch in batch_iter:
-                with timer.phase("step"):
-                    metrics = step(*batch)
-                train_hist.append(metrics)
+        # the gathers (also on the prefetch's thread) and the steps are
+        # timed by their spans
+        with timer:
+            if prefetch_n > 0:
+                batch_iter = prefetch_to_device(gathered_batches(),
+                                                size=prefetch_n, device=dev)
+            elif host_resident:
+                batch_iter = (to_device(b, dev) for b in gathered_batches())
+            else:
+                batch_iter = gathered_batches()
+            with profile_trace(profile_dir if epoch == profile_epoch
+                               else None):
+                for batch in batch_iter:
+                    train_hist.append(step(*batch))
 
         tm = _mean_metrics(train_hist)
         best_top10, best_metrics = _end_epoch(

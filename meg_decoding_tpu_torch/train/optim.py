@@ -24,6 +24,8 @@ from typing import Callable
 
 import torch
 
+from meg_decoding_tpu_torch.utils.profiling import scope
+
 __all__ = ["AdamState", "Adam", "global_norm"]
 
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults, the JAX trainer's
@@ -61,7 +63,12 @@ class Adam:
                grads: dict[str, torch.Tensor | None], state: AdamState,
                ok: torch.Tensor) -> None:
         """One Adam step, in place, where ``ok``; a gradient of None counts
-        as zeros (a parameter the loss does not reach)."""
+        as zeros (a parameter the loss does not reach).  The scope ``adam``
+        of a captured body (``utils/profiling.py``)."""
+        with scope("adam"):
+            self._update(params, grads, state, ok)
+
+    def _update(self, params, grads, state: AdamState, ok) -> None:
         neg_lr = -self.schedule(state.count)
         count_inc = state.count + 1
         c1 = 1 - B1 ** count_inc.to(torch.float32)

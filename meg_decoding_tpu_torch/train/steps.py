@@ -76,6 +76,7 @@ from meg_decoding_tpu_torch.ops.scaling import (
 )
 from meg_decoding_tpu_torch.train.optim import Adam, global_norm
 from meg_decoding_tpu_torch.train.state import TrainState
+from meg_decoding_tpu_torch.utils.profiling import scope
 
 __all__ = ["LossConfig", "CollateConfig", "TrainStep", "EvalStep",
            "draw_dropout", "make_train_step", "make_eval_step"]
@@ -249,7 +250,7 @@ def make_train_step(model, optimizer: Adam, loss_cfg: LossConfig,
              collate_stats=None, draws=None) -> dict:
         model.train()
         if collate_cfg.enabled:
-            with torch.no_grad():
+            with torch.no_grad(), scope("collate"):
                 if collate_stats is not None:
                     C = X.shape[1]
                     X = collate_preprocess_cached(
@@ -262,13 +263,15 @@ def make_train_step(model, optimizer: Adam, loss_cfg: LossConfig,
                                            collate_cfg.clamp)
         Z = model(X, subject_idxs, **(draws or {}))
         temp = state.temp if loss_cfg.temp_trainable else state.temp.detach()
-        loss, sim, smet = _compute_loss(loss_cfg, Z, Y, labels, temp, model,
-                                        gallery, gallery_self_sim, train=True,
-                                        mesh=mesh)
+        with scope("loss"):
+            loss, sim, smet = _compute_loss(loss_cfg, Z, Y, labels, temp,
+                                            model, gallery, gallery_self_sim,
+                                            train=True, mesh=mesh)
         params = state.params()
         names = [k for k, p in params.items() if p.requires_grad]
-        grads = dict(zip(names, torch.autograd.grad(
-            loss, [params[k] for k in names], allow_unused=True)))
+        with scope("backward"):
+            grads = dict(zip(names, torch.autograd.grad(
+                loss, [params[k] for k in names], allow_unused=True)))
         if mesh is not None:
             # every rank's gradient of its share, summed in one collective;
             # a parameter the loss does not reach has a zero gradient
@@ -350,14 +353,18 @@ def make_eval_step(model, loss_cfg: LossConfig, collate_cfg: CollateConfig,
     def body(X, Y, subject_idxs, temp, labels=None, sharded: bool = True):
         model.eval()
         if collate_cfg.enabled:
-            X = collate_preprocess(X, collate_cfg.baseline_len_samp,
-                                   collate_cfg.clamp_lim, collate_cfg.clamp)
+            with scope("collate"):
+                X = collate_preprocess(X, collate_cfg.baseline_len_samp,
+                                       collate_cfg.clamp_lim,
+                                       collate_cfg.clamp)
         Z = model(X, subject_idxs)
         if mesh is not None and sharded:
             Z, Y = mesh.all_gather(Z), mesh.all_gather(Y)
             labels = None if labels is None else mesh.all_gather(labels)
-        loss, sim, _ = _compute_loss(loss_cfg, Z, Y, labels, temp, model,
-                                     gallery, gallery_self_sim, train=False)
+        with scope("loss"):
+            loss, sim, _ = _compute_loss(loss_cfg, Z, Y, labels, temp, model,
+                                         gallery, gallery_self_sim,
+                                         train=False)
         metrics = {"loss": loss, "temp": temp}
         metrics.update(_accuracy(sim, Z, Y, top_ks))
         return metrics, Z
