@@ -20,10 +20,10 @@ export CLI, the reference-checkpoint import and the host-spill training
 path, with random weights from ``--seed``.
 Phases, each printed as one JSON line:
 
-1. build    — compile the three CUDA sources of
+1. build    — compile the four CUDA sources of
               ``meg_decoding_tpu_torch/csrc`` (window_gather,
-              robust_quantiles, batchnorm_stats; one nvcc per source, in
-              parallel);
+              robust_quantiles, batchnorm_stats, gelu_erf_poly; one nvcc
+              per source, in parallel);
 2. device   — the card's name and power limit, as nvidia-smi reports them;
     bench    — (after ``brennan_kernels``) ``bench_torch.py --scale small
               --steps 5 --windows 2 --big-batches ''`` in a fresh process:
@@ -50,6 +50,18 @@ Phases, each printed as one JSON line:
               (``bn_bwd_stats``) are timed beside it.  ``bn_stats`` names
               its route (per_channel, cluster) in each row, and runs
               each route on a grid of shapes (``bn_stats_routes``);
+    gelu     — (after ``kernels``) the erf_poly GELU's forward and
+              backward kernels against the plain op chain: bf16 at the
+              exact-GELU step's three shapes ((256, 320, 360),
+              (256, 640, 360), (256, 1024, 360)) and f32 at (64, 320, 360),
+              timed like phase 3 against their byte bound, the chain and
+              ``F.gelu`` (exact erf) and its backward, then a numel no
+              16-byte packet divides, Seq2Static's (64, 512, 1), a base off
+              16-byte alignment (each within 1 bf16 ulp, or f32 rtol 2e-6 /
+              atol 1e-6, NaNs where the chain has them) and a
+              non-contiguous input (refused); ``--phase gelu`` adds a
+              captured ``configs/throughput_exact.yaml`` step at full
+              width, whose replays must launch each kernel 12 times;
 4. serving  — a synthetic 27-subject cache, 4 requests of 64 raw windows
               through ``serving/forward.py`` (Z checked finite, of shape
               (64, 1024, 360), and against the same model on the CPU), then
@@ -96,7 +108,9 @@ Phases, each printed as one JSON line:
               timed, one batch's cached vs inline collate (≤ 2 ulp), the
               first step's loss cached vs inline (≤ 1e-5), a few fused
               steps, then the train CLI for one epoch of 4 updates with
-              each preset (exact launch counts);
+              each preset (exact launch counts; the erf_poly GELU's
+              kernels 12 times a step each way and 12 times a test pool
+              forward, never under tanh GELU);
     scan_epochs — in the speech and in the GOD part: one epoch of 4
               updates of the whole-epoch form against the per-step path on
               the same draws, in turns, cuDNN deterministic (mean loss and
@@ -358,7 +372,8 @@ of the repository beside it, it exits non-zero and prints no result.
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``;
 ``--phase graphs`` (or ``serve_graphs``) runs the build, the speech cache,
 that phase's speech paths, the GOD data and its GOD paths, and stops;
-``--phase bench`` runs the build and the ``bench`` phase.
+``--phase bench`` runs the build and the ``bench`` phase; ``--phase gelu``
+the build, the ``gelu`` phase and a captured exact-GELU step.
 """
 
 from __future__ import annotations
@@ -376,6 +391,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as tnf
 
 from meg_decoding_tpu_torch.cli import (
     evaluate_god,
@@ -411,6 +427,7 @@ from meg_decoding_tpu_torch.parallel.dp import (
 )
 from meg_decoding_tpu_torch.ops.kernels import batchnorm as bk
 from meg_decoding_tpu_torch.ops.kernels import build
+from meg_decoding_tpu_torch.ops.kernels import gelu as gk
 from meg_decoding_tpu_torch.ops.kernels import quantile as qk
 from meg_decoding_tpu_torch.ops.kernels import window_gather as wg
 from meg_decoding_tpu_torch.ops.resample import resample_fft, resample_len
@@ -462,6 +479,11 @@ PRESETS = ("throughput", "throughput_exact")  # configs/*.yaml, as published
 PRESET_UPDATES, PRESET_STEPS = 4, 6
 SCAN_UPDATES = 4
 EEGNET_BN = 3              # bn1, bn2, bn3
+# the speech step's GELU sites by shape at B = 256 (configs/
+# throughput_exact.yaml): 2 in each of 5 ConvBlocks, the two final ones
+GELU_SITES = {(256, 320, 360): 10, (256, 640, 360): 1, (256, 1024, 360): 1}
+GELU_PER_STEP = sum(GELU_SITES.values())
+GELU_STEPS = 3
 # the run_ms in µs that PERF.md §6 records for the kernels these replaced
 # (one CTA per channel for bn_stats, the first bn_bwd_dx; NVIDIA H100 80GB
 # HBM3, 700 W), printed beside this run's
@@ -1035,6 +1057,183 @@ def phase_bn_kernels(flush) -> dict:
     return out
 
 
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in bf16 ulps; positions where both are NaN count 0."""
+    def ordered(x):
+        k = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(k < 0, -(k & 0x7FFF), k)
+    d = (ordered(a) - ordered(b)).abs()
+    d = torch.where(torch.isnan(a) & torch.isnan(b), torch.zeros_like(d), d)
+    return int(d.max())
+
+
+def gelu_inputs(shape, dtype, gen, offset: int = 0):
+    """(x, g) of ``shape`` on the card, ``offset`` elements past an
+    allocation's start: x ~ 2·N(0, 1), which reaches all four intervals of
+    erf_poly (|x|/√2 past 1, 2.2 and 3.92), its first values NaN, ±inf, ±0
+    and the intervals' edges."""
+    n = math.prod(shape) + offset
+    x = torch.randn(n, device="cuda", generator=gen) * 2
+    g = torch.randn(n, device="cuda", generator=gen)
+    edges = [u / gk._SQRT_HALF for u in (1.0, gk._B1, gk._UMAX)]
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0,
+                            -0.0, *edges, *(-e for e in edges)], device="cuda")
+    k = min(special.numel(), n - offset)
+    x[offset:offset + k] = special[:k]
+    x, g = x.to(dtype)[offset:], g.to(dtype)[offset:]
+    return x.view(shape), g.view(shape)
+
+
+def gelu_check(x: torch.Tensor, g: torch.Tensor) -> dict:
+    """Both GELU kernels on (x, g) against the plain chain: NaNs where the
+    chain has them; bf16 equal or 1 ulp apart, f32 within rtol 2e-6 / atol
+    1e-6 (the kernels' fmaf Horner steps are the one difference before the
+    rounding).  Returns the worst error of each."""
+    out = {}
+    for name, got, want in (
+            ("fwd", gk.gelu_fwd(x), gk.gelu_fwd_plain(x)),
+            ("bwd", gk.gelu_bwd(x, g), gk.gelu_bwd_plain(x, g))):
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        if not torch.equal(torch.isnan(got), nan):
+            raise AssertionError(f"gelu {name} {tuple(x.shape)} {x.dtype}: "
+                                 "NaNs differ from the plain chain's")
+        a, b = got[~nan].float(), want[~nan].float()
+        diff = torch.where(a == b, torch.zeros_like(a), (a - b).abs())
+        row = {"max_abs_err": float(diff.max()),
+               "equal_share": float((a == b).float().mean())}
+        if x.dtype == torch.bfloat16:
+            row["max_ulp"] = bf16_ulps(got, want)
+            ok = row["max_ulp"] <= 1
+        else:
+            ok = bool((diff <= 1e-6 + 2e-6 * b.abs()).all())
+        if not ok:
+            raise AssertionError(f"gelu {name} {tuple(x.shape)} {x.dtype}: "
+                                 f"kernel vs plain chain {row}")
+        out[name] = row
+    return out
+
+
+def gelu_times(x: torch.Tensor, g: torch.Tensor, flush) -> dict:
+    """Each kernel's single launch and run time against its byte bound (x
+    read and y written; x and g read and dx written), the plain chain and
+    the library's exact-erf GELU (``F.gelu`` and its backward)."""
+    es = x.element_size()
+    nb = {"fwd": 2 * x.numel() * es, "bwd": 3 * x.numel() * es}
+    xs = copies(x, nb["bwd"])
+    gs = [g] + [g.clone() for _ in xs[1:]]
+    calls = {"fwd": (lambda: gk.gelu_fwd(x), lambda: gk.gelu_fwd_plain(x),
+                     lambda: tnf.gelu(x),
+                     [lambda a=a: gk.gelu_fwd(a) for a in xs]),
+             "bwd": (lambda: gk.gelu_bwd(x, g), lambda: gk.gelu_bwd_plain(x, g),
+                     lambda: torch.ops.aten.gelu_backward(g, x),
+                     [lambda a=a, b=b: gk.gelu_bwd(a, b) for a, b in zip(xs, gs)])}
+    out = {}
+    for name, (kernel, plain, library, run) in calls.items():
+        out[name] = {"kernel_ms": time_ms(kernel, flush), "run_ms": run_ms(run),
+                     "plain_ms": time_ms(plain, flush),
+                     "library_ms": time_ms(library, flush), "bytes": nb[name],
+                     "bound_ms": nb[name] / HBM_BYTES_PER_S * 1e3}
+    del xs, gs
+    return out
+
+
+def phase_gelu(flush) -> dict:
+    """The erf_poly GELU's kernels against the plain chain and timed at the
+    exact-GELU step's shapes (bf16) and the f32 step's, checked at a numel
+    no packet divides, Seq2Static's final GELUs and a base off 16-byte
+    alignment; a non-contiguous input is refused.  Returns the timed rows
+    and the per-step sums over ``GELU_SITES``."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows = {}
+    for shape, dtype in ((*((s, torch.bfloat16) for s in GELU_SITES),
+                          ((64, 320, 360), torch.float32))):
+        x, g = gelu_inputs(shape, dtype, gen)
+        checks, times = gelu_check(x, g), gelu_times(x, g, flush)
+        row = {"shape": list(shape), "dtype": str(dtype),
+               **{k: {**checks[k], **times[k]} for k in checks}}
+        emit({"phase": "gelu", **row})
+        rows[(shape, str(dtype))] = row
+        del x, g
+    checked = []
+    for shape, dtype, offset in (((1_000_003,), torch.float32, 0),
+                                 ((3, 7, 1001), torch.bfloat16, 0),
+                                 ((64, 512, 1), torch.bfloat16, 0),
+                                 ((64, 512, 1), torch.float32, 0),
+                                 ((256, 320, 360), torch.bfloat16, 1),
+                                 ((64, 320, 360), torch.float32, 3)):
+        x, g = gelu_inputs(shape, dtype, gen, offset)
+        checked.append({"shape": list(shape), "dtype": str(dtype),
+                        "offset": offset, **gelu_check(x, g)})
+    x, g = gelu_inputs((8, 16, 40), torch.bfloat16, gen)
+    for call in (lambda: gk.gelu_fwd(x.transpose(1, 2)),
+                 lambda: gk.gelu_bwd(x, g.transpose(1, 2).contiguous()
+                                     .transpose(1, 2))):
+        try:
+            call()
+        except ValueError as e:
+            if "contiguous" not in str(e):
+                raise
+        else:
+            raise AssertionError("gelu: a non-contiguous input was taken")
+    bf16 = [(rows[(s, str(torch.bfloat16))], n) for s, n in GELU_SITES.items()]
+    per_step = {name: {k: sum(r[name][k] * n for r, n in bf16)
+                       for k in ("kernel_ms", "run_ms", "plain_ms",
+                                 "library_ms", "bound_ms")}
+                for name in ("fwd", "bwd")}
+    emit({"phase": "gelu", "off_path": checked, "non_contiguous": "refused",
+          "per_step": per_step,
+          "per_step_run_ms": sum(v["run_ms"] for v in per_step.values()),
+          "per_step_bound_ms": sum(v["bound_ms"] for v in per_step.values())})
+    return {"rows": rows, "per_step": per_step}
+
+
+def phase_gelu_step(work: str, seed: int) -> dict:
+    """``configs/throughput_exact.yaml`` at full width (bf16, B = 256, the
+    cached collate statistics, erf_poly GELU): the fused step through
+    ``train_route``, as ``fit`` runs it, for ``GELU_STEPS`` replays of its
+    graph, each of which must launch each GELU kernel ``GELU_PER_STEP``
+    times and no step run eagerly."""
+    cfg, ds, tr_idx = full_width_speech(
+        work, seed, [f"save_root={os.path.join(work, 'exact')}"],
+        config_name="throughput_exact")
+    dev = torch.device("cuda")
+    B = int(cfg.batch_size)
+    collate = evaluate_speech.collate_config(cfg)
+    table = compute_collate_stats(ds, collate.baseline_len_samp,
+                                  chunk=SWEEP_CHUNK)
+    model = get_model(cfg, ch_locations_2d(cfg), device=dev, seed=seed,
+                      num_channels=int(ds.recordings.shape[2]))
+    opt = make_optimizer(cfg, GELU_STEPS)
+    state = create_train_state(model, opt, float(cfg.init_temperature), seed)
+    fused = make_fused_speech_step(model, opt, train_speech.loss_config(cfg),
+                                   collate, ds, collate_stats=table)
+    route = loop.train_route(fused, state)
+    pool = evaluate_speech.SpeechPool(ds, tr_idx, seed=seed)
+    rng = np.random.RandomState(seed + 5)
+    reset_all_launches()
+    losses = []
+    for i in range(GELU_STEPS):
+        m = route(pool.segment_ids(rng.randint(0, len(pool), B)),
+                  generator=torch.Generator().manual_seed(seed * 1000 + i))
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    want = {"gelu_fwd": GELU_PER_STEP * GELU_STEPS,
+            "gelu_bwd": GELU_PER_STEP * GELU_STEPS}
+    counts = graph_counts()
+    if dict(gk.launches) != want or counts["train_replays"] != GELU_STEPS:
+        raise AssertionError(f"exact step: gelu launches {gk.launches}, "
+                             f"graphs {counts}; expected {want} from "
+                             f"{GELU_STEPS} replays")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"exact step losses {losses}")
+    out = {"compute_dtype": str(cfg.compute_dtype), "batch_size": B,
+           "gelu": str(cfg.get("gelu_impl")), "replays": GELU_STEPS,
+           "launches": dict(gk.launches), "graphs": counts, "losses": losses}
+    emit({"phase": "gelu_step", **out})
+    return out
+
+
 def phase_serving(cfg, ds, tr_idx, seed) -> dict:
     """The main path: requests through the serving forward, then the eval
     CLI over the test pools.  Returns the launch counts of the run."""
@@ -1095,6 +1294,7 @@ def reset_all_launches() -> None:
     wg.reset_launches()
     qk.reset_launches()
     bk.reset_launches()
+    gk.reset_launches()
     tg.reset_counts()
 
 
@@ -1524,7 +1724,7 @@ def phase_presets(cfg, ds, tr_idx, seed, work, flush) -> dict:
     loc = ch_locations_2d(cfg)
     out = {"sweep_s": sweep_s, "chunk_gather": chunk_gather,
            "chunk_quantiles": chunk_quant, "b256_gather": b256,
-           "b256_bn": bn256, "launches": {}}
+           "b256_bn": bn256, "launches": {}, "gelu_launches": {}}
     for preset in PRESETS:
         pcfg = compose(CONFIGS_DIR, preset, [
             f"cache_dir={cfg.cache_dir}", f"seed={seed}", "epochs=1",
@@ -1610,6 +1810,15 @@ def phase_presets(cfg, ds, tr_idx, seed, work, flush) -> dict:
         if launches != expected:
             raise AssertionError(f"{preset} CLI launches {launches}, "
                                  f"expected {expected}")
+        # erf_poly GELU: its kernels at each site of every update's replay
+        # and of every test pool's forward
+        sites = GELU_PER_STEP if pcfg.get("gelu_impl") == "erf_poly" else 0
+        want_gelu = {"gelu_fwd": sites * (PRESET_UPDATES + pools),
+                     "gelu_bwd": sites * PRESET_UPDATES}
+        if gk.launches != want_gelu:
+            raise AssertionError(f"{preset} CLI GELU launches {gk.launches}, "
+                                 f"expected {want_gelu}")
+        out["gelu_launches"][preset] = dict(gk.launches)
         replays = graph_replays(f"{preset} CLI", PRESET_UPDATES, pools)
         if best.get("train_skipped") != 0.0 or not math.isfinite(best["train_loss"]):
             raise AssertionError(f"{preset} CLI: {best}")
@@ -1633,6 +1842,7 @@ def phase_presets(cfg, ds, tr_idx, seed, work, flush) -> dict:
               "first_step_ms": step_ms[0], "step_ms": step_ms,
               "steady_step_ms": float(np.median(step_ms[1:])), "losses": losses,
               "train_cli_s": run_s, "test_pools": pools, "launches": launches,
+              "gelu_launches": out["gelu_launches"][preset],
               "graph": replays,
               "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
                                                  "test_loss", "test_top10")}})
@@ -5213,7 +5423,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
         "--phase", choices=("all", "brennan_kernels", "graphs", "serve_graphs",
-                            "spill_dp", "bench"),
+                            "spill_dp", "bench", "gelu"),
         default="all",
         help="brennan_kernels: build, then only that phase at Brennan's "
              "row length; copied into another checkout's root, it times that "
@@ -5223,7 +5433,8 @@ def main(argv=None) -> int:
              "the speech cache, unfused_step, spill_speech, data_parallel "
              "(speech), the GOD data, god_training, spill_god, "
              "data_parallel (GOD); bench: build, then only bench_torch.py "
-             "at the small scale")
+             "at the small scale; gelu: build, the GELU kernels, then a "
+             "captured full-width throughput_exact step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -5244,6 +5455,19 @@ def main(argv=None) -> int:
     if args.phase == "bench":
         phase_bench(smi)
         lap("bench")
+        emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
+        return 0
+    if args.phase == "gelu":
+        flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+        phase_gelu(flush)
+        del flush
+        lap("gelu")
+        work = os.path.join(ROOT, "runs_out", f"chip_smoke_{os.getpid()}")
+        try:
+            phase_gelu_step(work, args.seed)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        lap("gelu_step")
         emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
         return 0
     if args.phase in ("graphs", "serve_graphs"):
@@ -5320,6 +5544,7 @@ def main(argv=None) -> int:
         measured = phase_kernels(ds, flush)
         bn_all = phase_bn_kernels(flush)
         bn = bn_all[str(torch.float32)]
+        gelu = phase_gelu(flush)
         del flush
         lap("kernels")
         serving = phase_serving(cfg, ds, tr_idx, args.seed)
@@ -5649,6 +5874,19 @@ def main(argv=None) -> int:
              "bf16": {k: dp_speech["split"][str(torch.bfloat16)][k] for k in dx_keys},
              "god bf16": {k: dp_god["split"][str(torch.bfloat16)][k]
                           for k in dx_keys}}},
+        # the erf_poly GELU, forward and backward: no Pallas kernel, XLA
+        # fused the JAX package's jnp chain; per exact-GELU step (B = 256,
+        # bf16) and by shape
+        {"name": "gelu_erf_poly", "route": "cuda",
+         "source": "meg_decoding_tpu_torch/csrc/gelu_erf_poly.cu",
+         "replaces": "none (XLA fused meg_decoding_tpu/ops/gelu.py:95-137)",
+         "launches_by_path": {f"preset_{k}": v for k, v in
+                              presets["gelu_launches"].items()},
+         "per_step": gelu["per_step"], "bound_by": "bytes",
+         "by_shape": {f"{tuple(r['shape'])} {r['dtype']}": {
+             k: {m: r[k][m] for m in ("kernel_ms", "run_ms", "plain_ms",
+                                      "library_ms", "bound_ms", "max_abs_err")}
+             for k in ("fwd", "bwd")} for r in gelu["rows"].values()}},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

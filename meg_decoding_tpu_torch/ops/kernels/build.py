@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels from ``csrc/`` and load them with ctypes.
 
-The sources are ``window_gather.cu``, ``robust_quantiles.cu`` and
-``batchnorm_stats.cu`` (``bn_stats``, ``bn_bwd_stats`` and ``bn_bwd``).  Each
+The sources are ``window_gather.cu``, ``robust_quantiles.cu``,
+``batchnorm_stats.cu`` (``bn_stats``, ``bn_bwd_stats`` and ``bn_bwd``) and
+``gelu_erf_poly.cu`` (the erf_poly GELU's forward and backward).  Each
 ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``meg_decoding_tpu_torch/_build/`` (ignored by git).  The library's file
@@ -30,7 +31,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-KERNELS = ("window_gather", "robust_quantiles", "batchnorm_stats")
+KERNELS = ("window_gather", "robust_quantiles", "batchnorm_stats",
+           "gelu_erf_poly")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

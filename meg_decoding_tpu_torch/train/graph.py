@@ -97,6 +97,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from meg_decoding_tpu_torch.device import resolve_device
 from meg_decoding_tpu_torch.ops.kernels import (
     batchnorm,
+    gelu,
     quantile,
     window_gather,
 )
@@ -119,7 +120,8 @@ captures = dict.fromkeys(KINDS, 0)
 _COUNTERS = ((window_gather, "launches"), (quantile, "launches"),
              (quantile, "long_launches"), (batchnorm, "launches"),
              (batchnorm, "stats_route_launches"),
-             (batchnorm, "sums_only_launches"), (batchnorm, "dx_launches"))
+             (batchnorm, "sums_only_launches"), (batchnorm, "dx_launches"),
+             (gelu, "launches"))
 
 
 def reset_counts() -> None:
