@@ -204,9 +204,12 @@ Phases, each printed as one JSON line:
               random weights: every hidden state of a 3 s clip card against
               CPU (max|Δ| ≤ 1e-4·max|ref|), a 2-layer copy's chunked,
               masked last-4 average over 45 s card against CPU (same
-              bound), then the full model over 742 s of 16 kHz audio (the
-              last-4 average (1024, T′) and the conv features (512, T′):
-              seconds, frames/s, peak memory);
+              bound), the full model's over 45 s through its chunk graph
+              bit-identical to the same chunks run eagerly (cuDNN
+              deterministic), then the full model over 742 s of 16 kHz
+              audio (the last-4 average (1024, T′), one chunk-graph replay
+              a chunk, and the conv features (512, T′): seconds, frames/s,
+              peak memory);
     clip_features — CLIP ViT-B/32 with seeded random weights:
               ``preprocess_images`` and ``encode_images`` over 1,250
               images of 375 × 500 (GOD's 1,200 train and 50 test), timed;
@@ -373,7 +376,8 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``;
 ``--phase graphs`` (or ``serve_graphs``) runs the build, the speech cache,
 that phase's speech paths, the GOD data and its GOD paths, and stops;
 ``--phase bench`` runs the build and the ``bench`` phase; ``--phase gelu``
-the build, the ``gelu`` phase and a captured exact-GELU step.
+the build, the ``gelu`` phase and a captured exact-GELU step; ``--phase
+w2v`` the build and the ``w2v_features`` phase.
 """
 
 from __future__ import annotations
@@ -3208,10 +3212,14 @@ def phase_w2v_features(seed: int) -> dict:
     """wav2vec2-large-xlsr-53 with seeded random weights: every hidden
     state of one 3 s clip on the card against the same weights on the CPU,
     a 2-layer copy's chunked, masked last-4 average over 45 s against the
-    CPU, then the full model over 742 s of 16 kHz audio (Brennan's
-    length): the last-4 average and the conv features, timed."""
+    CPU, the full model's last-4 average over the 45 s clip through its
+    chunk graph against the same chunks run eagerly (bit for bit, cuDNN
+    deterministic), then the full model over 742 s of 16 kHz audio
+    (Brennan's length): the last-4 average (its chunks counted as the
+    chunk graph's replays) and the conv features, timed."""
     from meg_decoding_tpu_torch.features import wav2vec
     from meg_decoding_tpu_torch.features.wav2vec2_model import Wav2Vec2Model
+    from meg_decoding_tpu_torch.train import graph
 
     def cpu_copy(model):
         cpu = Wav2Vec2Model(model.config)
@@ -3249,23 +3257,48 @@ def phase_w2v_features(seed: int) -> dict:
                              f"{tuple(got.shape)}")
     del shallow, got, want
 
+    # graph vs eager: a fresh capture under deterministic cuDNN, dropped
+    # afterwards so that the timed run below captures at the defaults
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    chunk_forward = wav2vec.chunk_forward
+    try:
+        wav2vec._graphs.pop(model, None)
+        replays = graph.replays["forward"]
+        graphed = wav2vec.embed_last4_avg(model, long_clip)
+        graph_chunks = graph.replays["forward"] - replays
+        body = wav2vec.chunk_forward(model).body
+        wav2vec.chunk_forward = lambda m: (lambda inputs: body(**inputs))
+        eager = wav2vec.embed_last4_avg(model, long_clip)
+    finally:
+        wav2vec.chunk_forward = chunk_forward
+        torch.backends.cudnn.deterministic = prev
+        wav2vec._graphs.pop(model, None)
+    if graph_chunks != 3 or not torch.equal(graphed, eager):
+        raise AssertionError(f"wav2vec2 chunk graph vs eager over "
+                             f"{W2V_CHUNKED_SEC} s: {graph_chunks} replays, "
+                             f"max |Δ| {float((graphed - eager).abs().max())}")
+    del graphed, eager
+    wav2vec.embed_last4_avg(model, long_clip)  # the timed run's capture
+
     wav = audio(W2V_LONG_SEC)
-    chunks = []  # the samples of each forward the last-4 average runs
-    forward = model.forward
-    model.forward = lambda x, *a, **k: (chunks.append(x.shape[-1]),
-                                        forward(x, *a, **k))[1]
+    # embed_last4_avg's defaults: 20 s chunks, 1 s (50 frames) of overlap
+    chunk = 20 * 16000 // model.config.stride * model.config.stride
+    n_chunks = len(wav2vec._chunk_plan(model.config, wav.numel(), chunk, 50))
     out = {}
     for name, fn in (("last4", wav2vec.embed_last4_avg),
                      ("features", wav2vec.embed_features)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        replays = graph.replays["forward"]
         t0 = time.perf_counter()
         emb = fn(model, wav)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
+        chunks = graph.replays["forward"] - replays
         if not bool(torch.isfinite(emb).all()):
             raise AssertionError(f"wav2vec2 {name} over {W2V_LONG_SEC} s: not finite")
-        flops = (sum(w2v_flops(model.config, n) for n in chunks) if name == "last4"
+        flops = (chunks * w2v_flops(model.config, chunk) if name == "last4"
                  else w2v_flops(model.config, wav.numel(), layers=False))
         bound_s = flops / F32_FLOP_PER_S
         out[name] = {"shape": list(emb.shape), "seconds": sec,
@@ -3276,8 +3309,12 @@ def phase_w2v_features(seed: int) -> dict:
                      "bound_by": "operations (f32, TF32 off)",
                      "share_of_bound": bound_s / sec}
         del emb
-    out["last4"]["chunks"] = len(chunks)
-    model.forward = forward
+        if name == "last4":
+            if chunks != n_chunks:
+                raise AssertionError(f"wav2vec2 last4 over {W2V_LONG_SEC} s: "
+                                     f"{chunks} chunk-graph replays, "
+                                     f"{n_chunks} chunks")
+            out[name]["chunks"] = chunks
     frames = int(model.config.num_frames(wav.numel()))
     if out["last4"]["shape"] != [1024, frames] or out["features"]["shape"] != [512, frames]:
         raise AssertionError(f"wav2vec2 shapes {out}")
@@ -3289,7 +3326,10 @@ def phase_w2v_features(seed: int) -> dict:
            "chunked": {"layers": 2, "sec": W2V_CHUNKED_SEC,
                        "frames": n_chunked, "max_rel_err": chunked_err,
                        "cpu_s": cpu_chunked_s},
-           "rel_err_limit": FEATURE_RTOL, "long_sec": W2V_LONG_SEC,
+           "rel_err_limit": FEATURE_RTOL,
+           "graph_vs_eager": {"sec": W2V_CHUNKED_SEC, "chunks": graph_chunks,
+                              "bit_identical": True},
+           "long_sec": W2V_LONG_SEC,
            "frames": frames, **out}
     emit(row)
     return row
@@ -5423,7 +5463,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
         "--phase", choices=("all", "brennan_kernels", "graphs", "serve_graphs",
-                            "spill_dp", "bench", "gelu"),
+                            "spill_dp", "bench", "gelu", "w2v"),
         default="all",
         help="brennan_kernels: build, then only that phase at Brennan's "
              "row length; copied into another checkout's root, it times that "
@@ -5434,7 +5474,8 @@ def main(argv=None) -> int:
              "(speech), the GOD data, god_training, spill_god, "
              "data_parallel (GOD); bench: build, then only bench_torch.py "
              "at the small scale; gelu: build, the GELU kernels, then a "
-             "captured full-width throughput_exact step")
+             "captured full-width throughput_exact step; w2v: build, then "
+             "only w2v_features")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -5455,6 +5496,11 @@ def main(argv=None) -> int:
     if args.phase == "bench":
         phase_bench(smi)
         lap("bench")
+        emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
+        return 0
+    if args.phase == "w2v":
+        phase_w2v_features(args.seed)
+        lap("w2v_features")
         emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
         return 0
     if args.phase == "gelu":

@@ -30,6 +30,14 @@ Masks (a sample mask ``attention_mask`` (B, T)): the conv stack sees the
 zero-padded waveform unmasked; the mask becomes a frame mask through the
 conv output lengths; padded frames are set to 0 before the positional
 conv, and padded keys get ``finfo(f32).min`` in every attention.
+
+Scopes of a captured forward (``utils/profiling.py``; ``features/
+wav2vec.py`` graphs the chunk forward): ``w2v_conv`` the conv stack and
+the feature projection, ``w2v_pos_conv`` the positional conv (its
+weight-norm kernel and the grouped conv), ``attention`` the q/k/v/out
+projections, scores, mask bias and softmax, ``ffn`` the feed-forward
+block; every GELU is in ``gelu`` (``ops/gelu.py``), the innermost.  The
+encoder's LayerNorms and residual adds are outside every scope.
 """
 
 from __future__ import annotations
@@ -41,6 +49,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from meg_decoding_tpu_torch.ops.gelu import gelu
+from meg_decoding_tpu_torch.utils.profiling import scope
+
 __all__ = ["Wav2Vec2Config", "Wav2Vec2Model", "XLSR53"]
 
 
@@ -48,9 +59,10 @@ def _quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
-# transformers' names: wav2vec2's exact erf GELU, CLIP's quick GELU
+# transformers' names: wav2vec2's exact erf GELU (``ops/gelu.py``'s
+# ``erf``, in its scope), CLIP's quick GELU
 ACTIVATIONS = {
-    "gelu": lambda x: F.gelu(x, approximate="none"),
+    "gelu": lambda x: gelu(x, "erf"),
     "quick_gelu": _quick_gelu,
 }
 
@@ -148,10 +160,11 @@ class FeatureEncoder(nn.Module):
     def forward(self, input_values: torch.Tensor) -> torch.Tensor:
         """Waveforms (B, T) → conv features (B, T', C), time-major as in
         Flax."""
-        x = input_values[:, None, :]
-        for layer in self.conv_layers:
-            x = layer(x)
-        return x.transpose(1, 2)
+        with scope("w2v_conv"):
+            x = input_values[:, None, :]
+            for layer in self.conv_layers:
+                x = layer(x)
+            return x.transpose(1, 2)
 
 
 class FeatureProjection(nn.Module):
@@ -161,7 +174,8 @@ class FeatureProjection(nn.Module):
         self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.projection(self.layer_norm(x))
+        with scope("w2v_conv"):
+            return self.projection(self.layer_norm(x))
 
 
 class ConvWithWeightNorm(nn.Module):
@@ -196,10 +210,11 @@ class PositionalConvEmbedding(nn.Module):
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         """(B, T, H) → (B, T, H)."""
-        x = self.conv(h.transpose(1, 2))
-        if self.num_pad_remove:
-            x = x[..., :-self.num_pad_remove]
-        return self.act(x).transpose(1, 2)
+        with scope("w2v_pos_conv"):
+            x = self.conv(h.transpose(1, 2))
+            if self.num_pad_remove:
+                x = x[..., :-self.num_pad_remove]
+            return self.act(x).transpose(1, 2)
 
 
 class Attention(nn.Module):
@@ -222,14 +237,15 @@ class Attention(nn.Module):
         """(B, T, W) → (B, T, W); ``bias`` broadcasts to (B, heads, T, T).
         As flax's ``dot_product_attention_weights``: the query is divided
         by √d before the product, the bias added, softmax over keys."""
-        q = self._split(self.q_proj(x)) / math.sqrt(self.head_dim)
-        k, v = self._split(self.k_proj(x)), self._split(self.v_proj(x))
-        scores = q @ k.transpose(-1, -2)
-        if bias is not None:
-            scores = scores + bias
-        out = torch.softmax(scores, dim=-1) @ v
-        B, _, T, _ = out.shape
-        return self.out_proj(out.transpose(1, 2).reshape(B, T, -1))
+        with scope("attention"):
+            q = self._split(self.q_proj(x)) / math.sqrt(self.head_dim)
+            k, v = self._split(self.k_proj(x)), self._split(self.v_proj(x))
+            scores = q @ k.transpose(-1, -2)
+            if bias is not None:
+                scores = scores + bias
+            out = torch.softmax(scores, dim=-1) @ v
+            B, _, T, _ = out.shape
+            return self.out_proj(out.transpose(1, 2).reshape(B, T, -1))
 
 
 class FeedForward(nn.Module):
@@ -240,7 +256,8 @@ class FeedForward(nn.Module):
         self.act = ACTIVATIONS[cfg.hidden_act]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.output_dense(self.act(self.intermediate_dense(x)))
+        with scope("ffn"):
+            return self.output_dense(self.act(self.intermediate_dense(x)))
 
 
 class EncoderLayerStableLayerNorm(nn.Module):

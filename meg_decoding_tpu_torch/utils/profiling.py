@@ -41,6 +41,10 @@ extended.
   ``graph.copy_out``   the copies of the outputs
   ``serve.request``    one ``serving/export.py:make_serving_forward`` call
                        (``request=``)
+  ``w2v.embed``        one ``features/wav2vec.py:embed_last4_avg`` call
+                       (``request=``)
+  ``w2v.chunk``        one chunk's host work there: its buffer and mask,
+                       the graph's call, the slice it keeps (``chunk=``)
   ==================== =====================================================
 
 * ``StepTimer`` — host wall-clock time per phase, each phase the spans of
@@ -49,7 +53,8 @@ extended.
   is asynchronous: a phase's time is the host's time to enqueue it,
   unless the span ends in a wait.
 * ``scope(name)`` — marks a part of a body captured as a CUDA graph
-  (``SCOPES``).  Scopes nest; the innermost open scope owns the graph
+  (``SCOPES``: the brain encoder's train and eval steps, then wav2vec2's
+  chunk forward, ``features/wav2vec2_model.py``).  Scopes nest; the innermost open scope owns the graph
   nodes its stretch adds.  While ``capture_table`` records, each scope
   boundary reads how many nodes the graph under capture holds (the CUDA
   driver's ``cuStreamGetCaptureInfo`` and ``cuGraphGetNodes``, which are
@@ -84,7 +89,8 @@ __all__ = ["profile_trace", "span", "StepTimer", "batch_ids", "SCOPES",
            "scope", "CaptureTable", "capture_table", "tables"]
 
 SCOPES = ("collate", "gelu", "batchnorm", "loss", "backward", "adam",
-          "bn_commit")
+          "bn_commit", "w2v_conv", "w2v_pos_conv", "attention", "ffn",
+          "last4")
 
 # the ids of the train sets' gathers (``data.gather``'s ``batch=``)
 batch_ids = itertools.count()
