@@ -50,6 +50,16 @@ Phases, each printed as one JSON line:
               (``bn_bwd_stats``) are timed beside it.  ``bn_stats`` names
               its route (per_channel, cluster) in each row, and runs
               each route on a grid of shapes (``bn_stats_routes``);
+    bn_time_major — (after ``kernels``) the BN kernels' time-major route
+              (bf16 activations (B, T, C)) against the plain versions at
+              the bf16 presets' (256, 360, 320) and the f32 step's
+              (64, 360, 320) and at shapes off them, each result
+              bit-identical across two launches and across replays of a
+              captured graph, timed against the byte bound and beside the
+              NCW kernels on the same values; ``--phase bn_time_major``
+              adds a traced full-width ``configs/throughput.yaml`` step:
+              10 time-major launches of each kernel a replay, and cuDNN's
+              layout transposes and PyTorch's copies counted;
     gelu     — (after ``kernels``) the erf_poly GELU's forward and
               backward kernels against the plain op chain: bf16 at the
               exact-GELU step's three shapes ((256, 320, 360),
@@ -377,7 +387,8 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``;
 that phase's speech paths, the GOD data and its GOD paths, and stops;
 ``--phase bench`` runs the build and the ``bench`` phase; ``--phase gelu``
 the build, the ``gelu`` phase and a captured exact-GELU step; ``--phase
-w2v`` the build and the ``w2v_features`` phase.
+w2v`` the build and the ``w2v_features`` phase; ``--phase bn_time_major``
+the build, that phase and its traced throughput step.
 """
 
 from __future__ import annotations
@@ -989,7 +1000,8 @@ def bn_stats_routes() -> dict:
     cases += [(Cc, T, dt, 1) for Cc in (16, D2) for T in (24, 528)
               for dt in dtypes]
     cases += [(D2, 360, dt, 0) for dt in dtypes]
-    picks, worst = {}, dict.fromkeys(bk.STATS_ROUTES, 0.0)
+    ncw_routes = tuple(r for r in bk.STATS_ROUTES if r != "time_major")
+    picks, worst = {}, dict.fromkeys(ncw_routes, 0.0)
     for Cc, T, dtype, offset in cases:
         x, _ = bn_inputs(gen, BATCH, Cc, T, dtype, offset)
         what = f"{BATCH}x{Cc}x{T} {dtype}" + (" base+1" if offset else "")
@@ -997,7 +1009,7 @@ def bn_stats_routes() -> dict:
         want = bk.bn_stats_plain(x)
         tol = (1e-5 * xf.abs().sum((0, 2)), 1e-5 * (xf * xf).sum((0, 2)))
         got = {}
-        for route in bk.STATS_ROUTES:
+        for route in ncw_routes:
             a, b = bk._bn_stats_route(x, route), bk._bn_stats_route(x, route)
             torch.cuda.synchronize()
             for k in range(2):
@@ -1058,6 +1070,252 @@ def phase_bn_kernels(flush) -> dict:
             (6, 3, 1001, torch.float32, 0, False),
             (4 * BATCH, 24, 360, torch.float32, 0, True)):
         bn_check(*bn_inputs(gen, B, Cc, T, dtype, offset), cotangents=cot)
+    return out
+
+
+# the time-major BN route's shapes (B, T, C): the bf16 presets' and the f32
+# speech step's, then off the main paths: C not a multiple of a 16-byte
+# load, one channel, a group wider than 128 channels, fewer rows than one
+# pass of a CTA, B = 65, T = 37, and bases one element past 16 bytes
+TM_MAIN = (((4 * BATCH, 360, D2), torch.bfloat16),
+           ((BATCH, 360, D2), torch.float32))
+TM_OFF = (((BATCH, 360, 21), torch.bfloat16, 0, False),
+          ((3, 37, D2), torch.float32, 0, True),
+          ((3, 37, D2), torch.bfloat16, 0, True),
+          ((BATCH, 360, 1), torch.float32, 0, False),
+          ((2, 5, 1024), torch.bfloat16, 0, False),
+          ((1, 3, 7), torch.float32, 0, True),
+          ((BATCH + 1, 360, 24), torch.bfloat16, 0, False),
+          ((BATCH, 24, D2), torch.float32, 1, True),
+          ((BATCH, 24, D2), torch.bfloat16, 1, False),
+          ((4 * BATCH, 48, D2), torch.bfloat16, 0, True))
+# cuDNN's layout transposes, by kernel name
+LAYOUT_TRANSPOSE = re.compile(r"nchwToNhwc|nhwcToNchw")
+TM_STEPS = 3  # replays of the throughput step under the profiler
+
+
+def bn_tm_check(x: torch.Tensor, g: torch.Tensor, cotangents: bool = False) -> dict:
+    """The time-major BN kernels on (x, g) (B, T, C) against their plain
+    versions as ``bn_check`` holds the NCW ones: each launched twice and
+    the two bit-identical; the sums within 1e-5 of Σ|term| per channel;
+    bn_bwd's dx within ``bn_bwd_check``'s bound (on the NCW views of the
+    same tensors); ``bn_bwd_dx`` from bn_bwd's sums its dx bit for bit;
+    the routes counted.  Returns the largest absolute errors."""
+    what = f"time-major {tuple(x.shape)} {x.dtype}"
+    C = x.shape[2]
+    M = x.numel() // C
+    before = (bk.stats_route_launches["time_major"],
+              bk.bwd_route_launches["time_major"])
+    s, ss = bk.bn_stats(x, time_major=True)
+    mean = s / M
+    invstd = torch.rsqrt(ss / M - mean * mean + 1e-5)
+    gen = torch.Generator(device="cuda").manual_seed(C)
+    scale = torch.rand(C, device="cuda", generator=gen) + 0.5
+    cots = ((torch.randn(C, device="cuda", generator=gen),
+             torch.randn(C, device="cuda", generator=gen))
+            if cotangents else (None, None))
+    got = {"sum_x": s, "sum_x2": ss}
+    got["sum_g"], got["sum_gxhat"] = bk.bn_bwd_stats(g, x, mean, invstd, True)
+    again = dict(zip(("sum_x", "sum_x2"), bk.bn_stats(x, True)))
+    again.update(zip(("sum_g", "sum_gxhat"),
+                     bk.bn_bwd_stats(g, x, mean, invstd, True)))
+    bwd = [bk.bn_bwd(g, x, scale, mean, invstd, *cots, time_major=True)
+           for _ in range(2)]
+    want = dict(zip(("sum_x", "sum_x2"), bk.bn_stats_plain(x, True)))
+    want.update(zip(("sum_g", "sum_gxhat"),
+                    bk.bn_bwd_stats_plain(g, x, mean, invstd, True)))
+    xf, gf = x.float(), g.float()
+    xhat = (xf - mean) * invstd
+    scale_ = {"sum_x": xf.abs().sum((0, 1)), "sum_x2": (xf * xf).sum((0, 1)),
+              "sum_g": gf.abs().sum((0, 1)),
+              "sum_gxhat": (gf * xhat).abs().sum((0, 1))}
+    torch.cuda.synchronize()
+    err = {}
+    for k in got:
+        if not torch.equal(got[k], again[k]):
+            raise AssertionError(f"{what}: {k} differs between two launches")
+        d = (got[k] - want[k]).abs()
+        if not bool((d <= 1e-5 * scale_[k]).all()):
+            raise AssertionError(f"{what}: {k} off by "
+                                 f"{float((d / scale_[k]).max())} of Σ|term|")
+        err[k] = float(d.max())
+    bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    (dx, sg, sgx), (dx2, sg2, sgx2) = bwd
+    if not (torch.equal(dx.view(bits), dx2.view(bits)) and torch.equal(sg, sg2)
+            and torch.equal(sgx, sgx2)):
+        raise AssertionError(f"bn_bwd {what}: two launches differ")
+    split = bk.bn_bwd_dx(g, x, scale, mean, invstd, torch.stack([sg, sgx]), M,
+                         *cots, time_major=True)
+    if not torch.equal(split.view(bits), dx.view(bits)):
+        raise AssertionError(f"bn_bwd_dx {what}: not the fused bn_bwd's dx")
+    pdx, psg, psgx = bk.bn_bwd_plain(g, x, scale, mean, invstd, *cots,
+                                     time_major=True)
+    ncw = lambda t: t.transpose(1, 2)  # noqa: E731
+    for k, v in bn_bwd_check(ncw(g), ncw(x), scale, mean, invstd,
+                             (ncw(dx), sg, sgx), (ncw(pdx), psg, psgx),
+                             f"bn_bwd {what}").items():
+        err[f"bn_bwd_{k}"] = v
+    after = (bk.stats_route_launches["time_major"],
+             bk.bwd_route_launches["time_major"])
+    if (after[0] - before[0], after[1] - before[1]) != (2, 4):
+        raise AssertionError(f"{what}: time-major launches {before} -> {after}")
+    return err
+
+
+def bn_tm_rows(x: torch.Tensor, g: torch.Tensor, flush) -> dict:
+    """The time-major kernels at a main path's (x, g) (B, T, C): checked
+    (``bn_tm_check``, with and without the cotangents), then timed as
+    ``bn_rows`` times the NCW ones, beside the NCW kernels on the same
+    values laid NCW (``ncw_run_ms``), and inside a captured CUDA graph,
+    whose replays must give the eager launch's bits."""
+    err = bn_tm_check(x, g)
+    err.update({f"cot_{k}": v for k, v in bn_tm_check(x, g, True).items()})
+    B, T, C = x.shape
+    n, esize = x.numel(), x.element_size()
+    mean = torch.zeros(C, device="cuda")
+    invstd = torch.ones(C, device="cuda")
+    scale = torch.ones(C, device="cuda")
+    xs, gs = copies(x, n * esize), copies(g, n * esize)
+    xn, gn = (t.transpose(1, 2).contiguous() for t in (x, g))
+    xns, gns = copies(xn, n * esize), copies(gn, n * esize)
+    vecs = [scale, mean, invstd, None, None]
+    dx = torch.empty_like(x)
+    stats = lambda x: bk._launch_stats_tm(x)  # noqa: E731
+    bwd = lambda g, x: bk._launch_bwd(g, x, vecs, dx, True)  # noqa: E731
+    plan = stats(x)[2]
+    row = {"shape": [B, T, C], "dtype": str(x.dtype), "M": n // C,
+           "plan": list(plan), "bwd_plan": list(bwd(g, x)[1]),
+           "max_abs_err": err,
+           "stats": {"kernel_ms": time_ms(lambda: stats(x), flush),
+                     "run_ms": run_ms([lambda x=x: stats(x) for x in xs]),
+                     "host_us": host_us(lambda: bk.bn_stats(x, True)),
+                     "ncw_run_ms": run_ms([lambda x=x: bk.bn_stats(x)
+                                           for x in xns]),
+                     "bound_ms": bound(n * esize + 2 * C * 4, 3 * n)[0]},
+           "bwd": {"kernel_ms": time_ms(lambda: bwd(g, x), flush),
+                   "run_ms": run_ms([lambda g=g, x=x: bwd(g, x)
+                                     for g, x in zip(gs, xs)]),
+                   "ncw_run_ms": run_ms([lambda g=g, x=x: bk.bn_bwd(
+                       g, x, scale, mean, invstd) for g, x in zip(gns, xns)]),
+                   "sums_only_run_ms": run_ms([lambda g=g, x=x: bk.bn_bwd_stats(
+                       g, x, mean, invstd, True) for g, x in zip(gs, xs)]),
+                   "dx_run_ms": run_ms([lambda g=g, x=x: bk.bn_bwd_dx(
+                       g, x, scale, mean, invstd,
+                       torch.zeros(2, C, device="cuda"), n // C,
+                       time_major=True) for g, x in zip(gs, xs)]),
+                   "bound_ms": bound(3 * n * esize + 5 * C * 4, 12 * n)[0]},
+           "graph_replays_bit_identical": bn_tm_graph(x, g)}
+    emit({"phase": "bn_time_major", **row})
+    return row
+
+
+def bn_tm_graph(x: torch.Tensor, g: torch.Tensor) -> bool:
+    """The cooperative time-major launches captured in a CUDA graph (as a
+    train step captures them) and replayed twice: each replay's sums and dx
+    must equal an eager launch's bit for bit; raises where they differ."""
+    C = x.shape[2]
+    gen = torch.Generator(device="cuda").manual_seed(C + 1)
+    scale = torch.rand(C, device="cuda", generator=gen) + 0.5
+    mean, invstd = (t.contiguous() for t in torch.randn(2, C, device="cuda",
+                                                        generator=gen).abs())
+    want = (bk.bn_stats(x, True), bk.bn_bwd(g, x, scale, mean, invstd,
+                                            time_major=True))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            bk.bn_stats(x, True)
+            bk.bn_bwd(g, x, scale, mean, invstd, time_major=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = (bk.bn_stats(x, True), bk.bn_bwd(g, x, scale, mean, invstd,
+                                               time_major=True))
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        flat = lambda r: [t for part in r for t in part]  # noqa: E731
+        for a, b in zip(flat(got), flat(want)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"time-major {tuple(x.shape)} {x.dtype}: "
+                                     "a graph replay differs from the eager "
+                                     "launch")
+    return True
+
+
+def phase_bn_time_major(flush) -> dict:
+    """The time-major BN route (``bn_tm_rows``) at the bf16 presets' and
+    the f32 speech step's shapes, then checked off them (``TM_OFF``)."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    rows = {}
+    for (B, T, Cc), dtype in TM_MAIN:
+        x, g = bn_inputs(gen, B, T, Cc, dtype)
+        rows[str(dtype)] = bn_tm_rows(x, g, flush)
+        del x, g
+    for (B, T, Cc), dtype, offset, cot in TM_OFF:
+        bn_tm_check(*bn_inputs(gen, B, T, Cc, dtype, offset), cotangents=cot)
+    emit({"phase": "bn_time_major", "off_path": len(TM_OFF)})
+    return rows
+
+
+def phase_bn_time_major_step(work: str, seed: int, smi: str) -> dict:
+    """``configs/throughput.yaml`` at full width (bf16, B = 256): the fused
+    step's graph replayed ``TM_STEPS`` times under torch.profiler.  Each
+    replay must launch 10 time-major ``bn_stats`` and ``bn_bwd`` and no NCW
+    BN kernel; cuDNN's layout transposes are counted with their longest
+    single time (an activation of the step is 59 MB: ~18 µs at the byte
+    bound), and PyTorch's copies (``direct_copy``) timed."""
+    from meg_decoding_tpu_torch.cli.profile_train_step import speech_step
+
+    cfg, routes = speech_step(work, seed, [], config_name="throughput")
+    one = routes["graph"]
+    for i in range(3):
+        one(i)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(TM_STEPS):
+            one(3 + i)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    tr = [e.time_range.end - e.time_range.start for e in kernels
+          if LAYOUT_TRANSPOSE.search(e.name)]
+    copies_us = sum(e.time_range.end - e.time_range.start for e in kernels
+                    if "direct_copy" in e.name)
+    want_stats = {**dict.fromkeys(bk.STATS_ROUTES, 0),
+                  "time_major": BN_PER_STEP * TM_STEPS}
+    want_bwd = {**dict.fromkeys(bk.BWD_ROUTES, 0),
+                "time_major": BN_PER_STEP * TM_STEPS}
+    if (dict(bk.stats_route_launches) != want_stats
+            or dict(bk.bwd_route_launches) != want_bwd):
+        raise AssertionError(f"throughput step: BN routes "
+                             f"{bk.stats_route_launches} / "
+                             f"{bk.bwd_route_launches}, expected {want_stats} "
+                             f"/ {want_bwd}")
+    names = {}
+    for e in kernels:
+        if LAYOUT_TRANSPOSE.search(e.name) or re.search(
+                r"conv|xmma|wgrad|dgrad|fprop|bn_", e.name):
+            row = names.setdefault(e.name[:120], [0, 0.0])
+            row[0] += 1
+            row[1] += e.time_range.end - e.time_range.start
+    out = {"device": smi, "config": "throughput",
+           "compute_dtype": str(cfg.compute_dtype), "steps": TM_STEPS,
+           "device_ops_per_step": len(kernels) / TM_STEPS,
+           "layout_transposes_per_step": len(tr) / TM_STEPS,
+           "layout_transpose_us_per_step": sum(tr) / TM_STEPS,
+           "layout_transpose_longest_us": max(tr, default=0.0),
+           "copy_us_per_step": copies_us / TM_STEPS,
+           "stats_routes": dict(bk.stats_route_launches),
+           "bwd_routes": dict(bk.bwd_route_launches),
+           "conv_and_bn_kernels": {k: {"calls_per_step": c / TM_STEPS,
+                                       "us_per_step": us / TM_STEPS}
+                                   for k, (c, us) in sorted(
+                                       names.items(), key=lambda kv: -kv[1][1])}}
+    emit({"phase": "bn_time_major_step", **out})
     return out
 
 
@@ -5463,7 +5721,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
         "--phase", choices=("all", "brennan_kernels", "graphs", "serve_graphs",
-                            "spill_dp", "bench", "gelu", "w2v"),
+                            "spill_dp", "bench", "gelu", "w2v",
+                            "bn_time_major"),
         default="all",
         help="brennan_kernels: build, then only that phase at Brennan's "
              "row length; copied into another checkout's root, it times that "
@@ -5475,7 +5734,8 @@ def main(argv=None) -> int:
              "data_parallel (GOD); bench: build, then only bench_torch.py "
              "at the small scale; gelu: build, the GELU kernels, then a "
              "captured full-width throughput_exact step; w2v: build, then "
-             "only w2v_features")
+             "only w2v_features; bn_time_major: build, the time-major BN "
+             "route, then a traced full-width throughput step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -5501,6 +5761,19 @@ def main(argv=None) -> int:
     if args.phase == "w2v":
         phase_w2v_features(args.seed)
         lap("w2v_features")
+        emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
+        return 0
+    if args.phase == "bn_time_major":
+        flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+        phase_bn_time_major(flush)
+        del flush
+        lap("bn_time_major")
+        work = os.path.join(ROOT, "runs_out", f"chip_smoke_{os.getpid()}")
+        try:
+            phase_bn_time_major_step(work, args.seed, smi)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        lap("bn_time_major_step")
         emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
         return 0
     if args.phase == "gelu":
@@ -5590,6 +5863,7 @@ def main(argv=None) -> int:
         measured = phase_kernels(ds, flush)
         bn_all = phase_bn_kernels(flush)
         bn = bn_all[str(torch.float32)]
+        phase_bn_time_major(flush)
         gelu = phase_gelu(flush)
         del flush
         lap("kernels")

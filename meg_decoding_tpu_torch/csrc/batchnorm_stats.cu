@@ -1,5 +1,7 @@
-// Training-mode BatchNorm for Hopper (sm_90a), on the port's NCW layout
-// (channel = dim 1):
+// Training-mode BatchNorm for Hopper (sm_90a), on either of the port's two
+// layouts: NCW (B, C, T), channel = dim 1 (the f32 encoder's activations),
+// and time-major (B, T, C), channel last (the bf16 encoder's; the
+// *_tm_launch entries, "the time-major route" below):
 //
 //   bn_stats:     x (B, C, T)                   -> out (2, C) f32 = [Σx, Σx²]
 //   bn_bwd_stats: g, x (B, C, T); mean, invstd (C,) f32
@@ -100,6 +102,16 @@
 // kernel for f32 (45-49 us), unrolled, persistent or with an evict-last
 // policy on its first walk; and bf16 in registers (26-30 us).
 //
+// The time-major route (bf16 activations (B, T, C), models/layers.py): a
+// channel is a column, C values apart, so no CTA can own one as on NCW.
+// Each kernel is one cooperative launch: CTAs over chunks of whole rows,
+// their partial sums through a workspace, a grid barrier and fixed-order
+// sums (details at the route's code).  At (256·360, 320) bf16 on an
+// NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, run_ms; PERF.md):
+// bn_stats 29.5 us (bound 17.6), bn_bwd 120.9 us (bound 52.8) against the
+// NCW kernels' 23.4 and 102.9 on the same values laid NCW; a cluster of
+// CTAs per group of channels was slower (30 and 148 us).
+//
 // bn_bwd_dx is elementwise and streams: it reads g and x and writes dx
 // once, 88.5 MB at the training shape in f32 -> 26.4 us bound (bytes), like
 // bn_bwd, which the split route (sums, all-reduce, dx) replaces under a
@@ -157,6 +169,16 @@ constexpr int kMaxGridY = 65535;
 __host__ __device__ constexpr int dx_loads(int V) {
   return V == 1 ? 4 : kDxElems / V;
 }
+
+// The time-major route: threads a CTA (two on an SM: at most 64 registers
+// a thread), the loads of each input a thread keeps in flight in
+// bn_stats' walk, in bn_bwd's sums and in the dx walks, and the segments
+// the chunks' partial sums are first added in.
+constexpr int kTmThreads = 512;
+constexpr int kTmUnroll = 4;
+constexpr int kTmBwdUnroll = 2;
+constexpr int kTmDxUnroll = 2;
+constexpr int kTmSegs = 16;
 
 namespace cg = cooperative_groups;
 
@@ -836,7 +858,6 @@ bool shape_ok(int B, int C, int T) {
   return B >= 1 && C >= 1 && T >= 1 && (int64_t)B * T <= INT_MAX;
 }
 
-
 template <typename E>
 cudaError_t launch_l2(const E* g, const E* x, E* dx, const BwdArgs& p,
                       cudaStream_t s) {
@@ -858,12 +879,15 @@ cudaError_t launch_reg(const float* g, const float* x, float* dx,
   return cudaGetLastError();
 }
 
+// bn_bwd's kernels, as its launcher reports them.
+enum BwdRoute { kRegisters = 0, kTwoWalk = 1 };
+
 // f32 with dx: the register kernel when rows are 16-byte aligned and a
 // thread's share of a channel fits kBwdMaxSlots slots; else, and for bf16
 // and for the sums alone, the two-walk kernel.
 template <typename E>
 cudaError_t launch_bwd(const E* g, const E* x, E* dx, const BwdArgs& p,
-                       cudaStream_t s) {
+                       int* taken, cudaStream_t s) {
   constexpr int V = Vec<E>::n;
   if constexpr (std::is_same_v<E, float>) {
     const bool aligned = p.T % V == 0 && aligned16(g) && aligned16(x) &&
@@ -871,17 +895,453 @@ cudaError_t launch_bwd(const E* g, const E* x, E* dx, const BwdArgs& p,
     const int64_t need =
         ((int64_t)p.B * (p.T / V) + kBwdThreads - 1) / kBwdThreads;
     if (dx != nullptr && aligned && need <= kBwdMaxSlots) {
+      if (taken != nullptr) *taken = kRegisters;
       return launch_reg(g, x, dx, p, s);
     }
   }
+  if (taken != nullptr) *taken = kTwoWalk;
   return launch_l2<E>(g, x, dx, p, s);
 }
 
 template <typename E>
 cudaError_t bwd(const void* g, const void* x, void* dx, const BwdArgs& p,
-                cudaStream_t s) {
+                int* taken, cudaStream_t s) {
   return launch_bwd<E>(static_cast<const E*>(g), static_cast<const E*>(x),
-                       static_cast<E*>(dx), p, s);
+                       static_cast<E*>(dx), p, taken, s);
+}
+
+// --- the time-major route ----------------------------------------------------
+//
+// x, g and dx (M, C): M = B·T rows of C contiguous channels, the bf16
+// encoder's layout.  CTA (chunk, tile) of a grid (chunks, tiles) takes the
+// rows [chunk·len, (chunk + 1)·len) of the tile's w loads of a row (all C / V
+// of them where they fit a CTA: one tile up to kTmThreads channels), so that
+// it reads one contiguous span; thread t takes the tile's load t % w of rows
+// t / w, + R, … (R = kTmThreads / w rows a pass; the kTmThreads % w threads
+// past R·w rest).  Each CTA adds its threads' sums over its rows in order
+// (shared memory) and writes them to a workspace.  The launch is
+// cooperative, every CTA resident at once: after a grid barrier, each
+// value's kTmSegs segment sums (each over its segment's chunks, in order);
+// after a second, the totals (over the segments, in order).  No atomics, so
+// two launches give the same bits.
+//
+// Measured on an H100 at (256·360, 320) bf16 (PERF.md): a cluster of up to
+// 16 CTAs a group of channels, rows split over the cluster and its sums
+// added through distributed shared memory, has to give each CTA a stripe of
+// 32-64 bytes a row to reach the SMs, and read at two thirds of the rate of
+// whole rows (bn_bwd 148 us against 102 for the NCW two-walk kernel).
+
+// Rows [first, end) of one thread, R apart: j-th at first + j·R.
+__device__ __forceinline__ int64_t tm_rows(int64_t first, int64_t end, int R) {
+  return first < end ? (end - first + R - 1) / R : 0;
+}
+
+// A thread's share: its load of a row, its first row and its count.
+struct TmThread {
+  int load;
+  bool active;
+  int64_t first, n;
+};
+
+__device__ __forceinline__ TmThread tm_thread(int64_t M, int C, int V, int w,
+                                              int len) {
+  const int R = kTmThreads / w, row = threadIdx.x / w;
+  TmThread t;
+  t.load = blockIdx.y * w + (int)threadIdx.x % w;
+  t.active = row < R && t.load * V < C;
+  t.first = (int64_t)blockIdx.x * len + row;
+  const int64_t last = (int64_t)(blockIdx.x + 1) * len;
+  t.n = t.active ? tm_rows(t.first, last < M ? last : M, R) : 0;
+  return t;
+}
+
+// Each thread's V pairs summed over the CTA's R rows of each load, in
+// order (through sh: 2·kTmThreads·V floats), and slot t's pair (slot = the
+// load's place in the tile·V + value) written to the chunk's row of the
+// partial sums, part (chunks, 2, C).
+template <int V>
+__device__ __forceinline__ void tm_partial(const float (&a)[V],
+                                           const float (&b)[V], float* sh,
+                                           int w, int C, float* part) {
+  const int R = kTmThreads / w, col = threadIdx.x % w, row = threadIdx.x / w;
+  const int n = w * V;
+  if (row < R) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      sh[row * n + col * V + e] = a[e];
+      sh[kTmThreads * V + row * n + col * V + e] = b[e];
+    }
+  }
+  __syncthreads();
+  const int t = threadIdx.x, c = blockIdx.y * n + t;
+  if (t < n && c < C) {
+    float sa = 0.f, sb = 0.f;
+    for (int q = 0; q < R; ++q) {
+      sa += sh[q * n + t];
+      sb += sh[kTmThreads * V + q * n + t];
+    }
+    float* dst = part + (int64_t)blockIdx.x * 2 * C;
+    dst[c] = sa;
+    dst[C + c] = sb;
+  }
+}
+
+// After a grid barrier: segs (kTmSegs, 2·C), each value's sum over segment
+// s's chunks in order, one value a thread of the grid.
+__device__ __forceinline__ void tm_segments(const float* part, float* segs,
+                                            int C) {
+  const int chunks = gridDim.x, per = (chunks + kTmSegs - 1) / kTmSegs;
+  const int64_t n = (int64_t)kTmSegs * 2 * C;
+  const int64_t stride = (int64_t)gridDim.x * gridDim.y * kTmThreads;
+  for (int64_t i = ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * kTmThreads +
+                   threadIdx.x;
+       i < n; i += stride) {
+    const int s = (int)(i / (2 * C)), v = (int)(i - (int64_t)s * 2 * C);
+    const int q1 = (s + 1) * per < chunks ? (s + 1) * per : chunks;
+    float a = 0.f;
+    for (int q = s * per; q < q1; ++q) a += part[(int64_t)q * 2 * C + v];
+    segs[i] = a;
+  }
+}
+
+// Value v of the (2, C) totals: the segments' sums in order.
+__device__ __forceinline__ float tm_total(const float* segs, int C, int v) {
+  float a = 0.f;
+  for (int s = 0; s < kTmSegs; ++s) a += segs[(int64_t)s * 2 * C + v];
+  return a;
+}
+
+template <typename E, int V>
+__global__ void __launch_bounds__(kTmThreads, 2)
+    bn_stats_tm_kernel(const E* __restrict__ x, float* out, float* part,
+                       float* segs, int M, int C, int w, int len) {
+  __shared__ float sh[2 * kTmThreads * V];
+  cg::grid_group grid = cg::this_grid();
+  const int R = kTmThreads / w;
+  const TmThread th = tm_thread(M, C, V, w, len);
+  const E* xc = x + (int64_t)th.load * V;
+  float s[V], ss[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) s[e] = ss[e] = 0.f;
+  for (int64_t j = 0; j < th.n; j += kTmUnroll) {
+    typename Raw<E, V>::type raw[kTmUnroll];
+#pragma unroll
+    for (int u = 0; u < kTmUnroll; ++u) {
+      if (j + u < th.n) raw[u] = ldraw<V>(xc + (th.first + (j + u) * R) * C);
+    }
+#pragma unroll
+    for (int u = 0; u < kTmUnroll; ++u) {
+      if (j + u < th.n) {
+        float v[V];
+        unpack(raw[u], v);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          s[e] += v[e];
+          ss[e] = fmaf(v[e], v[e], ss[e]);
+        }
+      }
+    }
+  }
+  tm_partial<V>(s, ss, sh, w, C, part);
+  grid.sync();
+  tm_segments(part, segs, C);
+  grid.sync();
+  const int64_t stride = (int64_t)gridDim.x * gridDim.y * kTmThreads;
+  for (int64_t i = ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * kTmThreads +
+                   threadIdx.x;
+       i < 2 * C; i += stride) {
+    out[i] = tm_total(segs, C, (int)i);
+  }
+}
+
+// The per-channel constants of dx by slot, in shared memory (read where
+// used, so that two CTAs of kTmThreads fit an SM's registers): mean,
+// invstd, scale·invstd, Σg/M, Σg·x̂/M, gmean/M, 2·gvar.
+struct TmCoef {
+  float f[7][kTmThreads];
+
+  __device__ __forceinline__ void put(int t, const DxCoef& k) {
+    f[0][t] = k.mu;
+    f[1][t] = k.is;
+    f[2][t] = k.a;
+    f[3][t] = k.k1;
+    f[4][t] = k.k2;
+    f[5][t] = k.gm;
+    f[6][t] = k.gv2;
+  }
+
+  __device__ __forceinline__ DxCoef get(int t, const BwdArgs& p) const {
+    return DxCoef{f[0][t], f[1][t], f[2][t], f[3][t], f[4][t], f[5][t],
+                  f[6][t], p.M, p.gmean != nullptr, p.gvar != nullptr};
+  }
+};
+
+// dx over a thread's rows, last first (the lines the sums read last are
+// then read first, from the L2) or, REV false, first first; g and x read
+// and dx written streaming (evict first).
+template <bool REV, typename E, int V>
+__device__ __forceinline__ void tm_dx_walk(const E* gc, const E* xc, E* dc,
+                                           const TmThread& th, int R, int C,
+                                           const TmCoef& kc, int slot,
+                                           const BwdArgs& p) {
+  for (int64_t jj = 0; jj < th.n; jj += kTmDxUnroll) {
+    typename Raw<E, V>::type rg[kTmDxUnroll], rx[kTmDxUnroll];
+#pragma unroll
+    for (int u = 0; u < kTmDxUnroll; ++u) {
+      if (jj + u < th.n) {
+        const int64_t j = REV ? th.n - 1 - (jj + u) : jj + u;
+        const int64_t o = (th.first + j * R) * C;
+        rg[u] = ldraw<V, true>(gc + o);
+        rx[u] = ldraw<V, true>(xc + o);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kTmDxUnroll; ++u) {
+      if (jj + u < th.n) {
+        const int64_t j = REV ? th.n - 1 - (jj + u) : jj + u;
+        float gv[V], xv[V], d[V];
+        unpack(rg[u], gv);
+        unpack(rx[u], xv);
+#pragma unroll
+        for (int e = 0; e < V; ++e) d[e] = dx_of(gv[e], xv[e], kc.get(slot + e, p));
+        storev<V, true>(dc + (th.first + j * R) * C, d);
+      }
+    }
+  }
+}
+
+// bn_bwd on the time-major route: the sums (Σg, Σg·x̂) as bn_stats_tm_kernel
+// takes them, each CTA adding its tile's totals from the segments itself
+// (the same sums in the same order in every CTA; the first chunk's CTAs
+// write them), then dx over its rows.  dx == null: the sums only.
+template <typename E, int V>
+__global__ void __launch_bounds__(kTmThreads, 2)
+    bn_bwd_tm_kernel(const E* __restrict__ g, const E* __restrict__ x,
+                     E* __restrict__ dx, float* part, float* segs, BwdArgs p,
+                     int w, int len) {
+  __shared__ float sh[2 * kTmThreads * V];
+  __shared__ TmCoef kc;
+  cg::grid_group grid = cg::this_grid();
+  const int C = p.C, R = kTmThreads / w;
+  const TmThread th = tm_thread(p.B, C, V, w, len);
+  const int c0 = th.load * V, slot = ((int)threadIdx.x % w) * V;
+  const int t = threadIdx.x, c = blockIdx.y * w * V + t;
+  const E* gc = g + c0;
+  const E* xc = x + c0;
+  // mean and invstd by slot, read from shared memory where used (registers
+  // for them spilled)
+  if (t < w * V && c < C) {
+    kc.f[0][t] = p.mean[c];
+    kc.f[1][t] = p.invstd[c];
+  }
+  __syncthreads();
+  float sg[V], sgx[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) sg[e] = sgx[e] = 0.f;
+  for (int64_t j = 0; j < th.n; j += kTmBwdUnroll) {
+    typename Raw<E, V>::type rg[kTmBwdUnroll], rx[kTmBwdUnroll];
+#pragma unroll
+    for (int u = 0; u < kTmBwdUnroll; ++u) {
+      if (j + u < th.n) {
+        const int64_t o = (th.first + (j + u) * R) * C;
+        rg[u] = ldraw<V>(gc + o);
+        rx[u] = ldraw<V>(xc + o);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kTmBwdUnroll; ++u) {
+      if (j + u < th.n) {
+        float gv[V], xv[V];
+        unpack(rg[u], gv);
+        unpack(rx[u], xv);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          sg[e] += gv[e];
+          sgx[e] = fmaf(gv[e], (xv[e] - kc.f[0][slot + e]) * kc.f[1][slot + e],
+                        sgx[e]);
+        }
+      }
+    }
+  }
+  tm_partial<V>(sg, sgx, sh, w, C, part);
+  grid.sync();
+  tm_segments(part, segs, C);
+  grid.sync();
+  if (t < w * V && c < C) {
+    const float a = tm_total(segs, C, c), b = tm_total(segs, C, C + c);
+    if (blockIdx.x == 0) {
+      p.out[c] = a;
+      p.out[C + c] = b;
+    }
+    if (dx != nullptr) kc.put(t, dx_coef(p, c, a, b));
+  }
+  if (dx == nullptr) return;
+  __syncthreads();
+  tm_dx_walk<true, E, V>(gc, xc, dx + c0, th, R, C, kc, slot, p);
+}
+
+// bn_bwd_dx on the time-major route: the constants from the given sums,
+// then dx over the CTA's rows, first first.  Not cooperative: the grid may
+// exceed the resident CTAs.
+template <typename E, int V>
+__global__ void __launch_bounds__(kTmThreads, 2)
+    bn_bwd_dx_tm_kernel(const E* __restrict__ g, const E* __restrict__ x,
+                        E* __restrict__ dx, const float* __restrict__ sums,
+                        BwdArgs p, int w, int len) {
+  __shared__ TmCoef kc;
+  const int C = p.C;
+  const TmThread th = tm_thread(p.B, C, V, w, len);
+  const int t = threadIdx.x, c = blockIdx.y * w * V + t;
+  if (t < w * V && c < C) kc.put(t, dx_coef(p, c, sums[c], sums[C + c]));
+  __syncthreads();
+  const int c0 = th.load * V;
+  tm_dx_walk<false, E, V>(g + c0, x + c0, dx + c0, th, kTmThreads / w, C, kc,
+                          ((int)threadIdx.x % w) * V, p);
+}
+
+// The time-major route's shape: V values a load (1 where C·V or a base is
+// not 16-byte aligned), w loads of a row a tile, `tiles` tiles of the row's
+// C / V loads, `chunks` CTAs a tile and len rows a chunk.
+struct TmPlan {
+  int V, w, tiles, chunks, len;
+};
+
+// Whole rows a CTA where a row's loads fit kTmThreads channels, else tiles
+// of kTmThreads channels; then chunks up to `most` a tile, but none under
+// one pass of R = kTmThreads / w rows.
+TmPlan tm_plan(int M, int C, int V, int64_t most) {
+  TmPlan q;
+  q.V = V;
+  const int cv = C / V;
+  q.w = std::min(cv, kTmThreads / V);
+  q.tiles = (cv + q.w - 1) / q.w;
+  const int R = kTmThreads / q.w;
+  q.chunks = (int)std::max<int64_t>(
+      1, std::min<int64_t>(most, ((int64_t)M + R - 1) / R));
+  q.len = (int)(((int64_t)M + q.chunks - 1) / q.chunks);
+  return q;
+}
+
+// The CTAs of `kernel` resident at once: its occupancy at kTmThreads
+// threads, times the SMs (0 where the query fails).
+template <typename K>
+int resident_ctas(K kernel) {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kTmThreads,
+                                                    0) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return n * sm_count();
+}
+
+// A cooperative launch of the plan's grid: every CTA resident at once, or
+// the launch refused (cudaErrorCooperativeLaunchTooLarge).
+template <typename K, typename... Args>
+cudaError_t launch_cooperative(K kernel, const TmPlan& q, cudaStream_t s,
+                               Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(q.chunks, q.tiles);
+  cfg.blockDim = dim3(kTmThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it, so no later launch reports it
+    return e;
+  }
+  return cudaGetLastError();
+}
+
+// The cooperative plan: chunks a tile within the resident CTAs and the
+// workspace ws (ws_floats floats: (chunks + kTmSegs)·2·C at least).
+TmPlan tm_coop_plan(int M, int C, int V, int ctas, int64_t ws_floats) {
+  const int cv = C / V, w = std::min(cv, kTmThreads / V);
+  const int tiles = (cv + w - 1) / w;
+  const int64_t fit = ws_floats / (2 * (int64_t)C) - kTmSegs;
+  return tm_plan(M, C, V, std::min<int64_t>(ctas / tiles, fit));
+}
+
+template <typename E>
+cudaError_t launch_stats_tm(const E* x, float* out, float* ws,
+                            int64_t ws_floats, int M, int C, int* plan,
+                            cudaStream_t s) {
+  constexpr int V = Vec<E>::n;
+  static const int ctas = std::min(resident_ctas(bn_stats_tm_kernel<E, V>),
+                                   resident_ctas(bn_stats_tm_kernel<E, 1>));
+  const bool vec = C % V == 0 && aligned16(x);
+  const TmPlan q = tm_coop_plan(M, C, vec ? V : 1, ctas, ws_floats);
+  if ((int64_t)(q.chunks + kTmSegs) * 2 * C > ws_floats) {
+    return cudaErrorInvalidValue;
+  }
+  if (plan != nullptr) {
+    plan[0] = q.chunks;
+    plan[1] = q.tiles;
+  }
+  float* segs = ws + (int64_t)q.chunks * 2 * C;
+  return vec ? launch_cooperative(bn_stats_tm_kernel<E, V>, q, s, x, out, ws,
+                                  segs, M, C, q.w, q.len)
+             : launch_cooperative(bn_stats_tm_kernel<E, 1>, q, s, x, out, ws,
+                                  segs, M, C, q.w, q.len);
+}
+
+template <typename E>
+cudaError_t launch_bwd_tm(const void* g, const void* x, void* dx, float* ws,
+                          int64_t ws_floats, const BwdArgs& p, int* plan,
+                          cudaStream_t s) {
+  constexpr int V = Vec<E>::n;
+  static const int ctas = std::min(resident_ctas(bn_bwd_tm_kernel<E, V>),
+                                   resident_ctas(bn_bwd_tm_kernel<E, 1>));
+  const bool vec = p.C % V == 0 && aligned16(g) && aligned16(x) &&
+                   (dx == nullptr || aligned16(dx));
+  const TmPlan q = tm_coop_plan(p.B, p.C, vec ? V : 1, ctas, ws_floats);
+  if ((int64_t)(q.chunks + kTmSegs) * 2 * p.C > ws_floats) {
+    return cudaErrorInvalidValue;
+  }
+  if (plan != nullptr) {
+    plan[0] = q.chunks;
+    plan[1] = q.tiles;
+  }
+  const E* ge = static_cast<const E*>(g);
+  const E* xe = static_cast<const E*>(x);
+  E* de = static_cast<E*>(dx);
+  float* segs = ws + (int64_t)q.chunks * 2 * p.C;
+  return vec ? launch_cooperative(bn_bwd_tm_kernel<E, V>, q, s, ge, xe, de,
+                                  ws, segs, p, q.w, q.len)
+             : launch_cooperative(bn_bwd_tm_kernel<E, 1>, q, s, ge, xe, de,
+                                  ws, segs, p, q.w, q.len);
+}
+
+// bn_bwd_dx's chunks a tile: as many as fill kDxBlocksPerSm CTAs an SM
+// (two resident at once, the rest in later waves).
+template <typename E>
+cudaError_t launch_dx_tm(const void* g, const void* x, void* dx,
+                         const float* sums, const BwdArgs& p, cudaStream_t s) {
+  constexpr int V = Vec<E>::n;
+  const bool vec =
+      p.C % V == 0 && aligned16(g) && aligned16(x) && aligned16(dx);
+  const int v = vec ? V : 1, cv = p.C / v;
+  const int tiles = (cv + std::min(cv, kTmThreads / v) - 1) /
+                    std::min(cv, kTmThreads / v);
+  if (tiles > kMaxGridY) return cudaErrorInvalidValue;
+  const TmPlan q =
+      tm_plan(p.B, p.C, v, std::max(1, sm_count() * kDxBlocksPerSm / tiles));
+  const dim3 grid(q.chunks, q.tiles);
+  const E* ge = static_cast<const E*>(g);
+  const E* xe = static_cast<const E*>(x);
+  E* de = static_cast<E*>(dx);
+  if (vec) {
+    bn_bwd_dx_tm_kernel<E, V><<<grid, kTmThreads, 0, s>>>(ge, xe, de, sums, p,
+                                                          q.w, q.len);
+  } else {
+    bn_bwd_dx_tm_kernel<E, 1><<<grid, kTmThreads, 0, s>>>(ge, xe, de, sums, p,
+                                                          q.w, q.len);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -908,12 +1368,13 @@ extern "C" int bn_stats_launch(const void* x, void* out, int B, int C, int T,
 // BatchNorm backward: g, x and dx (B, C, T) contiguous, one type (f32 or
 // bf16 as above); scale, mean and invstd (C,) f32; gmean and gvar (C,) f32
 // or null; out (2, C) f32 = [Σg, Σg·x̂]; dx may be null (the sums only).
-// Same launch contract as bn_stats_launch.
+// The kernel launched goes to *taken (0 registers, 1 two walks) unless
+// taken is null.  Same launch contract as bn_stats_launch.
 extern "C" int bn_bwd_launch(const void* g, const void* x, const void* scale,
                              const void* mean, const void* invstd,
                              const void* gmean, const void* gvar, void* dx,
                              void* out, int B, int C, int T, int bf16,
-                             void* stream) {
+                             void* stream, int* taken) {
   if (!shape_ok(B, C, T)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BwdArgs p = {static_cast<const float*>(scale),
@@ -926,20 +1387,9 @@ extern "C" int bn_bwd_launch(const void* g, const void* x, const void* scale,
                      C,
                      T,
                      static_cast<float>(B * T)};
-  const cudaError_t e = bf16 ? bwd<__nv_bfloat16>(g, x, dx, p, s)
-                             : bwd<float>(g, x, dx, p, s);
+  const cudaError_t e = bf16 ? bwd<__nv_bfloat16>(g, x, dx, p, taken, s)
+                             : bwd<float>(g, x, dx, p, taken, s);
   return static_cast<int>(e);
-}
-
-// g and x (B, C, T) contiguous, one type (f32 or bf16 as above); mean and
-// invstd (C,) f32; out (2, C) f32 = [Σg, Σg·x̂].  Same launch contract as
-// bn_stats_launch.
-extern "C" int bn_bwd_stats_launch(const void* g, const void* x,
-                                   const void* mean, const void* invstd,
-                                   void* out, int B, int C, int T, int bf16,
-                                   void* stream) {
-  return bn_bwd_launch(g, x, nullptr, mean, invstd, nullptr, nullptr, nullptr,
-                       out, B, C, T, bf16, stream);
 }
 
 // dx of synced BatchNorm from given sums: g, x and dx (B, C, T) contiguous,
@@ -970,5 +1420,83 @@ extern "C" int bn_bwd_dx_launch(const void* g, const void* x,
   const float* sm = static_cast<const float*>(sums);
   const cudaError_t e = bf16 ? launch_dx<__nv_bfloat16>(g, x, dx, sm, p, s)
                              : launch_dx<float>(g, x, dx, sm, p, s);
+  return static_cast<int>(e);
+}
+
+// --- the time-major route: x, g and dx (M, C) contiguous, M = B·T rows of C
+// channels; otherwise as the entries above.  ws: a workspace of ws_floats
+// f32, (chunks + kTmSegs)·2·C at least for the chunks the launcher picks
+// (4·SMs·2·C always holds them); the chunks and tiles launched go to
+// plan[0], plan[1] unless plan is null.  A cooperative launch: refused
+// (cudaErrorCooperativeLaunchTooLarge) where the tiles of C alone exceed
+// the CTAs resident at once (C past ~130 thousand channels).
+
+extern "C" int bn_stats_tm_launch(const void* x, void* out, void* ws,
+                                  long long ws_floats, int M, int C, int bf16,
+                                  void* stream, int* plan) {
+  if (!shape_ok(M, C, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  float* w = static_cast<float*>(ws);
+  const cudaError_t e =
+      bf16 ? launch_stats_tm(static_cast<const __nv_bfloat16*>(x), o, w,
+                             ws_floats, M, C, plan, s)
+           : launch_stats_tm(static_cast<const float*>(x), o, w, ws_floats, M,
+                             C, plan, s);
+  return static_cast<int>(e);
+}
+
+// dx may be null (the sums only: bn_bwd_stats).
+extern "C" int bn_bwd_tm_launch(const void* g, const void* x,
+                                const void* scale, const void* mean,
+                                const void* invstd, const void* gmean,
+                                const void* gvar, void* dx, void* out,
+                                void* ws, long long ws_floats, int M, int C,
+                                int bf16, void* stream, int* plan) {
+  if (!shape_ok(M, C, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the time-major kernels read the rows M as B (T = 1)
+  const BwdArgs p = {static_cast<const float*>(scale),
+                     static_cast<const float*>(mean),
+                     static_cast<const float*>(invstd),
+                     static_cast<const float*>(gmean),
+                     static_cast<const float*>(gvar),
+                     static_cast<float*>(out),
+                     M,
+                     C,
+                     1,
+                     static_cast<float>(M)};
+  float* w = static_cast<float*>(ws);
+  const cudaError_t e =
+      bf16 ? launch_bwd_tm<__nv_bfloat16>(g, x, dx, w, ws_floats, p, plan, s)
+           : launch_bwd_tm<float>(g, x, dx, w, ws_floats, p, plan, s);
+  return static_cast<int>(e);
+}
+
+extern "C" int bn_bwd_dx_tm_launch(const void* g, const void* x,
+                                   const void* scale, const void* mean,
+                                   const void* invstd, const void* gmean,
+                                   const void* gvar, const void* sums,
+                                   void* dx, int M, int C, float count,
+                                   int bf16, void* stream) {
+  if (!shape_ok(M, C, 1) || !(count > 0.f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the rows M as B (T = 1), as bn_bwd_tm_launch
+  const BwdArgs p = {static_cast<const float*>(scale),
+                     static_cast<const float*>(mean),
+                     static_cast<const float*>(invstd),
+                     static_cast<const float*>(gmean),
+                     static_cast<const float*>(gvar),
+                     nullptr,
+                     M,
+                     C,
+                     1,
+                     count};
+  const float* sm = static_cast<const float*>(sums);
+  const cudaError_t e =
+      bf16 ? launch_dx_tm<__nv_bfloat16>(g, x, dx, sm, p, s)
+           : launch_dx_tm<float>(g, x, dx, sm, p, s);
   return static_cast<int>(e);
 }

@@ -2,9 +2,14 @@
 
 Reference: ``meg_decoding/models.py`` — ``SubjectBlock`` (244-273),
 ``BrainEncoder`` (341-383), ``BrainEncoderSeq2Static`` (465-512).  Called as ``model(X, subject_idxs)`` with
-``X: (B, C, T)``; activations stay NCW throughout.  ``model.train()``
-turns on spatial dropout (a training forward takes the dropout ``centre``
-or a ``generator`` to draw it) and batch-statistics BatchNorm.
+``X: (B, C, T)``, and the output is the reference's (B, F, T) or (B, F).
+Inside, the layout follows the compute dtype (``models/layers.py:
+time_major``): in f32 activations stay NCW throughout; in bf16 (and f16)
+the conv stack runs time-major (B, T, C), from ``SubjectLayers``, which
+writes it, to ``conv_final2``, which writes (B, F, T) from it, each change
+of layout inside a product.  ``model.train()`` turns on spatial dropout (a
+training forward takes the dropout ``centre`` or a ``generator`` to draw
+it) and batch-statistics BatchNorm.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from meg_decoding_tpu_torch.models.layers import (
     ConvBlock,
     SpatialAttention,
     SubjectLayers,
+    time_major,
 )
 from meg_decoding_tpu_torch.ops.gelu import gelu, resolve_impl
 
@@ -29,7 +35,8 @@ __all__ = ["SubjectBlock", "BrainEncoder", "BrainEncoderSeq2Static"]
 
 class SubjectBlock(nn.Module):
     """SpatialAttention → 1×1 conv (D1→D1, with bias) → per-subject 1×1 mix
-    (no bias)."""
+    (no bias): (B, C, T) → (B, D1, T), or (B, T, D1) where
+    ``time_major(dtype)``."""
 
     def __init__(self, loc: np.ndarray, num_subjects: int, D1: int = 270,
                  K: int = 32, d_drop: float = 0.1,
@@ -43,7 +50,8 @@ class SubjectBlock(nn.Module):
         self.conv = Conv1x1(D1, D1, dtype=dtype, device=device,
                             generator=generator)
         self.subject_layer = SubjectLayers(num_subjects, D1, device=device,
-                                           generator=generator)
+                                           generator=generator,
+                                           time_major=time_major(dtype))
 
     def forward(self, X: torch.Tensor, subject_idxs: torch.Tensor,
                 centre: int | torch.Tensor | None = None,
@@ -73,6 +81,7 @@ class BrainEncoder(nn.Module):
         super().__init__()
         self.seq2seq = seq2seq
         self.dtype = dtype
+        self.time_major = time_major(dtype)
         self.emit_f32 = emit_f32
         self.gelu_impl = resolve_impl(gelu_impl, gelu_approximate)
         self.subject_block = SubjectBlock(loc, num_subjects, D1=D1, K=K,
@@ -83,8 +92,11 @@ class BrainEncoder(nn.Module):
                 k, D1 if k == 0 else D2, D2, dtype=dtype,
                 gelu_impl=self.gelu_impl, device=device, generator=generator))
         self.num_blocks = num_blocks
+        # conv_final1 keeps the stack's layout; conv_final2 takes its input
+        # as (B, 2·D2, T), a view where time-major, and writes (B, F, T)
         self.conv_final1 = Conv1x1(D2, 2 * D2, dtype=dtype, device=device,
-                                   generator=generator)
+                                   generator=generator,
+                                   time_major=self.time_major)
         self.conv_final2 = Conv1x1(2 * D2, F, dtype=dtype, device=device,
                                    generator=generator)
 
@@ -110,6 +122,8 @@ class BrainEncoder(nn.Module):
         for k in range(self.num_blocks):
             X = getattr(self, f"conv{k}")(X)
         X = gelu(self.conv_final1(X), self.gelu_impl)
+        if self.time_major:
+            X = X.transpose(1, 2)
         X = gelu(self.conv_final2(X), self.gelu_impl)
         if self.emit_f32:
             X = X.to(torch.float32)
@@ -135,6 +149,7 @@ class BrainEncoderSeq2Static(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.dtype = dtype
+        self.time_major = time_major(dtype)
         self.emit_f32 = emit_f32
         self.gelu_impl = resolve_impl(gelu_impl, gelu_approximate)
         self.subject_block = SubjectBlock(loc, num_subjects, D1=D1, K=K,
@@ -144,8 +159,11 @@ class BrainEncoderSeq2Static(nn.Module):
             self.add_module(f"conv{k}", ConvBlock(
                 k, D1 if k == 0 else D2, D2, ks=int(ks_list[k]), dtype=dtype,
                 gelu_impl=self.gelu_impl, device=device, generator=generator))
+        # conv_final1 keeps the stack's layout; conv_final2 takes its input
+        # as (B, 2·D2, T), a view where time-major, and writes (B, F, T)
         self.conv_final1 = Conv1x1(D2, 2 * D2, dtype=dtype, device=device,
-                                   generator=generator)
+                                   generator=generator,
+                                   time_major=self.time_major)
         self.conv_final2 = Conv1x1(2 * D2, F, dtype=dtype, device=device,
                                    generator=generator)
 
@@ -156,15 +174,21 @@ class BrainEncoderSeq2Static(nn.Module):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         X = self.subject_block(X, subject_idxs, centre=centre,
                                generator=generator)
+        tm = self.time_major
         for k in range(5):
             X = getattr(self, f"conv{k}")(X)
             if k < 4:
-                X = Fnn.avg_pool1d(X, 3, 2)
+                # time-major: the pool over the channels-last view
+                X = (Fnn.avg_pool1d(X.transpose(1, 2), 3, 2).transpose(1, 2)
+                     if tm else Fnn.avg_pool1d(X, 3, 2))
             elif X.dtype == torch.bfloat16:
-                X = X.to(torch.float32).mean(dim=2, keepdim=True).to(X.dtype)
+                X = X.to(torch.float32).mean(dim=1 if tm else 2,
+                                             keepdim=True).to(X.dtype)
             else:
-                X = X.mean(dim=2, keepdim=True)
+                X = X.mean(dim=1 if tm else 2, keepdim=True)
         X = gelu(self.conv_final1(X), self.gelu_impl)
+        if tm:
+            X = X.transpose(1, 2)
         X = gelu(self.conv_final2(X), self.gelu_impl)
         if self.emit_f32:
             X = X.to(torch.float32)

@@ -4,12 +4,19 @@ Reference semantics: ``meg_decoding/models.py`` — ``SpatialAttention``
 (167-220), ``SpatialDropout`` (223-241), ``SubjectBlock`` (244-273),
 ``ConvBlock`` (276-322).
 
-Layout: the JAX package runs time-major ``(B, T, C)`` inside the encoder;
-here activations are NCW ``(B, C, T)``, PyTorch's convolution layout, and
-the public functions keep the reference's ``(B, C, T)``.  Parameter names
-follow the flax tree (``z_re``/``z_im``, ``weight``, ``conv0``…``conv2b``,
-``bn0``/``bn1`` with ``scale``/``bias`` and buffers ``mean``/``var``) so
-``interop.params_from_jax`` is a rename plus transpose.
+Layout: the public functions keep the reference's ``(B, C, T)``.  Inside
+the conv stack the layout follows the compute dtype (``time_major``): in
+bf16 (and f16) activations are time-major ``(B, T, C)``, as in the JAX
+package, because cuDNN's half-precision engines on Hopper are NHWC: each
+``Conv1d`` hands cuDNN the view ``X.transpose(1, 2).unsqueeze(2)``, a
+channels-last (B, C, 1, T) tensor it reads in place, and its output comes
+back channels-last, which is ``(B, T, C)`` again by a view.  In f32, cuDNN's engines are NCHW, so
+activations stay NCW ``(B, C, T)``.  The BatchNorm kernels take either
+layout as it lies (``ops/batchnorm.py``).  Parameter names follow the flax
+tree (``z_re``/``z_im``, ``weight``, ``conv0``…``conv2b``, ``bn0``/``bn1``
+with ``scale``/``bias`` and buffers ``mean``/``var``) so
+``interop.params_from_jax`` is a rename plus transpose; the layout changes
+no parameter.
 
 Training mode (``module.train()``): spatial dropout with one centre per
 batch, and BatchNorm on batch statistics through ``ops/batchnorm.py``.
@@ -40,10 +47,19 @@ __all__ = [
     "FusedBatchNorm",
     "commit_running_stats",
     "set_data_parallel",
+    "time_major",
     "Conv1x1",
     "Conv1d",
     "ConvBlock",
 ]
+
+
+def time_major(dtype: torch.dtype | None) -> bool:
+    """Whether a conv stack computing in ``dtype`` holds its activations
+    time-major ``(B, T, C)``: bf16 and f16, whose cuDNN engines on Hopper
+    are NHWC; f32 (or None, the input's f32) keeps NCW, where cuDNN's
+    engines are NCHW."""
+    return dtype in (torch.bfloat16, torch.float16)
 
 
 def fourier_basis(loc: np.ndarray, K: int) -> tuple[np.ndarray, np.ndarray]:
@@ -133,11 +149,15 @@ class SpatialAttention(nn.Module):
 
 class SubjectLayers(nn.Module):
     """Per-subject 1×1 channel mix as one gathered ``bmm``: weight
-    (S, D_in, D_out) like flax, no bias (``models.py:255-263``)."""
+    (S, D_in, D_out) like flax, no bias (``models.py:255-263``).  Takes
+    (B, D_in, T); writes (B, D_out, T), or with ``time_major`` (B, T,
+    D_out) directly (the product the other way round, no copy)."""
 
     def __init__(self, num_subjects: int, dim: int, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 time_major: bool = False):
         super().__init__()
+        self.time_major = time_major
         self.weight = nn.Parameter(torch.empty(num_subjects, dim, dim,
                                                device=device))
         self.reset_parameters(generator)
@@ -149,11 +169,14 @@ class SubjectLayers(nn.Module):
     def forward(self, X: torch.Tensor, subject_idxs: torch.Tensor) -> torch.Tensor:
         Wb = self.weight[subject_idxs.long()]  # (B, D_in, D_out)
         # f32 like the JAX einsum, which promotes a bf16 X to the f32 weight
+        if self.time_major:
+            return torch.bmm(X.to(Wb.dtype).transpose(1, 2), Wb)
         return torch.bmm(Wb.transpose(1, 2), X.to(Wb.dtype))
 
 
 class FusedBatchNorm(nn.Module):
-    """BatchNorm over dim 1 of (B, C, T) with running statistics.
+    """BatchNorm over dim 1 of (B, C, T), or with ``time_major`` over the
+    last dim of (B, T, C), with running statistics.
 
     Eval mode: the affine is written out as the JAX package computes it
     (``layers.py:190-194``): ``a = scale·rsqrt(var + eps)``,
@@ -169,8 +192,9 @@ class FusedBatchNorm(nn.Module):
 
     def __init__(self, num_features: int, momentum: float = 0.99,
                  epsilon: float = 1e-5, dtype: torch.dtype | None = None,
-                 device=None):
+                 device=None, time_major: bool = False):
         super().__init__()
+        self.time_major = time_major
         self.momentum = momentum
         self.epsilon = epsilon
         self.dtype = dtype
@@ -189,7 +213,8 @@ class FusedBatchNorm(nn.Module):
         with scope("batchnorm"):
             if self.training:
                 y, mean, var = batch_norm_train(x, self.scale, self.bias,
-                                                self.epsilon, self.mesh)
+                                                self.epsilon, self.mesh,
+                                                self.time_major)
                 m = self.momentum
                 with torch.no_grad():
                     self.proposed = (m * self.mean + (1.0 - m) * mean,
@@ -197,7 +222,9 @@ class FusedBatchNorm(nn.Module):
                 return y.to(self.dtype or x.dtype)
             a = self.scale * torch.rsqrt(self.var + self.epsilon)
             b = self.bias - self.mean * a
-            y = x.to(torch.float32) * a[:, None] + b[:, None]
+            if not self.time_major:
+                a, b = a[:, None], b[:, None]
+            y = x.to(torch.float32) * a + b
             return y.to(self.dtype or x.dtype)
 
 
@@ -238,14 +265,16 @@ def _torch_uniform_(t: torch.Tensor, fan_in: int,
 
 
 class Conv1x1(nn.Module):
-    """flax ``nn.Dense`` over the channel axis of (B, C, T): weight
-    (out, in), bias (out,)."""
+    """flax ``nn.Dense`` over the channel axis of (B, C, T), or with
+    ``time_major`` of (B, T, C): weight (out, in), bias (out,)."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype | None = None, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 time_major: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.time_major = time_major
         self.weight = nn.Parameter(torch.empty(out_features, in_features,
                                                device=device))
         self.bias = nn.Parameter(torch.empty(out_features, device=device))
@@ -258,19 +287,24 @@ class Conv1x1(nn.Module):
 
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or X.dtype
+        if self.time_major:
+            return (torch.matmul(X.to(dt), self.weight.to(dt).t())
+                    + self.bias.to(dt))
         return (torch.matmul(self.weight.to(dt), X.to(dt))
                 + self.bias.to(dt)[:, None])
 
 
 class Conv1d(nn.Module):
-    """flax ``nn.Conv`` with SAME padding on (B, C, T): weight
-    (out, in, ks), bias (out,)."""
+    """flax ``nn.Conv`` with SAME padding on (B, C, T), or with
+    ``time_major`` on (B, T, C): weight (out, in, ks), bias (out,)."""
 
     def __init__(self, in_features: int, out_features: int, ks: int,
                  dtype: torch.dtype | None = None, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 time_major: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.time_major = time_major
         self.weight = nn.Parameter(torch.empty(out_features, in_features, ks,
                                                device=device))
         self.bias = nn.Parameter(torch.empty(out_features, device=device))
@@ -284,6 +318,18 @@ class Conv1d(nn.Module):
 
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or X.dtype
+        if self.time_major:
+            # (B, T, C) as the channels-last (B, C, 1, T) that cuDNN's NHWC
+            # engine reads in place, and the weight cast straight into the
+            # KRSC order (out, 1, ks, in) that engine takes, so that nothing
+            # is reordered; the channels-last output is (B, T, C) again by a
+            # view.  conv2d, because conv1d copies a 3-D input contiguous
+            # (NCW) before it looks at the layout.
+            w = self.weight.transpose(1, 2).to(
+                dt, memory_format=torch.contiguous_format).transpose(1, 2)
+            y = F.conv2d(X.to(dt).transpose(1, 2).unsqueeze(2), w.unsqueeze(2),
+                         self.bias.to(dt), padding="same")
+            return y.squeeze(2).transpose(1, 2)
         return F.conv1d(X.to(dt), self.weight.to(dt), self.bias.to(dt),
                         padding="same")
 
@@ -291,7 +337,8 @@ class Conv1d(nn.Module):
 class ConvBlock(nn.Module):
     """Residual conv block: conv(+skip) → BN → GELU, conv(+residual) → BN →
     GELU, then GLU over two D2-wide convs ``conv2a``/``conv2b``
-    (``layers.py:208-267``; reference ``models.py:276-322``)."""
+    (``layers.py:208-267``; reference ``models.py:276-322``).  Takes and
+    returns (B, C, T), or (B, T, C) where ``time_major(dtype)``."""
 
     def __init__(self, k: int, in_dim: int, D2: int, ks: int = 3,
                  dtype: torch.dtype | None = None, gelu_impl: str = "erf",
@@ -299,10 +346,11 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.k = k
         self.gelu_impl = gelu_impl
-        conv = lambda cin: Conv1d(cin, D2, ks, dtype, device, generator)
+        tm = time_major(dtype)
+        conv = lambda cin: Conv1d(cin, D2, ks, dtype, device, generator, tm)
         # flax momentum 0.9 = 1 − torch momentum 0.1 (layers.py:221)
         bn = lambda: FusedBatchNorm(D2, momentum=0.9, dtype=dtype,
-                                    device=device)
+                                    device=device, time_major=tm)
         self.conv0 = conv(in_dim)
         self.bn0 = bn()
         self.conv1 = conv(D2)

@@ -13,7 +13,11 @@ The backwards are the scope ``batchnorm`` of a captured body
 (``utils/profiling.py``); the forward is, through its only caller,
 ``models/layers.py:FusedBatchNorm``.
 
-Layout: x is NCW ``(B, C, T)``; the channel is dim 1 and M = B·T.
+Layout: x is NCW ``(B, C, T)``, the channel dim 1, or, with
+``time_major``, ``(B, T, C)``, the channel last (the bf16 encoder's
+activations, ``models/layers.py``); M = B·T either way.  The kernels take
+each layout as it lies: contiguous time-major x goes to their time-major
+route, with no transpose.
 
 Synced BatchNorm (``mesh``, a ``core/mesh.py:DataMesh``): the statistics
 are over the global batch, as JAX's mesh gets them from auto-spmd with XLA
@@ -41,14 +45,20 @@ from meg_decoding_tpu_torch.utils.profiling import scope
 __all__ = ["batch_norm_train"]
 
 
-def _affine(x, scale, bias, s, ss, M, eps):
+def _affine(x, scale, bias, s, ss, M, eps, time_major):
     mean = s / M
     var = ss / M - mean * mean
     invstd = torch.rsqrt(var + eps)
     a = scale * invstd
     b = bias - mean * a
-    y = (x.to(torch.float32) * a[:, None] + b[:, None]).to(x.dtype)
+    if not time_major:
+        a, b = a[:, None], b[:, None]
+    y = (x.to(torch.float32) * a + b).to(x.dtype)
     return y, mean, var, invstd
+
+
+def _channels(x, time_major):
+    return x.shape[2] if time_major else x.shape[1]
 
 
 class _BatchNormTrain(torch.autograd.Function):
@@ -56,15 +66,17 @@ class _BatchNormTrain(torch.autograd.Function):
     VJP's, including the exact contributions of the mean and var outputs."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps):
+    def forward(ctx, x, scale, bias, eps, time_major):
         # a cotangent of an output nobody used arrives as None, and its
         # term of dx is skipped instead of added as a tensor of zeros
         ctx.set_materialize_grads(False)
         x = x.contiguous()
-        s, ss = bn_stats(x)
-        y, mean, var, invstd = _affine(x, scale, bias, s, ss,
-                                       x.numel() // x.shape[1], eps)
+        s, ss = bn_stats(x, time_major)
+        y, mean, var, invstd = _affine(
+            x, scale, bias, s, ss, x.numel() // _channels(x, time_major), eps,
+            time_major)
         ctx.save_for_backward(x, scale, mean, invstd)
+        ctx.time_major = time_major
         return y, mean, var
 
     @staticmethod
@@ -74,8 +86,8 @@ class _BatchNormTrain(torch.autograd.Function):
             if gy is None:
                 gy = torch.zeros_like(x)
             dx, sg, sgx = bn_bwd(gy.contiguous(), x, scale, mean, invstd,
-                                 gmean, gvar)
-        return dx, sgx, sg, None
+                                 gmean, gvar, ctx.time_major)
+        return dx, sgx, sg, None, None
 
 
 class _SyncedBatchNormTrain(torch.autograd.Function):
@@ -84,15 +96,16 @@ class _SyncedBatchNormTrain(torch.autograd.Function):
     the world size."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps, mesh):
+    def forward(ctx, x, scale, bias, eps, mesh, time_major):
         ctx.set_materialize_grads(False)
         x = x.contiguous()
-        s, ss = bn_stats(x)
+        s, ss = bn_stats(x, time_major)
         sums = mesh.all_reduce_(torch.stack([s, ss]))
-        M = x.numel() // x.shape[1] * mesh.world_size
-        y, mean, var, invstd = _affine(x, scale, bias, sums[0], sums[1], M, eps)
+        M = x.numel() // _channels(x, time_major) * mesh.world_size
+        y, mean, var, invstd = _affine(x, scale, bias, sums[0], sums[1], M, eps,
+                                       time_major)
         ctx.save_for_backward(x, scale, mean, invstd)
-        ctx.mesh, ctx.M = mesh, M
+        ctx.mesh, ctx.M, ctx.time_major = mesh, M, time_major
         return y, mean, var
 
     @staticmethod
@@ -102,7 +115,7 @@ class _SyncedBatchNormTrain(torch.autograd.Function):
             if gy is None:
                 gy = torch.zeros_like(x)
             gy = gy.contiguous()
-            sg, sgx = bn_bwd_stats(gy, x, mean, invstd)
+            sg, sgx = bn_bwd_stats(gy, x, mean, invstd, ctx.time_major)
             # one all-reduce: the two sums and any mean / var cotangents
             # (every rank's cotangent of the global mean reaches every x)
             parts = [sg, sgx] + [t for t in (gmean, gvar) if t is not None]
@@ -111,18 +124,20 @@ class _SyncedBatchNormTrain(torch.autograd.Function):
             gmean = None if gmean is None else next(rest)
             gvar = None if gvar is None else next(rest)
             dx = bn_bwd_dx(gy, x, scale, mean, invstd, glob[:2], ctx.M,
-                           gmean, gvar)
-        return dx, sgx, sg, None, None
+                           gmean, gvar, ctx.time_major)
+        return dx, sgx, sg, None, None, None
 
 
 def batch_norm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                     eps: float, mesh=None
+                     eps: float, mesh=None, time_major: bool = False
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Training-mode batch norm of x (B, C, T) over dims 0 and 2.  Returns
-    ``(y, mean, var)``: y in x's dtype, the batch mean and biased variance
-    (C,) f32 for the caller's running-statistics update.  Gradients flow to
-    x, scale and bias, and through mean and var when the caller uses them.
-    With ``mesh`` the statistics are over every rank's batch (synced BN)."""
+    """Training-mode batch norm of x (B, C, T) over dims 0 and 2, or of
+    time-major x (B, T, C) over dims 0 and 1.  Returns ``(y, mean, var)``:
+    y in x's dtype and layout, the batch mean and biased variance (C,) f32
+    for the caller's running-statistics update.  Gradients flow to x, scale
+    and bias, and through mean and var when the caller uses them.  With
+    ``mesh`` the statistics are over every rank's batch (synced BN)."""
     if mesh is not None:
-        return _SyncedBatchNormTrain.apply(x, scale, bias, float(eps), mesh)
-    return _BatchNormTrain.apply(x, scale, bias, float(eps))
+        return _SyncedBatchNormTrain.apply(x, scale, bias, float(eps), mesh,
+                                           time_major)
+    return _BatchNormTrain.apply(x, scale, bias, float(eps), time_major)

@@ -120,6 +120,7 @@ captures = dict.fromkeys(KINDS, 0)
 _COUNTERS = ((window_gather, "launches"), (quantile, "launches"),
              (quantile, "long_launches"), (batchnorm, "launches"),
              (batchnorm, "stats_route_launches"),
+             (batchnorm, "bwd_route_launches"),
              (batchnorm, "sums_only_launches"), (batchnorm, "dx_launches"),
              (gelu, "launches"))
 

@@ -376,3 +376,299 @@ def test_forced_route_entry_refuses_cpu_tensors():
             tbnk._bn_stats_route(x, route)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tbnk._bn_stats_route(x.double())
+
+
+# --- the time-major route ------------------------------------------------------
+
+TM_THREADS, TM_SEGS = _const("kTmThreads"), _const("kTmSegs")
+TM_CTAS = 2 * SMS  # resident at once: two CTAs of kTmThreads an SM
+
+
+def _tm_plan(M: int, C: int, V: int, ctas: int = TM_CTAS) -> dict:
+    """tm_coop_plan: whole rows a CTA where a row's loads fit kTmThreads
+    channels, else tiles; chunks within the resident CTAs and the
+    wrapper's workspace (4·SMs rows of (2, C)), none under one pass."""
+    cv = C // V
+    w = min(cv, TM_THREADS // V)
+    tiles = -(-cv // w)
+    R = TM_THREADS // w
+    most = min(ctas // tiles, 4 * SMS - TM_SEGS)
+    chunks = max(1, min(most, -(-M // R)))
+    return {"w": w, "tiles": tiles, "R": R, "chunks": chunks,
+            "len": -(-M // chunks)}
+
+
+@pytest.mark.parametrize("M,C,dtype,aligned,want", [
+    (256 * 360, 320, "bfloat16", True, (40, 1, 264, 350)),   # the presets
+    (64 * 360, 320, "float32", True, (80, 1, 264, 88)),      # f32 step's
+    (64 * 360, 320, "bfloat16", True, (40, 1, 264, 88)),
+    (256 * 48, 320, "bfloat16", True, (40, 1, 264, 47)),     # Seq2Static
+    (64 * 360, 21, "bfloat16", True, (21, 1, 264, 88)),      # C·2 B unaligned
+    (64 * 360, 320, "bfloat16", False, (320, 1, 264, 88)),   # base unaligned
+    (10, 1024, "bfloat16", True, (64, 2, 2, 5)),             # two tiles
+    (3 * 37, 320, "float32", True, (80, 1, 19, 6)),          # few rows
+    (1, 1, "float32", True, (1, 1, 1, 1)),
+])
+def test_time_major_launcher_plans_by_shape(M, C, dtype, aligned, want):
+    V = 4 if dtype == "float32" else 8
+    v = V if C % V == 0 and aligned else 1
+    p = _tm_plan(M, C, v)
+    assert (p["w"], p["tiles"], p["chunks"], p["len"]) == want
+    assert p["chunks"] * p["tiles"] <= TM_CTAS  # the cooperative grid fits
+
+
+def _tm_threads(M: int, C: int, V: int, p: dict):
+    """Every (chunk, tile, thread) of the grid with its load, first row and
+    row count, as tm_thread gives them (numpy arrays over the threads)."""
+    w, R, L = p["w"], p["R"], p["len"]
+    b, y, t = np.meshgrid(np.arange(p["chunks"]), np.arange(p["tiles"]),
+                          np.arange(TM_THREADS), indexing="ij")
+    b, y, t = b.ravel(), y.ravel(), t.ravel()
+    row = t // w
+    load = y * w + t % w
+    active = (row < R) & (load * V < C)
+    first = b * L + row
+    end = np.minimum((b + 1) * L, M)
+    n = np.where(active & (first < end), -(-(end - first) // R), 0)
+    return b, y, t, load, first, n
+
+
+@pytest.mark.parametrize("M,C,V,ctas", [(240, 32, 4, TM_CTAS), (240, 32, 4, 3),
+                                        (111, 21, 1, 5), (16, 1024, 8, 4),
+                                        (90, 16, 8, TM_CTAS)])
+def test_time_major_walk_visits_every_load_once(M, C, V, ctas):
+    p = _tm_plan(M, C, V, ctas)
+    _, _, _, load, first, n = _tm_threads(M, C, V, p)
+    seen = np.zeros((M, C // V), np.int64)
+    for j in range(int(n.max())):
+        on = j < n
+        np.add.at(seen, (first[on] + j * p["R"], load[on]), 1)
+    assert (seen == 1).all()
+
+
+def _f32_fma(a, b, c):
+    return F32(F64(a) * F64(b) + F64(c))
+
+
+def _mirror_tm_stats(x: np.ndarray, V: int, ctas: int) -> np.ndarray:
+    """bn_stats_tm_kernel's sums of x (M, C) f32 in the kernel's order: each
+    thread's rows in turn (f32 adds, fmas emulated in f64), the CTA's R
+    rows of a load in order, the chunks of each segment in order, then
+    the segments in order."""
+    M, C = x.shape
+    p = _tm_plan(M, C, V, ctas)
+    b, y, t, load, first, n = _tm_threads(M, C, V, p)
+    xv = x.reshape(M, C // V, V)
+    s = np.zeros((len(t), V), F32)
+    ss = np.zeros((len(t), V), F32)
+    for j in range(int(n.max()) if len(n) else 0):
+        on = np.nonzero(j < n)[0]
+        v = xv[first[on] + j * p["R"], load[on]]
+        s[on] = (s[on] + v).astype(F32)
+        ss[on] = _f32_fma(v, v, ss[on])
+    w, R = p["w"], p["R"]
+    part = np.zeros((p["chunks"], 2, C), F32)
+    for chunk in range(p["chunks"]):
+        for tile in range(p["tiles"]):
+            sel = (b == chunk) & (y == tile)
+            cs, css = s[sel], ss[sel]          # thread order
+            tt = t[sel]
+            for slot in range(w * V):
+                c = tile * w * V + slot
+                if c >= C:
+                    continue
+                a = q = F32(0)
+                for r in range(R):             # rows of the CTA in order
+                    k = r * w + slot // V
+                    a, q = F32(a + cs[k, slot % V]), F32(q + css[k, slot % V])
+                    assert tt[k] == k
+                part[chunk, :, c] = a, q
+    per = -(-p["chunks"] // TM_SEGS)
+    segs = np.zeros((TM_SEGS, 2, C), F32)
+    for sg in range(TM_SEGS):
+        for chunk in range(sg * per, min(p["chunks"], (sg + 1) * per)):
+            segs[sg] = (segs[sg] + part[chunk]).astype(F32)
+    out = np.zeros((2, C), F32)
+    for sg in range(TM_SEGS):
+        out = (out + segs[sg]).astype(F32)
+    return out
+
+
+@pytest.mark.parametrize("C,V", [(16, 4), (32, 4), (21, 1), (16, 8)])
+@pytest.mark.parametrize("ctas", [TM_CTAS, 3])
+def test_time_major_sums_in_kernel_order_match_plain_and_pallas(C, V, ctas):
+    B, T = 5, 48
+    rng = np.random.RandomState(C + ctas)
+    x = (rng.randn(B, T, C) * 3 + 1.5).astype(F32)
+    got = _mirror_tm_stats(x.reshape(-1, C), V, ctas)
+    plain = tbnk.bn_stats_plain(torch.from_numpy(x), time_major=True)
+    pallas = jbn.bn_stats(jnp.asarray(x.reshape(-1, C)), block_rows=256,
+                          interpret=True)
+    for i in range(2):
+        np.testing.assert_allclose(got[i], plain[i].numpy(), rtol=1e-5,
+                                   atol=1e-4)
+        np.testing.assert_allclose(got[i], np.asarray(pallas[i]), rtol=1e-5,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("M,C,V", [(96, 320, 4), (720, 8, 8), (111, 21, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_time_major_dx_walk_writes_dx_of_on_every_element(M, C, V, dtype):
+    """tm_dx_walk (each thread's rows, reversed or not) writes dx_of of
+    each element it reads, once, which is bn_bwd_dx_plain's dx exactly on
+    the time-major layout."""
+    rng = np.random.RandomState(M + C)
+    tdt = getattr(torch, dtype)
+    x = torch.from_numpy((rng.randn(1, M, C) * 3 + 1.5).astype(F32)).to(tdt)
+    g = torch.from_numpy(rng.randn(1, M, C).astype(F32)).to(tdt)
+    scale = rng.uniform(0.5, 1.5, C).astype(F32)
+    xn, gn = x.float().numpy()[0], g.float().numpy()[0]
+    mean = xn.mean(0).astype(F32)
+    invstd = (1 / np.sqrt(xn.var(0) + 1e-5)).astype(F32)
+    sums = np.stack([gn.sum(0), (gn * (xn - mean) * invstd).sum(0)]).astype(F32)
+    whole = _dx_of(gn.T[None], xn.T[None], scale, mean, invstd, sums, M)[0].T
+    p = _tm_plan(M, C, V, TM_CTAS)
+    _, _, _, load, first, n = _tm_threads(M, C, V, p)
+    dx = np.full_like(whole, np.nan)
+    for j in range(int(n.max())):
+        on = j < n
+        rows = first[on] + j * p["R"]
+        for e in range(V):
+            cols = load[on] * V + e
+            assert np.isnan(dx[rows, cols]).all()  # written once
+            dx[rows, cols] = whole[rows, cols]
+    assert not np.isnan(dx).any()
+    plain = tbnk.bn_bwd_dx_plain(g, x, torch.from_numpy(scale),
+                                 torch.from_numpy(mean),
+                                 torch.from_numpy(invstd),
+                                 torch.from_numpy(sums), M, time_major=True)
+    np.testing.assert_array_equal(
+        torch.from_numpy(whole[None]).to(tdt).float().numpy(),
+        plain.float().numpy())
+
+
+# the time-major plain versions against the NCW ones on the transposed input:
+# the same values a channel, summed over another order of the same elements
+# (f32 sums: within 1e-6 of Σ|term|); dx from the same sums exactly
+@pytest.mark.parametrize("kernel,cot", [
+    ("bn_stats", False), ("bn_bwd_stats", False), ("bn_bwd", False),
+    ("bn_bwd", True), ("bn_bwd_dx", False), ("bn_bwd_dx", True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_time_major_plain_equals_ncw_on_the_transposed_input(kernel, cot,
+                                                             dtype):
+    B, T, C = 3, 40, 12
+    rng = np.random.RandomState(B * T + C)
+    tdt = getattr(torch, dtype)
+    x = torch.from_numpy((rng.randn(B, T, C) * 3 + 1.5).astype(F32)).to(tdt)
+    g = torch.from_numpy(rng.randn(B, T, C).astype(F32)).to(tdt)
+    scale, mean, gm, gv = (torch.from_numpy(rng.randn(C).astype(F32))
+                           for _ in range(4))
+    invstd = torch.from_numpy(rng.uniform(0.5, 2, C).astype(F32))
+    cots = (gm, gv) if cot else (None, None)
+    ncw = lambda t: t.transpose(1, 2)  # noqa: E731
+    tot = lambda t: t.float().abs().sum((0, 1))  # noqa: E731
+    if kernel == "bn_stats":
+        got = tbnk.bn_stats_plain(x, time_major=True)
+        want = tbnk.bn_stats_plain(ncw(x))
+        scales = (tot(x), tot(x.float() ** 2))
+    elif kernel == "bn_bwd_stats":
+        got = tbnk.bn_bwd_stats_plain(g, x, mean, invstd, time_major=True)
+        want = tbnk.bn_bwd_stats_plain(ncw(g), ncw(x), mean, invstd)
+        scales = (tot(g), tot(g.float() * (x.float() - mean) * invstd))
+    elif kernel == "bn_bwd":
+        dx, *got = tbnk.bn_bwd_plain(g, x, scale, mean, invstd, *cots,
+                                     time_major=True)
+        wdx, *want = tbnk.bn_bwd_plain(ncw(g), ncw(x), scale, mean, invstd,
+                                       *cots)
+        scales = (tot(g), tot(g.float() * (x.float() - mean) * invstd))
+        # dx from the NCW sums is the same elementwise arithmetic
+        again = tbnk.bn_bwd_dx_plain(g, x, scale, mean, invstd,
+                                     torch.stack(want), B * T, *cots,
+                                     time_major=True)
+        torch.testing.assert_close(ncw(again), wdx, rtol=0, atol=0)
+        torch.testing.assert_close(ncw(dx), wdx, rtol=1e-5, atol=1e-5)
+    else:
+        sums = torch.from_numpy(rng.randn(2, C).astype(F32))
+        got = tbnk.bn_bwd_dx_plain(g, x, scale, mean, invstd, sums, B * T,
+                                   *cots, time_major=True)
+        want = tbnk.bn_bwd_dx_plain(ncw(g), ncw(x), scale, mean, invstd, sums,
+                                    B * T, *cots)
+        assert got.shape == x.shape and got.dtype == x.dtype
+        torch.testing.assert_close(ncw(got), want, rtol=0, atol=0)
+        return
+    for a, b, sc in zip(got, want, scales):
+        assert bool(((a - b).abs() <= 1e-6 * sc).all())
+
+
+def test_time_major_wrappers_run_the_plain_versions_on_cpu():
+    B, T, C = 2, 8, 5
+    x, g = torch.randn(B, T, C), torch.randn(B, T, C)
+    v = torch.ones(C)
+    tbnk.reset_launches()
+    for a, b in zip(tbnk.bn_stats(x, time_major=True),
+                    tbnk.bn_stats_plain(x, True)):
+        assert torch.equal(a, b)
+    for a, b in zip(tbnk.bn_bwd(g, x, v, v, v, time_major=True),
+                    tbnk.bn_bwd_plain(g, x, v, v, v, time_major=True)):
+        assert torch.equal(a, b)
+    assert tbnk.bn_bwd_dx(g, x, v, v, v, torch.zeros(2, C), B * T,
+                          time_major=True).shape == x.shape
+    with pytest.raises(ValueError, match="sums must be"):
+        tbnk.bn_bwd_dx(g, x, v, v, v, torch.zeros(2, T), B * T,
+                       time_major=True)
+    with pytest.raises(ValueError, match="scale"):
+        tbnk.bn_bwd(g, x, torch.ones(T), v, v, time_major=True)
+    with pytest.raises(ValueError, match=r"\(B, T, C\)"):
+        tbnk.bn_stats(x[0], time_major=True)
+    assert tbnk.launches == {"bn_stats": 0, "bn_bwd_stats": 0}
+    assert tbnk.stats_route_launches == dict.fromkeys(tbnk.STATS_ROUTES, 0)
+    assert tbnk.bwd_route_launches == dict.fromkeys(tbnk.BWD_ROUTES, 0)
+
+
+def _fake_launches(monkeypatch):
+    """The wrappers' card branch on CPU tensors: the check passes them, and
+    each C entry is a stand-in that reports a route and writes nothing (the
+    outputs stay uninitialised), so that the counters count what a step
+    on the card would launch."""
+    check = tbnk._check
+    monkeypatch.setattr(tbnk, "_check",
+                        lambda *a, **k: (check(*a, **k), False)[1])
+    monkeypatch.setattr(tbnk, "_stream", lambda x: 0)
+    monkeypatch.setattr(tbnk, "_workspace",
+                        lambda x, C: torch.empty(4 * SMS * 2 * C))
+
+    def entry(name):
+        def launch(*args):
+            if name in ("bn_stats_launch", "bn_bwd_launch"):
+                args[-1]._obj.value = 0 if name == "bn_stats_launch" else 1
+            return 0
+        return launch
+
+    monkeypatch.setattr(tbnk, "_fn", entry)
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, 10), (None, 0)])
+def test_route_counters_read_ten_time_major_a_bf16_step(monkeypatch, dtype,
+                                                        want):
+    """A training forward and backward of the five-block encoder launches
+    each BN kernel 10 times: all on the time-major route in bf16, none in
+    f32 (the NCW routes instead)."""
+    from meg_decoding_tpu_torch.models.brain_encoder import BrainEncoder
+
+    torch.manual_seed(0)
+    loc = np.random.RandomState(0).rand(6, 2).astype(F32)
+    model = BrainEncoder(loc, 2, D1=8, D2=16, F=8, K=2, num_blocks=5,
+                         seq2seq=True, dtype=dtype, device="cpu",
+                         generator=torch.Generator().manual_seed(0)).train()
+    X = torch.randn(2, 6, 24)
+    subs = torch.tensor([0, 1])
+    _fake_launches(monkeypatch)
+    tbnk.reset_launches()
+    out = model(X, subs, centre=1)
+    out.float().sum().backward()
+    assert tbnk.launches == {"bn_stats": 10, "bn_bwd_stats": 10}
+    assert tbnk.stats_route_launches["time_major"] == want
+    assert tbnk.bwd_route_launches["time_major"] == want
+    assert tbnk.stats_route_launches["per_channel"] == 10 - want
+    assert tbnk.bwd_route_launches["two_walk"] == 10 - want
+    tbnk.reset_launches()

@@ -13,6 +13,7 @@ Tolerances, each with its reason:
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -194,15 +195,98 @@ def test_brain_encoder_erf_poly_and_five_blocks_match_flax():
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
-def test_brain_encoder_bf16_compute_matches_flax():
-    jm, variables, tm = _encoder_pair(dtype=torch.bfloat16, seq2seq=False)
+@pytest.mark.parametrize("seq2seq", [False, True])
+def test_brain_encoder_bf16_compute_matches_flax(seq2seq):
+    jm, variables, tm = _encoder_pair(dtype=torch.bfloat16, seq2seq=seq2seq)
+    assert tm.time_major  # the bf16 conv stack runs (B, T, C)
     X, subs = _inputs(2)
     want = _apply(jm, variables, X, subs)
     with torch.no_grad():
         got = tm(torch.from_numpy(X), torch.from_numpy(subs))
     assert got.dtype == torch.float32  # emit_f32
+    assert got.shape == want.shape and got.is_contiguous()
     rel = np.linalg.norm(got.numpy() - want) / np.linalg.norm(want)
     assert rel < 2e-2, rel
+
+
+def _layouts(model):
+    """Each submodule's layout flag, by name."""
+    return {n: m.time_major for n, m in model.named_modules()
+            if hasattr(m, "time_major")}
+
+
+def _as_ncw(model):
+    """A copy of ``model`` (same weights) on the NCW route."""
+    import copy
+
+    ncw = copy.deepcopy(model)
+    for m in ncw.modules():
+        if hasattr(m, "time_major"):
+            m.time_major = False
+    return ncw
+
+
+@pytest.mark.parametrize("kind", ["seq2seq", "mean", "seq2static"])
+@pytest.mark.parametrize("train", [True, False])
+def test_bf16_time_major_route_matches_the_ncw_route(kind, train):
+    """A bf16 encoder on its time-major route against the same weights on
+    the NCW route, in training (forward, then every parameter's gradient)
+    and in eval mode.  The two routes run the same bf16 operations, but the
+    BN sums run over the elements in another order and the CPU's
+    convolutions may accumulate in another order on the other layout, which
+    can move a bf16 rounding by one ulp (2^-8): the outputs within relative
+    L2 1e-3 of each other.  In the backward such a flip carries through the
+    blocks, so each gradient (f32) is held within 2e-2 of its norm: bf16's
+    own error on these gradients, against the same model in f32, is 0.4-4 %
+    (subject block 3.4-3.6 %).  f32 models stay NCW."""
+    from meg_decoding_tpu_torch.models.brain_encoder import (
+        BrainEncoder, BrainEncoderSeq2Static)
+
+    gen = torch.Generator().manual_seed(7)
+    common = dict(D1=D1, D2=D2, F=F, K=K, device="cpu", generator=gen)
+    T_ = 64 if kind == "seq2static" else T  # its pools need T >= 31
+    def make(dt):
+        if kind == "seq2static":
+            return BrainEncoderSeq2Static(_loc(), S, [3, 3, 3, 3, 3], dtype=dt,
+                                          **common)
+        return BrainEncoder(_loc(), S, seq2seq=kind == "seq2seq",
+                            num_blocks=3, dtype=dt, **common)
+
+    assert not any(_layouts(make(None)).values())  # f32: NCW throughout
+    tm = make(torch.bfloat16).train(train)
+    flags = _layouts(tm)
+    # the stack is time-major from the subject layer to conv_final1; the
+    # SubjectBlock's 1x1 conv and conv_final2 take (B, C, T)
+    assert flags.pop("subject_block.conv") is False
+    assert flags.pop("conv_final2") is False
+    assert all(flags.values()), flags
+    ncw = _as_ncw(tm)
+    rng = np.random.RandomState(3)
+    X = torch.from_numpy(rng.randn(B, C, T_).astype(np.float32))
+    subs = torch.from_numpy(rng.randint(0, S, B))
+    outs = []
+    for model in (tm, ncw):
+        if train:
+            out = model(X, subs, centre=2)
+            out.float().square().mean().backward()
+        else:
+            with torch.no_grad():
+                out = model(X, subs)
+        outs.append(out.detach())
+    assert outs[0].shape == outs[1].shape and outs[0].is_contiguous()
+    rel = float((outs[0] - outs[1]).norm() / outs[1].norm())
+    assert rel < 1e-3, rel
+    if train:
+        grads = {n: (a.grad, b.grad) for (n, a), (_, b) in
+                 zip(tm.named_parameters(), ncw.named_parameters())}
+        for name, (a, b) in grads.items():
+            assert a is not None, name
+            # a conv bias that a BatchNorm follows has a true gradient of 0,
+            # so rounding noise alone: measured against its weight's
+            ref = (grads[name[:-4] + "weight"][1] if re.search(
+                r"conv\d\.conv[01]\.bias$", name) else b)
+            gap = float((a - b).norm() / ref.norm())
+            assert gap < 2e-2, (name, gap)
 
 
 def test_state_dict_names_follow_flax():
