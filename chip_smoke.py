@@ -18,6 +18,13 @@ error analysis and the dispatching entry points, then the serving artifact
 (``torch.export`` with the percentiles as the registered custom op), the
 export CLI, the reference-checkpoint import and the host-spill training
 path, with random weights from ``--seed``.
+
+It checks the port on the card, times each kernel alone, and times the
+paths that no cell of ``BENCHMARK.json`` measures yet.  A phase that runs
+only routes a cell measures (the fused f32 B = 64 speech step, the GOD
+per-step step, the bf16 B = 256 presets' steps) checks them and leaves
+their times to ``benchmark/run.py``.  The eager routes, which no CLI or
+server takes on the card, are checked against the graphs and not timed.
 Phases, each printed as one JSON line:
 
 1. build    — compile the four CUDA sources of
@@ -57,9 +64,9 @@ Phases, each printed as one JSON line:
               bit-identical across two launches and across replays of a
               captured graph, timed against the byte bound and beside the
               NCW kernels on the same values; ``--phase bn_time_major``
-              adds a traced full-width ``configs/throughput.yaml`` step:
-              10 time-major launches of each kernel a replay, and cuDNN's
-              layout transposes and PyTorch's copies counted;
+              adds a captured full-width ``configs/throughput.yaml`` step:
+              10 time-major launches of each kernel a replay and no NCW
+              launch, by the launch counters;
     gelu     — (after ``kernels``) the erf_poly GELU's forward and
               backward kernels against the plain op chain: bf16 at the
               exact-GELU step's three shapes ((256, 320, 360),
@@ -79,8 +86,8 @@ Phases, each printed as one JSON line:
               captured graph of the forward, the eval CLI its own forward's
               one graph a pool;
 5. training — one train step on the card against the same step on the CPU
-              (loss and global gradient norm within 1e-4), step times of
-              the fused step (first and steady), then the train CLI
+              (loss and global gradient norm within 1e-4), a few fused
+              steps' losses, then the train CLI
               (``cli/train_speech.py``) for one epoch of 6 updates with its
               test-pool evaluation and checkpoints: finite losses, no
               skipped step, and the exact launch count of every kernel;
@@ -101,7 +108,7 @@ Phases, each printed as one JSON line:
               clamps of onsets past the end), the percentiles of a
               (64, 22, 24) batch, the BN kernels at (64, 320, 24);
 8. god_training — one GOD train step on the card against the CPU (loss and
-              global gradient norm within 1e-4), the per-step form's times,
+              global gradient norm within 1e-4), a few per-step losses,
               then ``cli/train_god.py`` for one epoch of the cv split (7
               updates, 2 test pools): finite losses, no skipped step, the
               exact launch count of every kernel;
@@ -117,15 +124,15 @@ Phases, each printed as one JSON line:
               and quantiles (106,496 rows) and the B = 256 gathers and BN
               timed, one batch's cached vs inline collate (≤ 2 ulp), the
               first step's loss cached vs inline (≤ 1e-5), a few fused
-              steps, then the train CLI for one epoch of 4 updates with
+              steps' losses, then the train CLI for one epoch of 4 updates with
               each preset (exact launch counts; the erf_poly GELU's
               kernels 12 times a step each way and 12 times a test pool
               forward, never under tanh GELU);
     scan_epochs — in the speech and in the GOD part: one epoch of 4
               updates of the whole-epoch form against the per-step path on
               the same draws, in turns, cuDNN deterministic (mean loss and
-              every state entry within 1e-5 relative; the times of all four
-              runs printed), then the
+              every state entry within 1e-5 relative; the times of the two
+              epoch runs printed), then the
               train CLI with ``use_scan_epochs`` (speech on the sentence
               split), exact launch counts;
     graphs — (speech paths after ``training``, GOD paths after
@@ -141,11 +148,11 @@ Phases, each printed as one JSON line:
               masks drawn on the host), 6 steps.  Each path: state and
               metrics within 1e-5 of each tensor's max (and whether bit-
               identical), each kernel's launches a replay equal to the
-              eager step's, one replay a step and one capture, eager and
-              graph ms a step (median), capture seconds, peak memory, then
-              each route under torch.profiler with cuDNN's default
-              algorithms (the graph captured again): ms, device operations
-              and busy ms a step, idle share.  Every train CLI
+              eager step's, one replay a step and one capture, the graph's
+              ms a step (median), capture seconds, peak memory, then the
+              graph route under torch.profiler with cuDNN's default
+              algorithms (captured again): ms, device operations and busy
+              ms a step, idle share.  Every train CLI
               (``training``, ``unfused_step``, ``presets``,
               ``scan_epochs``, ``god_training``, ``model_zoo``,
               ``brennan_cli``, the spill and data-parallel CLIs) must
@@ -161,10 +168,10 @@ Phases, each printed as one JSON line:
               identical to the eager body under cuDNN's deterministic
               algorithms, each with the eager call's launches, two forward
               replays after one capture, card vs CPU within 1e-4·max|Z|;
-              then, with the default algorithms and a new graph, each
+              then, with the default algorithms and a new graph, the graph
               route's request ms (first, p50, p90), device operations and
               busy ms a request and idle share (torch.profiler), peak
-              memory, capture seconds and the time of Z's copy out.  Then
+              memory and capture seconds.  Then
               GOD's ``fit`` (2 epochs of 2 updates, 2 test pools) with its
               train and eval graphs against ``fit`` with both routes eager
               (``EagerStep``), cuDNN deterministic: end state and every
@@ -201,10 +208,9 @@ Phases, each printed as one JSON line:
               right after the build, at the build's row length);
     brennan_training — the unfused step at the full width on the built
               dataset: its first step against the CPU (loss and global
-              gradient norm within 1e-4), then the steady step and the
-              device operations a step (``torch.profiler``), eager and
-              replayed as a CUDA graph (``graph``: ms, operations, busy,
-              idle share, capture s, peak memory);
+              gradient norm within 1e-4), then the step replayed as a CUDA
+              graph under ``torch.profiler`` (``graph``: ms, operations,
+              busy, idle share, capture s, peak memory);
     brennan_cli — the train CLI for one epoch of 4 updates on
               ``make_synthetic_brennan_raw``'s files (6 subjects × 60
               channels × 120 s, subjects pooled: rows of 84,240 keys), then
@@ -251,8 +257,8 @@ Phases, each printed as one JSON line:
               request's launches (exactly one ``robust_quantiles``, nothing
               else), a weight scaled by 1.5 changing Z and setting it back
               giving the first Z bit for bit, and the serving benchmark's
-              rows (``cli/serving_benchmark.py:latency_row``, eager, graph
-              and artifact at B = 1, 8, 64);
+              rows (``cli/serving_benchmark.py:latency_row``, graph and
+              artifact at B = 1, 8, 64);
     export_cli — ``train_speech`` and ``train_god`` for 2 updates each,
               ``cli/export_model.py`` on each checkpoint, the artifact on
               the card against the evaluator's eager forward on the same
@@ -267,15 +273,13 @@ Phases, each printed as one JSON line:
               each stepped eagerly and replayed as one graph (cuDNN
               deterministic; each graph route bit-identical to its eager
               route, spilled against device-resident within 1e-5), the
-              step time, capture s and peak memory of each, each run again
-              under torch.profiler for its split (the compute thread's
-              time in and out of operators, the card's busy time,
-              operations and idle share, the spill producer's time a
-              batch),
-              the collate's
-              percentiles through the registered op against a direct call
-              of the launch (a call's host time, the step's time), the
-              onsets between the two gathers' clamps,
+              graph routes' step time and capture s, each route's peak
+              memory, each graph route run again under torch.profiler for
+              its split (the compute thread's time in and out of
+              operators, the card's busy time, operations and idle share,
+              the spill producer's time a batch), the registered
+              percentile op against a direct call of the launch (a call's
+              host time), the onsets between the two gathers' clamps,
               then the train CLI with ``host_resident`` and its epoch traced
               (``profile_dir``): the unfused CLI's launches without its
               gathers, one train replay an update, the port's kernels in
@@ -298,15 +302,14 @@ Phases, each printed as one JSON line:
               atol 1e-5 but those whose gradient is at rounding level —
               by name, or by the runs' difference in it — within 2·n·lr:
               Adam moves such an entry up to lr a step; the count of
-              those entries is printed), steady ms of both, exact
-              launches (``bn_bwd_stats``'s sums alone and ``bn_bwd_dx``
-              once per BN layer a step), both forms under torch.profiler
-              (wall and kernel ms a step, the collectives a step and the
-              NCCL kernels' device time), the DP step's graph route against
-              its eager route bit for bit (times, operations, idle share,
-              capture s, peak memory; the collectives the capture records
-              against those the eager step issues, none from the host in
-              a replay), the loose entries by tensor
+              those entries is printed), exact launches
+              (``bn_bwd_stats``'s sums alone and ``bn_bwd_dx`` once per BN
+              layer a step), the DP step's graph route against its eager
+              route bit for bit (the graph route's times, operations, idle
+              share, capture s, peak memory; the collectives the capture
+              records against those the eager step issues, none from the
+              host in a replay, and the NCCL kernels' device time a
+              replay), the loose entries by tensor
               (count, share, |g| beside the tensor's, |Δg|/|g|), the split
               BN backward's dx bit-identical to the fused ``bn_bwd``'s and
               ``bn_bwd_dx`` against its plain version (timed, with its host
@@ -330,8 +333,8 @@ Phases, each printed as one JSON line:
               spilled through ``BrennanPacked.to_host``: unfused steps on
               its host batches through ``prefetch_to_device`` against the
               device-resident steps on the same chunk and subject draws,
-              eager and graph (as spill_speech), the ms a step of each,
-              exact launches;
+              eager and graph (as spill_speech), the ms a step of each
+              graph route, exact launches;
     import_cli — (these five after entry_points) a random
               ``configs/config.yaml`` encoder written as a reference
               ``.pt`` and imported by ``cli/import_torch_checkpoint.py``
@@ -354,8 +357,7 @@ Phases, each printed as one JSON line:
               script's widths and epochs, with export and the artifact
               call): seconds, launches;
 11. ``seconds`` (each phase group's wall time; ``drivers``: the six phases
-              above together), ``step_share`` and
-              ``god_step_share``, the ``kernels`` line (each
+              above together), the ``kernels`` line (each
               kernel's launches by path, its times at the GOD shapes under
               ``god`` and at this slice's shapes under ``more_shapes``; the
               long-row path as ``robust_quantiles_long``), then the ``ok``
@@ -388,7 +390,7 @@ that phase's speech paths, the GOD data and its GOD paths, and stops;
 ``--phase bench`` runs the build and the ``bench`` phase; ``--phase gelu``
 the build, the ``gelu`` phase and a captured exact-GELU step; ``--phase
 w2v`` the build and the ``w2v_features`` phase; ``--phase bn_time_major``
-the build, that phase and its traced throughput step.
+the build, that phase and its captured throughput step.
 """
 
 from __future__ import annotations
@@ -444,6 +446,7 @@ from meg_decoding_tpu_torch.ops.kernels import batchnorm as bk
 from meg_decoding_tpu_torch.ops.kernels import build
 from meg_decoding_tpu_torch.ops.kernels import gelu as gk
 from meg_decoding_tpu_torch.ops.kernels import quantile as qk
+from meg_decoding_tpu_torch.ops.kernels import launch_counts, reset_launches
 from meg_decoding_tpu_torch.ops.kernels import window_gather as wg
 from meg_decoding_tpu_torch.ops.resample import resample_fft, resample_len
 from meg_decoding_tpu_torch.data.gwilliams import (
@@ -488,7 +491,7 @@ L2_BYTES = 50 * 2**20      # H100 L2 cache
 C, F = FULL_WIDTH_CACHE["C"], FULL_WIDTH_CACHE["F"]
 BATCH, N_REQUESTS = 64, 4
 D2 = 320                   # BN width of every ConvBlock in configs/config.yaml
-TRAIN_UPDATES, TIMED_STEPS = 6, 10
+TRAIN_UPDATES, FUSED_STEPS = 6, 10
 BN_PER_STEP = 10           # 5 ConvBlocks × (bn0, bn1)
 PRESETS = ("throughput", "throughput_exact")  # configs/*.yaml, as published
 PRESET_UPDATES, PRESET_STEPS = 4, 6
@@ -1089,9 +1092,7 @@ TM_OFF = (((BATCH, 360, 21), torch.bfloat16, 0, False),
           ((BATCH, 24, D2), torch.float32, 1, True),
           ((BATCH, 24, D2), torch.bfloat16, 1, False),
           ((4 * BATCH, 48, D2), torch.bfloat16, 0, True))
-# cuDNN's layout transposes, by kernel name
-LAYOUT_TRANSPOSE = re.compile(r"nchwToNhwc|nhwcToNchw")
-TM_STEPS = 3  # replays of the throughput step under the profiler
+TM_STEPS = 3  # replays of the throughput step counted
 
 
 def bn_tm_check(x: torch.Tensor, g: torch.Tensor, cotangents: bool = False) -> dict:
@@ -1258,13 +1259,11 @@ def phase_bn_time_major(flush) -> dict:
     return rows
 
 
-def phase_bn_time_major_step(work: str, seed: int, smi: str) -> dict:
+def phase_bn_time_major_step(work: str, seed: int) -> dict:
     """``configs/throughput.yaml`` at full width (bf16, B = 256): the fused
-    step's graph replayed ``TM_STEPS`` times under torch.profiler.  Each
-    replay must launch 10 time-major ``bn_stats`` and ``bn_bwd`` and no NCW
-    BN kernel; cuDNN's layout transposes are counted with their longest
-    single time (an activation of the step is 59 MB: ~18 µs at the byte
-    bound), and PyTorch's copies (``direct_copy``) timed."""
+    step's graph replayed ``TM_STEPS`` times.  Each replay must launch 10
+    time-major ``bn_stats`` and ``bn_bwd`` and no NCW BN kernel, by the
+    launch counters."""
     from meg_decoding_tpu_torch.cli.profile_train_step import speech_step
 
     cfg, routes = speech_step(work, seed, [], config_name="throughput")
@@ -1273,18 +1272,9 @@ def phase_bn_time_major_step(work: str, seed: int, smi: str) -> dict:
         one(i)
     torch.cuda.synchronize()
     reset_all_launches()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for i in range(TM_STEPS):
-            one(3 + i)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    tr = [e.time_range.end - e.time_range.start for e in kernels
-          if LAYOUT_TRANSPOSE.search(e.name)]
-    copies_us = sum(e.time_range.end - e.time_range.start for e in kernels
-                    if "direct_copy" in e.name)
+    for i in range(TM_STEPS):
+        one(3 + i)
+    torch.cuda.synchronize()
     want_stats = {**dict.fromkeys(bk.STATS_ROUTES, 0),
                   "time_major": BN_PER_STEP * TM_STEPS}
     want_bwd = {**dict.fromkeys(bk.BWD_ROUTES, 0),
@@ -1295,26 +1285,9 @@ def phase_bn_time_major_step(work: str, seed: int, smi: str) -> dict:
                              f"{bk.stats_route_launches} / "
                              f"{bk.bwd_route_launches}, expected {want_stats} "
                              f"/ {want_bwd}")
-    names = {}
-    for e in kernels:
-        if LAYOUT_TRANSPOSE.search(e.name) or re.search(
-                r"conv|xmma|wgrad|dgrad|fprop|bn_", e.name):
-            row = names.setdefault(e.name[:120], [0, 0.0])
-            row[0] += 1
-            row[1] += e.time_range.end - e.time_range.start
-    out = {"device": smi, "config": "throughput",
-           "compute_dtype": str(cfg.compute_dtype), "steps": TM_STEPS,
-           "device_ops_per_step": len(kernels) / TM_STEPS,
-           "layout_transposes_per_step": len(tr) / TM_STEPS,
-           "layout_transpose_us_per_step": sum(tr) / TM_STEPS,
-           "layout_transpose_longest_us": max(tr, default=0.0),
-           "copy_us_per_step": copies_us / TM_STEPS,
-           "stats_routes": dict(bk.stats_route_launches),
-           "bwd_routes": dict(bk.bwd_route_launches),
-           "conv_and_bn_kernels": {k: {"calls_per_step": c / TM_STEPS,
-                                       "us_per_step": us / TM_STEPS}
-                                   for k, (c, us) in sorted(
-                                       names.items(), key=lambda kv: -kv[1][1])}}
+    out = {"config": "throughput", "compute_dtype": str(cfg.compute_dtype),
+           "steps": TM_STEPS, "stats_routes": dict(bk.stats_route_launches),
+           "bwd_routes": dict(bk.bwd_route_launches)}
     emit({"phase": "bn_time_major_step", **out})
     return out
 
@@ -1553,10 +1526,7 @@ def phase_serving(cfg, ds, tr_idx, seed) -> dict:
 
 
 def reset_all_launches() -> None:
-    wg.reset_launches()
-    qk.reset_launches()
-    bk.reset_launches()
-    gk.reset_launches()
+    reset_launches()
     tg.reset_counts()
 
 
@@ -1571,8 +1541,9 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def phase_training(cfg, ds, tr_idx, seed, work) -> dict:
-    """One step on the card against the CPU, the fused step's times, then
-    the main path: the train CLI for one epoch.  Returns its launch counts."""
+    """One step on the card against the CPU, a few fused steps' losses,
+    then the main path: the train CLI for one epoch.  Returns its launch
+    counts."""
     dev = torch.device("cuda")
     loc = ch_locations_2d(cfg)
     loss_cfg = dataclasses.replace(train_speech.loss_config(cfg), grad_norms=True)
@@ -1593,11 +1564,7 @@ def phase_training(cfg, ds, tr_idx, seed, work) -> dict:
     X, Y, subs = pool.gather(np.arange(BATCH))
     centre = int(torch.randint(C, (), generator=torch.Generator().manual_seed(seed)))
     step = make_train_step(model, opt, loss_cfg, collate_cfg)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     state, m = step(state, X, Y, subs, centre=centre)
-    torch.cuda.synchronize()
-    first_ms = (time.perf_counter() - t0) * 1e3
     cpu_step = make_train_step(cpu_model, cpu_opt, loss_cfg, collate_cfg)
     _, mc = cpu_step(cpu_state, X.cpu(), Y.cpu(), subs.cpu(), centre=centre)
     check = {"loss_rel_err": rel_err(m["loss"], mc["loss"]),
@@ -1609,15 +1576,11 @@ def phase_training(cfg, ds, tr_idx, seed, work) -> dict:
     # the fused step (session draw + gather + step) as the trainer runs it
     fused = make_fused_speech_step(model, opt, loss_cfg, collate_cfg, ds)
     rng = np.random.RandomState(seed)
-    step_ms, losses = [], []
-    for i in range(TIMED_STEPS):
+    losses = []
+    for i in range(FUSED_STEPS):
         idx = pool.segment_ids(rng.randint(0, len(pool), BATCH))
         gen = torch.Generator().manual_seed(seed * 1000 + i)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         state, m = fused(state, idx, generator=gen)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
         if float(m["skipped"]) != 0.0 or not math.isfinite(losses[-1]):
             raise AssertionError(f"fused step {i}: loss {losses[-1]}, "
@@ -1669,8 +1632,6 @@ def phase_training(cfg, ds, tr_idx, seed, work) -> dict:
         raise AssertionError(f"train CLI launches {launches}, expected {expected}")
     replays = graph_replays("train CLI", TRAIN_UPDATES, pools)
     emit({"phase": "training", "card_vs_cpu": check, "rel_err_limit": 1e-4,
-          "first_step_ms": first_ms, "fused_step_ms": step_ms,
-          "steady_step_ms": float(np.median(step_ms[1:])),
           "fused_losses": losses, "train_cli_s": run_s,
           "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
                                              "train_top1", "train_top10",
@@ -1679,8 +1640,7 @@ def phase_training(cfg, ds, tr_idx, seed, work) -> dict:
           "test_pools": pools, "launches": launches, "graph": replays,
           "bn_stats_routes": dict(bk.stats_route_launches),
           "bn_bwd_sums_only_launches": bk.sums_only_launches})
-    return {"launches": launches, "stats_routes": dict(bk.stats_route_launches),
-            "steady_step_ms": float(np.median(step_ms[1:]))}
+    return {"launches": launches, "stats_routes": dict(bk.stats_route_launches)}
 
 
 GOD_EVAL_KEYS = {"val_top1", "val_top10", "zeroshot_top1", "zeroshot_top10",
@@ -1761,8 +1721,8 @@ def phase_god_kernels(cfg, ds, flush) -> dict:
 
 
 def phase_god_training(cfg, ds, seed) -> dict:
-    """One GOD train step on the card against the same step on the CPU, the
-    per-step form's times, then the main path: ``cli/train_god.py`` for one
+    """One GOD train step on the card against the same step on the CPU, a
+    few per-step losses, then the main path: ``cli/train_god.py`` for one
     epoch.  Returns its launch counts."""
     dev = torch.device("cuda")
     cfg.num_subjects = ds.num_subjects
@@ -1782,11 +1742,7 @@ def phase_god_training(cfg, ds, seed) -> dict:
     X, Y, subs, _ = ds.gather(np.arange(BATCH))
     centre = int(torch.randint(len(loc), (), generator=torch.Generator().manual_seed(seed)))
     step = make_train_step(model, opt, loss_cfg, collate_cfg)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     state, m = step(state, X, Y, subs, centre=centre)
-    torch.cuda.synchronize()
-    first_ms = (time.perf_counter() - t0) * 1e3
     cpu_step = make_train_step(cpu_model, cpu_opt, loss_cfg, collate_cfg)
     _, mc = cpu_step(cpu_state, X.cpu(), Y.cpu(), subs.cpu(), centre=centre)
     check = {"loss_rel_err": rel_err(m["loss"], mc["loss"]),
@@ -1797,14 +1753,10 @@ def phase_god_training(cfg, ds, seed) -> dict:
 
     # the per-step form as fit runs it: gather from the packed set + step
     rng = np.random.RandomState(seed)
-    step_ms, losses = [], []
-    for i in range(TIMED_STEPS):
+    losses = []
+    for i in range(FUSED_STEPS):
         idx = rng.randint(0, len(ds), BATCH)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         state, m = step(state, *ds.gather(idx)[:3])
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
         if float(m["skipped"]) != 0.0 or not math.isfinite(losses[-1]):
             raise AssertionError(f"GOD step {i}: loss {losses[-1]}, "
@@ -1851,18 +1803,15 @@ def phase_god_training(cfg, ds, seed) -> dict:
         raise AssertionError(f"GOD train CLI launches {launches}, expected {expected}")
     replays = graph_replays("GOD train CLI", updates, pools)
     emit({"phase": "god_training", "card_vs_cpu": check, "rel_err_limit": 1e-4,
-          "first_step_ms": first_ms, "step_ms": step_ms,
-          "steady_step_ms": float(np.median(step_ms[1:])), "losses": losses,
-          "train_cli_s": run_s, "updates": updates, "test_pools": pools,
+          "losses": losses, "train_cli_s": run_s, "updates": updates,
+          "test_pools": pools,
           "train_cli": {k: best[k] for k in (
               "train_loss", "train_skipped", "train_top1", "train_top10",
-              "test_loss", "test_top1", "test_top10", "t_gather_ms",
-              "t_step_ms")},
+              "test_loss", "test_top1", "test_top10")},
           "launches": launches, "graph": replays,
           "bn_stats_routes": dict(bk.stats_route_launches),
           "bn_bwd_sums_only_launches": bk.sums_only_launches})
-    return {"launches": launches, "stats_routes": dict(bk.stats_route_launches),
-            "steady_step_ms": float(np.median(step_ms[1:]))}
+    return {"launches": launches, "stats_routes": dict(bk.stats_route_launches)}
 
 
 def phase_god_eval(cfg) -> dict:
@@ -1914,8 +1863,9 @@ def phase_presets(cfg, ds, tr_idx, seed, work, flush) -> dict:
     statistics, tanh / erf_poly GELU) on the speech cache: the sweep timed
     and held against the CPU on a sample of chunks, the sweep chunk's
     kernels timed, one batch's cached vs inline collate, the first step's
-    loss cached vs inline, a few fused steps, then the main path: the train
-    CLI for one epoch of each preset.  Returns the CLIs' launch counts."""
+    loss cached vs inline, a few fused steps' losses, then the main path:
+    the train CLI for one epoch of each preset.  Returns the CLIs' launch
+    counts."""
     dev = torch.device("cuda")
     collate = evaluate_speech.collate_config(cfg)
     bl = collate.baseline_len_samp
@@ -2032,19 +1982,15 @@ def phase_presets(cfg, ds, tr_idx, seed, work, flush) -> dict:
         if not loss_rel <= 1e-5:
             raise AssertionError(f"{preset}: first loss cached {first[0]} vs "
                                  f"inline {first[1]}")
-        # a few fused steps with the cached statistics, timed
+        # a few fused steps with the cached statistics
         model, opt, state = fresh()
         fused = make_fused_speech_step(model, opt, loss_cfg, pcollate, ds,
                                        collate_stats=table)
-        step_ms, losses = [], []
+        losses = []
         for i in range(PRESET_STEPS):
             sidx = pool.segment_ids(rng.randint(0, len(pool), B))
             gen = torch.Generator().manual_seed(seed * 1000 + i)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             state, m = fused(state, sidx, generator=gen)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(float(m["loss"]))
             if float(m["skipped"]) != 0.0 or not math.isfinite(losses[-1]):
                 raise AssertionError(f"{preset} step {i}: loss {losses[-1]}, "
@@ -2085,7 +2031,6 @@ def phase_presets(cfg, ds, tr_idx, seed, work, flush) -> dict:
         if best.get("train_skipped") != 0.0 or not math.isfinite(best["train_loss"]):
             raise AssertionError(f"{preset} CLI: {best}")
         out["launches"][preset] = launches
-        out[preset] = {"steady_step_ms": float(np.median(step_ms[1:]))}
         emit({"phase": "presets", "preset": preset,
               "compute_dtype": str(pcfg.compute_dtype), "batch_size": B,
               "gelu": str(pcfg.get("gelu_impl") or
@@ -2101,9 +2046,7 @@ def phase_presets(cfg, ds, tr_idx, seed, work, flush) -> dict:
               "collate_bit_identical": collate_ulps == 0,
               "first_loss_cached": first[0], "first_loss_inline": first[1],
               "first_loss_rel_err": loss_rel, "first_loss_limit": 1e-5,
-              "first_step_ms": step_ms[0], "step_ms": step_ms,
-              "steady_step_ms": float(np.median(step_ms[1:])), "losses": losses,
-              "train_cli_s": run_s, "test_pools": pools, "launches": launches,
+              "losses": losses, "train_cli_s": run_s, "test_pools": pools, "launches": launches,
               "gelu_launches": out["gelu_launches"][preset],
               "graph": replays,
               "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
@@ -2115,22 +2058,21 @@ def compare_epochs(run_epoch, run_steps) -> dict:
     """The epoch form against the per-step path, both from one init and
     draws, cuDNN deterministic (the same kernels on the same inputs), run
     in turns (epoch, per-step, per-step, epoch; the first run pays the
-    deterministic algorithms' set-up): mean loss within 1e-5 relative,
-    every state entry within 1e-5 of its tensor's max |p|, for every run
-    against the first epoch."""
+    deterministic algorithms' set-up), the epoch runs timed: mean loss
+    within 1e-5 relative, every state entry within 1e-5 of its tensor's
+    max |p|, for every run against the first epoch."""
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        times = {"epoch": [], "per_step": []}
-        results = []
-        for kind, run in (("epoch", run_epoch), ("per_step", run_steps),
-                          ("per_step", run_steps), ("epoch", run_epoch)):
+        epoch_s, results = [], []
+        for run in (run_epoch, run_steps, run_steps, run_epoch):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             model, means = run()
             means = {k: float(v) for k, v in means.items()}
             torch.cuda.synchronize()
-            times[kind].append(time.perf_counter() - t0)
+            if run is run_epoch:
+                epoch_s.append(time.perf_counter() - t0)
             results.append((model, means))
     finally:
         torch.backends.cudnn.deterministic = prev
@@ -2145,8 +2087,7 @@ def compare_epochs(run_epoch, run_steps) -> dict:
             and math.isfinite(a["loss"])):
         raise AssertionError(f"epoch vs per-step: {[r[1] for r in results]}, "
                              f"params {p_rel}")
-    return {"epoch_s": times["epoch"], "per_step_s": times["per_step"],
-            "epoch_means": a, "per_step_means": results[1][1],
+    return {"epoch_s": epoch_s, "epoch_means": a, "per_step_means": results[1][1],
             "loss_rel_err": loss_rel, "params_rel_err": p_rel, "limit": 1e-5}
 
 
@@ -2350,8 +2291,8 @@ def graph_path(name: str, cfg, make, calls: int, per_call: int,
     and the route's ``GraphedStep``.  Two states from one init take the
     same ``calls`` draws, cuDNN deterministic: state and metrics within
     GRAPH_RTOL of each tensor's max, launches a step equal, one replay a
-    step; then, with cuDNN's default algorithms, each route's profile
-    (the graph captured again)."""
+    step, the graph route's calls timed; then, with cuDNN's default
+    algorithms, the graph route's profile (captured again)."""
     t_path = time.perf_counter()
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -2361,18 +2302,18 @@ def graph_path(name: str, cfg, make, calls: int, per_call: int,
             state, eager, graphed, graph_of = make()
             fn = eager if route == "eager" else graphed
             reset_all_launches()
-            before = tg.launch_counts()
+            before = launch_counts()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             ms, hist = [], []
             for i in range(calls):
-                torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 m = fn(i)
                 torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3 / per_call)
+                if route == "graph":
+                    ms.append((time.perf_counter() - t0) * 1e3 / per_call)
                 hist.append({k: v.detach().clone() for k, v in m.items()})
-            after = tg.launch_counts()
+            after = launch_counts()
             runs[route] = {
                 "state": state, "fn": fn, "graph_of": graph_of, "ms": ms,
                 "hist": hist, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -2400,27 +2341,22 @@ def graph_path(name: str, cfg, make, calls: int, per_call: int,
         raise AssertionError(f"graphs {name}: replays eager {e['replays']}, "
                              f"graph {g['replays']}, captures {g['captures']}")
     capture_s = g["graph_of"]().capture_seconds
-    for r in (e, g):  # free both states and the graph before the profiles
+    for r in (e, g):  # free both states and the graph before the profile
         del r["state"], r["fn"], r["graph_of"]
-    profiles = {}
-    for k, route in enumerate(("eager", "graph")):
-        _, eager, graphed, graph_of = make()
-        profiles[route] = graph_route_profile(cfg, (eager, graphed)[k], per_call)
-        if route == "graph":
-            profiles[route]["capture_s"] = graph_of().capture_seconds
-        del eager, graphed, graph_of
+    _, _, graphed, graph_of = make()
+    profile = graph_route_profile(cfg, graphed, per_call)
+    profile["capture_s"] = graph_of().capture_seconds
+    del graphed, graph_of
     row = {"phase": "graphs", "path": name, "device": smi,
            "steps": calls * per_call, "cudnn_deterministic_check": True,
            "state_rel_err": state_rel, "state_bit_identical": state_same,
            "metrics_rel_err": metrics_rel,
            "metrics_bit_identical": metrics_same, "limit": GRAPH_RTOL,
-           "eager_ms": e["ms"], "graph_ms": g["ms"],
-           "eager_ms_median": float(np.median(e["ms"][1:])),
-           "graph_ms_median": float(np.median(g["ms"][1:])),
+           "graph_ms": g["ms"], "graph_ms_median": float(np.median(g["ms"][1:])),
            "capture_s": capture_s, "launches_per_step": e["launches"],
            "replays": g["replays"], "peak_gb": {"eager": e["peak_gb"],
                                                 "graph": g["peak_gb"]},
-           "profile": profiles, "seconds": time.perf_counter() - t_path}
+           "profile": profile, "seconds": time.perf_counter() - t_path}
     emit(row)
     return row
 
@@ -2599,7 +2535,7 @@ def z_of(out) -> torch.Tensor:
     return out[1] if isinstance(out, tuple) else out
 
 
-def serve_graph_path(name: str, make, X, subs, cpu_Z, smi: str, flush) -> dict:
+def serve_graph_path(name: str, make, X, subs, cpu_Z, smi: str) -> dict:
     """One path of ``serve_graphs`` at one batch.  ``make()`` returns
     ``(eager, graphed, graph_of)``: ``eager(X, subs)`` and ``graphed(X,
     subs)`` run the path eagerly and through its graph, each returning Z
@@ -2608,9 +2544,9 @@ def serve_graph_path(name: str, make, X, subs, cpu_Z, smi: str, flush) -> dict:
     capture) and a replay bit-identical to the eager call, each with the
     eager call's launches, two forward replays after one capture; card vs
     CPU (``cpu_Z``, the first rows) within CARD_CPU_RTOL of max|Z|.  Then,
-    with the default algorithms and a new graph: each route's request ms,
-    device operations and busy ms a request and idle share, peak memory,
-    the capture's seconds and the time of the copy out of Z."""
+    with the default algorithms and a new graph: the graph route's request
+    ms, device operations and busy ms a request and idle share, peak memory
+    and the capture's seconds."""
     t_path = time.perf_counter()
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -2618,12 +2554,12 @@ def serve_graph_path(name: str, make, X, subs, cpu_Z, smi: str, flush) -> dict:
         eager, graphed, graph_of = make()
         eager(X, subs)  # the libraries' first call of these shapes
         torch.cuda.synchronize()
-        marks, outs = [tg.launch_counts()], []
+        marks, outs = [launch_counts()], []
         counts0 = graph_counts()
         for fn in (eager, graphed, graphed):
             outs.append(fn(X, subs))
             torch.cuda.synchronize()
-            marks.append(tg.launch_counts())
+            marks.append(launch_counts())
         counts1 = graph_counts()
     finally:
         torch.backends.cudnn.deterministic = prev
@@ -2650,26 +2586,20 @@ def serve_graph_path(name: str, make, X, subs, cpu_Z, smi: str, flush) -> dict:
         raise AssertionError(f"serve_graphs {name}: card vs CPU {cpu_err}")
     del eager, graphed, graph_of, outs, Z
 
-    eager, graphed, graph_of = make()
+    _, graphed, graph_of = make()
     dev = torch.device("cuda")
-    routes = {}
-    for route, fn in (("eager", eager), ("graph", graphed)):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        routes[route] = {
-            **latency_row(fn, X, subs, SERVE_GRAPH_ITERS, dev),
-            **request_profile(fn, X, subs, SERVE_GRAPH_ITERS, dev),
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    routes["graph"]["capture_s"] = graph_of().capture_seconds
-    Zg = z_of(graphed(X, subs))
-    copy_ms = time_ms(lambda: Zg.clone(), flush)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    graph = {**latency_row(graphed, X, subs, SERVE_GRAPH_ITERS, dev),
+             **request_profile(graphed, X, subs, SERVE_GRAPH_ITERS, dev),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "capture_s": graph_of().capture_seconds}
     row = {"phase": "serve_graphs", "path": name, "device": smi,
            "batch": int(X.shape[0]), "cudnn_deterministic_check": True,
            "bit_identical": True, "card_vs_cpu_rel_err": cpu_err,
            "card_vs_cpu_limit": CARD_CPU_RTOL,
            "cpu_rows": int(cpu_Z.shape[0]), "launches_per_call": launches[0],
-           "graphs": counts, "eager": routes["eager"], "graph": routes["graph"],
-           "z_bytes": Zg.numel() * Zg.element_size(), "z_copy_ms": copy_ms,
+           "graphs": counts, "graph": graph,
            "seconds": time.perf_counter() - t_path}
     emit(row)
     return row
@@ -2688,7 +2618,6 @@ def serve_graph_paths(workload: str, model, cpu_model, n_channels: int,
     card = load_artifact(out, device="cuda")
     body = make_serving_forward(collate).body
     rng = np.random.RandomState(seed + 17)
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     reads = [*model.parameters(), *model.buffers()]
 
     def cpu_ref(X, subs):
@@ -2714,7 +2643,7 @@ def serve_graph_paths(workload: str, model, cpu_model, n_channels: int,
         for kind, make in (("forward", forward_route),
                            ("artifact", artifact_route)):
             name = f"{workload}_{kind}_b{B}"
-            rows[name] = serve_graph_path(name, make, X, subs, ref, smi, flush)
+            rows[name] = serve_graph_path(name, make, X, subs, ref, smi)
 
     X, Y, subs = pool
     step = make_eval_step(model, loss_cfg, collate)
@@ -2727,7 +2656,7 @@ def serve_graph_paths(workload: str, model, cpu_model, n_channels: int,
 
     name = f"{workload}_eval_step_b{int(X.shape[0])}"
     rows[name] = serve_graph_path(name, eval_route, X, subs, cpu_ref(X, subs),
-                                  smi, flush)
+                                  smi)
     return rows
 
 
@@ -2794,8 +2723,6 @@ def phase_serve_graphs_god(cfg, ds, seed, work, smi: str) -> dict:
             if route == "eager":
                 loop.GraphedStep = EagerStep
             reset_all_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             try:
                 state, _ = loop.fit(
                     fcfg, ds, test, state,
@@ -2813,8 +2740,7 @@ def phase_serve_graphs_god(cfg, ds, seed, work, smi: str) -> dict:
                            "graphs": graph_replays(
                                f"fit {route}",
                                FIT_EPOCHS * FIT_UPDATES if route == "graph" else 0,
-                               FIT_EPOCHS * pools if route == "graph" else 0),
-                           "seconds": time.perf_counter() - t0}
+                               FIT_EPOCHS * pools if route == "graph" else 0)}
     finally:
         torch.backends.cudnn.deterministic = prev
     g, e = runs["graph"], runs["eager"]
@@ -2828,8 +2754,7 @@ def phase_serve_graphs_god(cfg, ds, seed, work, smi: str) -> dict:
                "test_pools": pools, "cudnn_deterministic_check": True,
                "state_bit_identical": True, "rows_bit_identical": True,
                "rows": g["rows"], "launches": g["launches"],
-               "graphs": g["graphs"],
-               "seconds": {k: r["seconds"] for k, r in runs.items()}}
+               "graphs": g["graphs"]}
     emit(fit_row)
     rows["god_fit"] = fit_row
     return rows
@@ -2870,12 +2795,8 @@ def phase_model_zoo(god_cfg, god_ds, seed, flush) -> dict:
         cpu_model, cpu_opt, cpu_state = state_on("cpu")
         cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
         X, Y, subs, _ = ds.gather(np.arange(BATCH))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         _, m = make_train_step(model, opt, loss_cfg, collate)(
             state, X, Y, subs, centre=0)
-        torch.cuda.synchronize()
-        first_ms = (time.perf_counter() - t0) * 1e3
         _, mc = make_train_step(cpu_model, cpu_opt, loss_cfg, collate)(
             cpu_state, X.cpu(), Y.cpu(), subs.cpu(), centre=0)
         check = {"loss_rel_err": rel_err(m["loss"], mc["loss"]),
@@ -2910,7 +2831,7 @@ def phase_model_zoo(god_cfg, god_ds, seed, flush) -> dict:
         routes_by_model[name] = dict(bk.stats_route_launches)
         emit({"phase": "model_zoo", "model": name, "T": int(ds.X.shape[2]),
               "card_vs_cpu": check, "rel_err_limit": 1e-4,
-              "first_step_ms": first_ms, "train_cli_s": run_s,
+              "train_cli_s": run_s,
               "updates": updates, "test_pools": pools, "launches": launches,
               "graph": replays,
               "bn_stats_routes": routes_by_model[name],
@@ -3206,9 +3127,10 @@ def phase_brennan_data(seed: int):
 def phase_brennan_training(ds, seed: int) -> dict:
     """The unfused step at the full width (``brennan_cfg``) on the built
     dataset: the first step on the card against the CPU (loss and global
-    gradient norm within 1e-4), then the steady step time and device
-    operations a step (``profile_train_step.profile_config``).  Returns
-    the launch counts of the timed steps."""
+    gradient norm within 1e-4), then the step replayed as a CUDA graph, as
+    ``fit`` runs it: its steady time and device operations a step
+    (``profile_train_step.profile_config``).  Returns the launch counts of
+    the timed steps."""
     dev = torch.device("cuda")
     cfg = brennan_cfg(seed)
     cfg.num_subjects, cfg.num_channels = ds.num_subjects, int(ds.X.shape[2])
@@ -3231,11 +3153,7 @@ def phase_brennan_training(ds, seed: int) -> dict:
     pool = evaluate_speech.SpeechPool(ds, seed=seed)
     X, Y, subs = pool.gather(np.arange(BATCH) % len(pool))
     step = make_train_step(model, opt, loss_cfg, collate)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     state, m = step(state, X, Y, subs, centre=0)
-    torch.cuda.synchronize()
-    first_ms = (time.perf_counter() - t0) * 1e3
     _, mc = make_train_step(cpu_model, cpu_opt, loss_cfg, collate)(
         cpu_state, X.cpu(), Y.cpu(), subs.cpu(), centre=0)
     check = {"loss_rel_err": rel_err(m["loss"], mc["loss"]),
@@ -3246,17 +3164,6 @@ def phase_brennan_training(ds, seed: int) -> dict:
     del cpu_model, cpu_opt, cpu_state
 
     rng = np.random.RandomState(seed)
-
-    def one(i):
-        idx = rng.randint(0, len(pool), BATCH)
-        return step(state, *pool.gather(
-            idx, generator=torch.Generator().manual_seed(i)))[1]
-
-    reset_all_launches()
-    torch.cuda.reset_peak_memory_stats()
-    prof = profile_config(cfg, one, warmup=2, steps=5)
-    launches = brennan_launches()
-    # the same step replayed as a CUDA graph, as fit runs it, on the state
     graphed = GraphedStep(step.body, state)
 
     def one_graph(i):
@@ -3264,25 +3171,21 @@ def phase_brennan_training(ds, seed: int) -> dict:
         return graphed(step.prepare(state, *pool.gather(
             idx, generator=torch.Generator().manual_seed(i))))
 
+    reset_all_launches()
     torch.cuda.reset_peak_memory_stats()
     gprof = profile_config(cfg, one_graph, warmup=2, steps=5)
+    launches = brennan_launches()
     graph = {k: gprof[k] for k in ("step_ms_median", "device_ops_per_step",
                                    "busy_ms_per_step", "idle_share_of_window",
                                    "max_memory_gb")}
     graph["capture_s"] = graphed.capture_seconds
     emit({"phase": "brennan_training", "card_vs_cpu": check,
-          "rel_err_limit": 1e-4, "first_step_ms": first_ms,
-          "steady_step_ms": prof["step_ms_median"], "step_ms": prof["step_ms"],
-          "device_ops_per_step": prof["device_ops_per_step"],
-          "busy_ms_per_step": prof["busy_ms_per_step"],
-          "idle_share_of_window": prof["idle_share_of_window"],
-          "groups_ms_per_step": prof["groups_ms_per_step"],
-          "max_memory_gb": prof["max_memory_gb"], "graph": graph,
+          "rel_err_limit": 1e-4, "graph": graph,
           "width": {"C": cfg.num_channels, "S": cfg.num_subjects,
                     "D1": int(cfg.D1), "D2": int(cfg.D2), "K": int(cfg.K),
                     "F": int(Y.shape[1]), "T": int(X.shape[2]), "B": BATCH},
           "launches": launches})
-    return {"launches": launches, "steady_step_ms": prof["step_ms_median"]}
+    return {"launches": launches}
 
 
 def phase_brennan_cli(work: str, seed: int) -> dict:
@@ -3901,7 +3804,7 @@ def serve_case(name, model, n_channels, seq_len, n_subjects, collate, seed,
                work) -> dict:
     """One encoder: export on the card, load on the card and on the CPU,
     served against the eager forward, the CPU artifact, its launches, a
-    scaled weight and the latency rows."""
+    scaled weight and the latency rows of the graph and the artifact."""
     dev = torch.device("cuda")
     out = os.path.join(work, f"artifact_{name}")
     torch.cuda.synchronize()
@@ -3965,7 +3868,6 @@ def serve_case(name, model, n_channels, seq_len, n_subjects, collate, seed,
     for B in BENCH_BATCHES:
         X, subs = request(B)
         for source, call in (
-                ("eager", lambda x, s: forward.body(model, x, s)),
                 ("graph", lambda x, s: forward(model, x, s)),
                 ("artifact", card)):
             rows.append({"source": source,
@@ -4179,9 +4081,9 @@ def same_draw_runs(make_state, batches_device, batches_spill) -> dict:
     eager route's launches a step; the spilled routes against the
     device-resident ones within SPILL_RTOL (the host gather clamps an
     onset past T − padded_window(L) to T − L, the device gather to
-    T − padded_window(L)). The wall time a step of each, its first step
-    (the graph's capture) untimed, one synchronize at the end; the graph
-    routes' capture s and every route's peak memory."""
+    T − padded_window(L)). The wall time a step of each graph route, its
+    first step (the capture) untimed, one synchronize at the end; the
+    graph routes' capture s and every route's peak memory."""
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     out = {}
@@ -4190,7 +4092,7 @@ def same_draw_runs(make_state, batches_device, batches_spill) -> dict:
             make = graphed(make_state) if kind.endswith("graph") else make_state
             batches = batches_spill if kind.startswith("spill") else batches_device
             model, state, step = make()
-            before, graphs = tg.launch_counts(), graph_counts()
+            before, graphs = launch_counts(), graph_counts()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             losses = []
@@ -4201,10 +4103,11 @@ def same_draw_runs(make_state, batches_device, batches_spill) -> dict:
                 state, m = step(state, *batch)
                 losses.append(m["loss"])
             torch.cuda.synchronize()
-            after = tg.launch_counts()
+            after = launch_counts()
             out[kind] = {
                 "entries": state_entries(state), "losses": [float(v) for v in losses],
-                "ms": (time.perf_counter() - t0) * 1e3 / (len(losses) - 1),
+                "ms": (time.perf_counter() - t0) * 1e3 / (len(losses) - 1)
+                if kind.endswith("graph") else None,
                 "launches": {k: after[k] - before[k] for k in after},
                 "graphs": {k: v - graphs[k] for k, v in graph_counts().items()},
                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -4230,7 +4133,7 @@ def same_draw_runs(make_state, batches_device, batches_spill) -> dict:
     if len(sp["losses"]) != n or not (loss_rel <= SPILL_RTOL and p_rel <= SPILL_RTOL):
         raise AssertionError(f"spill vs device: losses {sp['losses']} / "
                              f"{d['losses']}, state {p_rel}")
-    return {"steps": n, **{f"{k}_step_ms": out[k]["ms"] for k in SPILL_ROUTES},
+    return {"steps": n, **{f"{k}_step_ms": out[k]["ms"] for k in SPILL_ROUTES[2:]},
             "capture_s": {k: out[k]["capture_s"] for k in SPILL_ROUTES[2:]},
             "peak_gb": {k: out[k]["peak_gb"] for k in SPILL_ROUTES},
             "graphs_bit_identical_to_eager": True,
@@ -4304,40 +4207,25 @@ def direct_quantiles(x2d, qs=(25.0, 50.0, 75.0)):
     return qk._launch(x2d, tuple(qs))
 
 
-def route_cost(make_state, batches: list) -> dict:
-    """What the registered op costs the collate against a direct call of
-    the same launch: the host time of one call on a (8, 24) block (the
-    kernel a few µs; 400 calls, one synchronize), and the wall time of an
-    unfused step on ``batches`` (device-resident) with the collate's
-    percentiles through each route, in blocks op, direct, direct, op after
-    one untimed pass."""
-    from meg_decoding_tpu_torch.ops import scaling
-
+def route_cost() -> dict:
+    """What the registered op costs a call against a direct call of the
+    same launch: the host time of one call on a (8, 24) block (the kernel
+    a few µs; 400 calls, one synchronize), in blocks op, direct, direct, op
+    after one untimed call of each."""
     routes = {"op": qk.robust_quantiles, "direct": direct_quantiles}
     tiny = torch.randn(8, 24, device="cuda")
-    _, state, step = make_state()
     dispatch = {k: [] for k in routes}
-    step_ms = {k: [] for k in routes}
-    try:
-        for i, name in enumerate(("op", "direct", "direct", "op")):
-            scaling.robust_quantiles = routes[name]
-            for _ in range(1 if i else 2):  # the first block warms up first
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for batch in batches:
-                    state, _ = step(state, *batch)
-                torch.cuda.synchronize()
-            step_ms[name].append((time.perf_counter() - t0) * 1e3 / len(batches))
-            fn = routes[name]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(400):
-                fn(tiny)
-            torch.cuda.synchronize()
-            dispatch[name].append((time.perf_counter() - t0) * 1e6 / 400)
-    finally:
-        scaling.robust_quantiles = qk.robust_quantiles
-    return {"steps": len(batches), "step_ms": step_ms, "call_us": dispatch}
+    for fn in routes.values():
+        fn(tiny)
+    for name in ("op", "direct", "direct", "op"):
+        fn = routes[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(400):
+            fn(tiny)
+        torch.cuda.synchronize()
+        dispatch[name].append((time.perf_counter() - t0) * 1e6 / 400)
+    return {"call_us": dispatch}
 
 
 def busy_ms(spans) -> float:
@@ -4408,23 +4296,20 @@ def producer_timed(batches, spent: list):
 
 def spill_split(make_state, batches_device, host_batches, work, name) -> dict:
     """``traced_steps`` of the device-resident run and of the spill run
-    (``host_batches()`` through ``prefetch_to_device``), each stepped
-    eagerly and through one graph (``graphed``), with the spill producer's
-    thread CPU and wall time per batch (the profiler traces the compute
-    thread's operators only)."""
-    out = {}
-    for route, make in (("", make_state), ("_graph", graphed(make_state))):
-        spent = []
-        out["device" + route] = traced_steps(
-            make, batches_device,
-            os.path.join(work, f"split_{name}_device{route}.json"))
-        spill = out["spill" + route] = traced_steps(
-            make,
-            lambda: prefetch_to_device(producer_timed(host_batches(), spent),
-                                       size=2, device="cuda"),
-            os.path.join(work, f"split_{name}_spill{route}.json"))
-        spill["producer_cpu_ms"] = sum(c for c, _ in spent) * 1e3 / len(spent)
-        spill["producer_wall_ms"] = sum(w for _, w in spent) * 1e3 / len(spent)
+    (``host_batches()`` through ``prefetch_to_device``), each through one
+    graph (``graphed``), with the spill producer's thread CPU and wall time
+    per batch (the profiler traces the compute thread's operators only)."""
+    make, spent = graphed(make_state), []
+    out = {"device_graph": traced_steps(
+        make, batches_device,
+        os.path.join(work, f"split_{name}_device_graph.json"))}
+    spill = out["spill_graph"] = traced_steps(
+        make,
+        lambda: prefetch_to_device(producer_timed(host_batches(), spent),
+                                   size=2, device="cuda"),
+        os.path.join(work, f"split_{name}_spill_graph.json"))
+    spill["producer_cpu_ms"] = sum(c for c, _ in spent) * 1e3 / len(spent)
+    spill["producer_wall_ms"] = sum(w for _, w in spent) * 1e3 / len(spent)
     return out
 
 
@@ -4482,7 +4367,7 @@ def phase_spill_speech(cfg, seed, work, unfused_launches) -> dict:
 
     check = same_draw_runs(make_state, batches_device, batches_spill)
     split = spill_split(make_state, batches_device, host_batches, work, "speech")
-    route = route_cost(make_state, list(batches_device()))
+    route = route_cost()
     pinned = bool(spilled["ds"].recordings.is_pinned())
     bytes_per_step = BATCH * (C * L + int(ds.y_stream.shape[1]) * L) * 4
     del train_pool, test_pool, ds, device_ds, spilled
@@ -4532,7 +4417,7 @@ def phase_spill_god(cfg, god_ds, seed, work, god_launches) -> dict:
 
     check = same_draw_runs(make_state, batches_device, batches_spill)
     split = spill_split(make_state, batches_device, host_batches, work, "god")
-    route = route_cost(make_state, list(batches_device()))
+    route = route_cost()
     pinned = bool(host.X.is_pinned())
     del host
     tcfg = Config(dict(to_dict(cfg), save_root=os.path.join(work, "spill_god"),
@@ -4719,9 +4604,9 @@ def dp_vs_single(run_single, run_dp, lr: float) -> dict:
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        model_a, ms_a, hist_a, grads_a = run_single()
+        model_a, hist_a, grads_a = run_single()
         reset_all_launches()
-        model_b, ms_b, hist_b, grads_b = run_dp()
+        model_b, hist_b, grads_b = run_dp()
         launches = dp_launches()
     finally:
         torch.backends.cudnn.deterministic = prev
@@ -4737,10 +4622,7 @@ def dp_vs_single(run_single, run_dp, lr: float) -> dict:
                         "state_rtol": STATE_RTOL, "state_atol": STATE_ATOL,
                         "state_loose_abs": 2 * DP_STEPS * lr},
              "losses_single": [h["loss"] for h in hist_a],
-             "losses_dp": [h["loss"] for h in hist_b],
-             "step_ms_single": ms_a, "step_ms_dp": ms_b,
-             "steady_step_ms_single": float(np.median(ms_a[1:])),
-             "steady_step_ms_dp": float(np.median(ms_b[1:]))}
+             "losses_dp": [h["loss"] for h in hist_b]}
     ok = (all(r[0] <= DP_RTOL and max(r) <= DP_TRAJ_RTOL for r in rel.values())
           and state["first_step_grad_share"] <= 1.0 and not state["off_bound"]
           and all(math.isfinite(h["loss"]) for h in hist_a + hist_b))
@@ -4749,19 +4631,15 @@ def dp_vs_single(run_single, run_dp, lr: float) -> dict:
     return check, launches
 
 
-def timed_steps(step_fn, n: int) -> tuple[list, list]:
-    """``n`` steps, each timed to a synchronize: (ms, metrics) lists."""
-    hist, ms = [], []
+def run_steps(step_fn, n: int) -> list:
+    """``n`` steps: their metrics."""
+    hist = []
     for u in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         m = step_fn(u)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
         hist.append({k: float(m[k]) for k in ("loss", "grad_norm", "skipped")})
         if hist[-1]["skipped"] != 0.0:
             raise AssertionError(f"step {u} skipped: {m}")
-    return ms, hist
+    return hist
 
 
 def profile_steps(step_fn, n: int = 3) -> dict:
@@ -4771,7 +4649,7 @@ def profile_steps(step_fn, n: int = 3) -> dict:
     time inside the ``c10d::`` collective operations, the NCCL kernels
     and their device time a step (a one-rank group may run its
     collectives as copies, with no NCCL kernel: then 0), and the device
-    operations a step, in all and by name."""
+    operations a step."""
     from torch.profiler import ProfilerActivity, profile
 
     step_fn(0)
@@ -4782,15 +4660,14 @@ def profile_steps(step_fn, n: int = 3) -> dict:
             step_fn(u)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    host, kernels, nccl_us, device_us, c10d_us = {}, 0, 0.0, 0.0, 0.0
-    by_name = {}
+    host, kernels, nccl_us, device_us, c10d_us, ops = {}, 0, 0.0, 0.0, 0.0, 0
     for ev in prof.key_averages():
         name = ev.key.lower()
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
             dt = float(getattr(ev, "self_device_time_total", 0.0)
                        or getattr(ev, "self_cuda_time_total", 0.0))
             device_us += dt
-            by_name[ev.key] = ev.count / n
+            ops += ev.count
             if "nccl" in name:
                 kernels += ev.count
                 nccl_us += dt
@@ -4805,8 +4682,7 @@ def profile_steps(step_fn, n: int = 3) -> dict:
             "host_c10d_ms_per_step": c10d_us / n / 1e3,
             "nccl_kernels_per_step": kernels / n,
             "nccl_device_us_per_step": nccl_us / n,
-            "device_ops_per_step": sum(by_name.values()),
-            "device_ops_by_name": by_name}
+            "device_ops_per_step": ops / n}
 
 
 DIST_COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter",
@@ -4845,12 +4721,11 @@ def dp_graph_check(name: str, cfg, make, smi: str) -> dict:
     """The data-parallel step's graph route against its eager route
     (``graph_path``: DP_STEPS same draws from one init, cuDNN
     deterministic, launches a step equal, one capture, a replay a step;
-    both routes profiled), bit-identical; then the collectives of each
-    route on a new state: the eager step's a step (host operations, NCCL
-    kernels, host ms in ``c10d::`` ops; ``profile_steps``), the graph's
-    recorded in its capture (``dist_calls`` over the warm-up and the
-    capture) and a replay's (none from the host; its NCCL kernels and
-    ``c10d::`` host ms)."""
+    the graph route profiled), bit-identical; then the collectives of each
+    route on a new state: the eager step's a step (``dist_calls``), the
+    graph's recorded in its capture (``dist_calls`` over the warm-up and
+    the capture) and a replay's (none from the host; its NCCL kernels and
+    ``c10d::`` host ms, ``profile_steps``)."""
     row = graph_path(name, cfg, make, DP_STEPS, 1, smi)
     if not (row["state_bit_identical"] and row["metrics_bit_identical"]):
         raise AssertionError(f"{name}: the DP graph route is not bit-identical "
@@ -4858,7 +4733,6 @@ def dp_graph_check(name: str, cfg, make, smi: str) -> dict:
                              f"{row['metrics_rel_err']})")
     _, eager, _, _ = make()
     calls = {"eager": dist_calls(lambda: eager(0))}
-    eager_prof = profile_steps(eager)
     del eager
     _, _, graphed_fn, graph_of = make()
     calls["captured"] = dist_calls(lambda: graphed_fn(0), tg.WARMUP + 1)
@@ -4869,20 +4743,14 @@ def dp_graph_check(name: str, cfg, make, smi: str) -> dict:
     if not (calls["captured"] == calls["eager"] and calls["eager"]["per_body"] > 0
             and calls["replay"]["per_body"] == 0
             and graph_prof["host_collectives_per_step"] == 0):
-        raise AssertionError(f"{name} collectives: calls {calls}, eager "
-                             f"{eager_prof}, replay {graph_prof}")
-    # what a replay runs on the card in place of the eager step's device
-    # operations, by name (the NCCL work among them)
-    e_ops, g_ops = (p.pop("device_ops_by_name") for p in (eager_prof, graph_prof))
-    graph_prof["device_ops_changed"] = {
-        k: [e_ops.get(k, 0), g_ops.get(k, 0)] for k in sorted({*e_ops, *g_ops})
-        if e_ops.get(k, 0) != g_ops.get(k, 0)}
+        raise AssertionError(f"{name} collectives: calls {calls}, "
+                             f"replay {graph_prof}")
     return {"graph_vs_eager": {k: row[k] for k in (
-                "state_bit_identical", "metrics_bit_identical", "eager_ms_median",
+                "state_bit_identical", "metrics_bit_identical",
                 "graph_ms_median", "capture_s", "launches_per_step", "replays",
                 "peak_gb", "profile")},
-            "collectives": {"calls": calls, "eager": eager_prof,
-                            "graph": graph_prof, "capture_s": capture_s}}
+            "collectives": {"calls": calls, "graph": graph_prof,
+                            "capture_s": capture_s}}
 
 
 def bn_split_rows(mesh, B: int, T: int, flush) -> dict:
@@ -4969,8 +4837,7 @@ def phase_dp_speech(cfg, ds, tr_idx, seed, work, smi: str) -> dict:
     steps through ``setup_data_parallel``'s one-rank NCCL mesh (session-
     sharded gather, collate, synced BN by the split route, sharded CLIP
     loss, the flat gradient all-reduce) against the fused single-device
-    step on the same draws; the collectives a step from a profiler trace;
-    the DP step's graph route against its eager route (``dp_graph_check``);
+    step on the same draws; the DP step's graph route against its eager route (``dp_graph_check``);
     the split BN backward against the fused one; then the train CLI for
     one epoch with a ``distributed:`` block of one process (a train replay
     an update, an eval replay a pool), and the same with
@@ -5012,9 +4879,7 @@ def phase_dp_speech(cfg, ds, tr_idx, seed, work, smi: str) -> dict:
                     box[0], m = fused(box[0], idx[u], sess_ids=sess[u],
                                       centre=int(centres[u]))
                     return m
-                ms, hist = timed_steps(one, DP_STEPS)
-                run.step = one
-                return model, ms, hist, opt.grads
+                return model, run_steps(one, DP_STEPS), opt.grads
             return run
 
         single, dp = steps(None), steps(mesh)
@@ -5027,8 +4892,6 @@ def phase_dp_speech(cfg, ds, tr_idx, seed, work, smi: str) -> dict:
         if launches != expected:
             raise AssertionError(f"DP speech steps launches {launches}, "
                                  f"expected {expected}")
-        collectives = {"dp": profile_steps(dp.step),
-                       "single": profile_steps(single.step)}
 
         # the DP step's graph route (what ``fit`` runs) against its eager
         # route on the same draws
@@ -5117,7 +4980,7 @@ def phase_dp_speech(cfg, ds, tr_idx, seed, work, smi: str) -> dict:
     emit({"phase": "data_parallel", "workload": "speech", "world_size": 1,
           "backend": "nccl", "nccl": list(torch.cuda.nccl.version()),
           "device": smi, "batch_size": BATCH, "steps": DP_STEPS, **check,
-          "launches": launches, "collectives": collectives, "graph": dp_graph,
+          "launches": launches, "graph": dp_graph,
           "bn_split_backward": split, "train_clis": clis})
     return {"steps": launches, "cli": clis["fit"]["launches"],
             "scan_cli": clis["fit_scan"]["launches"], "split": split}
@@ -5127,8 +4990,7 @@ def phase_dp_god(cfg, ds, seed, work, smi: str) -> dict:
     """The GOD per-step path under the one-rank NCCL mesh
     (``configs/config_GOD.yaml``, B = 64): DP_STEPS steps of
     ``make_train_step(mesh=)`` on ``shard_fn``'s rows against the
-    single-device step on the same batches, the collectives a step, the
-    step's graph route against its eager route (``dp_graph_check``), the
+    single-device step on the same batches, the step's graph route against its eager route (``dp_graph_check``), the
     split BN backward at the GOD shape.  Returns the DP steps' launches."""
     dev = torch.device("cuda")
     cfg.num_subjects = ds.num_subjects
@@ -5162,9 +5024,7 @@ def phase_dp_god(cfg, ds, seed, work, smi: str) -> dict:
                     b = batches[u] if mesh_or_none is None else shard_fn(batches[u])
                     box[0], m = step(box[0], *b, centre=int(centres[u]))
                     return m
-                ms, hist = timed_steps(one, DP_STEPS)
-                run.step = one
-                return model, ms, hist, opt.grads
+                return model, run_steps(one, DP_STEPS), opt.grads
             return run
 
         single, dp = steps(None), steps(mesh)
@@ -5177,8 +5037,6 @@ def phase_dp_god(cfg, ds, seed, work, smi: str) -> dict:
         if launches != expected:
             raise AssertionError(f"DP GOD steps launches {launches}, "
                                  f"expected {expected}")
-        collectives = {"dp": profile_steps(dp.step),
-                       "single": profile_steps(single.step)}
 
         def make_dp():
             model = get_model(cfg, loc, device=dev, seed=seed)
@@ -5208,7 +5066,7 @@ def phase_dp_god(cfg, ds, seed, work, smi: str) -> dict:
     emit({"phase": "data_parallel", "workload": "god", "world_size": 1,
           "backend": "nccl", "nccl": list(torch.cuda.nccl.version()),
           "device": smi, "batch_size": BATCH, "steps": DP_STEPS, **check,
-          "launches": launches, "collectives": collectives, "graph": dp_graph,
+          "launches": launches, "graph": dp_graph,
           "bn_split_backward": split})
     return {"steps": launches, "split": split}
 
@@ -5376,8 +5234,8 @@ def phase_spill_brennan(ds, seed, work) -> dict:
     subject-wise set spilled through ``BrennanPacked.to_host``, its host
     batches through the prefetch against the device-resident batches on
     the same chunk and subject draws, the same init, cuDNN deterministic
-    (``same_draw_runs``: eager and graph routes); the ms a step of each.
-    Returns the launches of the four runs."""
+    (``same_draw_runs``: eager and graph routes); the ms a step of each
+    graph route.  Returns the launches of the four runs."""
     dev = torch.device("cuda")
     cfg = brennan_cfg(seed)
     cfg.num_subjects, cfg.num_channels = ds.num_subjects, int(ds.X.shape[2])
@@ -5735,7 +5593,7 @@ def main(argv=None) -> int:
              "at the small scale; gelu: build, the GELU kernels, then a "
              "captured full-width throughput_exact step; w2v: build, then "
              "only w2v_features; bn_time_major: build, the time-major BN "
-             "route, then a traced full-width throughput step")
+             "route, then a captured full-width throughput step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -5770,7 +5628,7 @@ def main(argv=None) -> int:
         lap("bn_time_major")
         work = os.path.join(ROOT, "runs_out", f"chip_smoke_{os.getpid()}")
         try:
-            phase_bn_time_major_step(work, args.seed, smi)
+            phase_bn_time_major_step(work, args.seed)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         lap("bn_time_major_step")
@@ -6064,24 +5922,11 @@ def main(argv=None) -> int:
     by_path = lambda k: {p: n.get(k, 0) for p, n in paths.items()}
     g = measured["gather"][:2]  # one batch: the X and the f32 Y gather
     q = measured["quantiles"]
-    # the kernels' device time in one f32 training step (bn_bwd: the whole
-    # BN backward), against its time
-    per_step = (sum(c["kernel_ms"] for c in g) + q["kernel_ms"]
-                + BN_PER_STEP * (bn["bn_stats"]["kernel_ms"]
-                                 + bn["bn_bwd_stats"]["kernel_ms"]))
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values()),
           "drivers": sum(seconds[k] for k in (
               "spill_brennan", "import_cli", "attention_maps", "inference_dump",
               "kamitani_sweeps", "quickstart"))})
-    emit({"phase": "step_share", "kernels_ms_per_step": per_step,
-          "steady_step_ms": training["steady_step_ms"],
-          "share": per_step / training["steady_step_ms"]})
-    gq, gbn = god["quantiles"], god["bn"][str(torch.float32)]
-    god_per_step = gq["kernel_ms"] + BN_PER_STEP * (
-        gbn["bn_stats"]["kernel_ms"] + gbn["bn_bwd_stats"]["kernel_ms"])
-    emit({"phase": "god_step_share", "kernels_ms_per_step": god_per_step,
-          "steady_step_ms": god_training["steady_step_ms"],
-          "share": god_per_step / god_training["steady_step_ms"]})
+    gq = god["quantiles"]
     at_god = lambda r: {k: r[k] for k in ("max_abs_err", "kernel_ms", "run_ms",
                                           "plain_ms", "library_ms",
                                           "stats_route", "host_us") if k in r}

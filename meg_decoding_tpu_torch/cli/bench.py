@@ -82,6 +82,7 @@ from meg_decoding_tpu_torch.models.brain_encoder import BrainEncoder
 from meg_decoding_tpu_torch.ops.kernels import batchnorm as bk
 from meg_decoding_tpu_torch.ops.kernels import build
 from meg_decoding_tpu_torch.ops.kernels import quantile as qk
+from meg_decoding_tpu_torch.ops.kernels import reset_launches
 from meg_decoding_tpu_torch.ops.kernels import window_gather as wg
 from meg_decoding_tpu_torch.train import loop
 from meg_decoding_tpu_torch.train.scan_loop import (
@@ -391,8 +392,7 @@ def main(argv=None) -> int:
                  else 0.9 * _total_memory_gb(dev))
     loc = normalize_locations(synthetic_cap_locations(C))
     rng = np.random.RandomState(0)
-    for counters in (wg, qk, bk):
-        counters.reset_launches()
+    reset_launches()
 
     def model(dtype=None, gelu_tanh=False, seed=0):
         return make_model(loc, S, D1, D2, F, K, dtype, gelu_tanh, dev, seed)

@@ -39,9 +39,9 @@ the warm-up left the tensors it ``reads`` bit-equal, and raises otherwise.
 The kernels' launch counters are put back as they were before the warm-up.
 Each call copies the inputs in (device inputs device to device; host
 inputs through a pinned buffer, without a sync), replays, credits the
-kernels' launch counters with the launches the capture recorded (a replay
-does not run the wrappers' Python, and ``chip_smoke.py`` checks the
-counts), and returns a copy of the outputs (any pytree of tensors; the
+kernels' launch counters (``ops/kernels/__init__.py``) with the launches
+the capture recorded (a replay does not run the wrappers' Python, and
+``chip_smoke.py`` checks the counts), and returns a copy of the outputs (any pytree of tensors; the
 0-dim ones of one dtype copied out in one operation), so that no two
 calls' outputs share storage.  The captured pointers are the caller's own
 tensors (the state's, the model's): a caller that rebinds one instead of
@@ -95,12 +95,7 @@ import torch.distributed as dist
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from meg_decoding_tpu_torch.device import resolve_device
-from meg_decoding_tpu_torch.ops.kernels import (
-    batchnorm,
-    gelu,
-    quantile,
-    window_gather,
-)
+from meg_decoding_tpu_torch.ops.kernels import add_counts, launch_counts
 from meg_decoding_tpu_torch.utils.profiling import capture_table, span
 
 __all__ = ["GraphedStep", "WARMUP", "KINDS", "NCCL_CAPTURE", "replays",
@@ -115,44 +110,10 @@ NCCL_CAPTURE = (2, 9, 6)  # the first NCCL whose collectives a capture records
 replays = dict.fromkeys(KINDS, 0)
 captures = dict.fromkeys(KINDS, 0)
 
-# the kernels' launch counters: (module, attribute), each an int or a dict
-# of ints
-_COUNTERS = ((window_gather, "launches"), (quantile, "launches"),
-             (quantile, "long_launches"), (batchnorm, "launches"),
-             (batchnorm, "stats_route_launches"),
-             (batchnorm, "bwd_route_launches"),
-             (batchnorm, "sums_only_launches"), (batchnorm, "dx_launches"),
-             (gelu, "launches"))
-
 
 def reset_counts() -> None:
     for kind in KINDS:
         replays[kind] = captures[kind] = 0
-
-
-def launch_counts() -> dict:
-    """Every kernel launch counter, by (module name, attribute, key or
-    None)."""
-    out = {}
-    for mod, attr in _COUNTERS:
-        name, v = mod.__name__.rsplit(".", 1)[1], getattr(mod, attr)
-        if isinstance(v, dict):
-            out.update({(name, attr, k): n for k, n in v.items()})
-        else:
-            out[(name, attr, None)] = v
-    return out
-
-
-def _add_counts(delta: dict) -> None:
-    mods = {mod.__name__.rsplit(".", 1)[1]: mod for mod, _ in _COUNTERS}
-    for (name, attr, key), n in delta.items():
-        if n == 0:
-            continue
-        m = mods[name]
-        if key is None:
-            setattr(m, attr, getattr(m, attr) + n)
-        else:
-            getattr(m, attr)[key] += n
 
 
 def state_tensors(state) -> list:
@@ -253,7 +214,7 @@ class GraphedStep:
                 self._capture(prog, spec)
             with span("graph.replay", "graph", prog.table.id):
                 prog.graph.replay()
-            _add_counts(prog.delta)
+            add_counts(prog.delta)
             replays[self.kind] += 1
         with span("graph.copy_out"):
             return prog.copy_out()
@@ -363,7 +324,7 @@ class GraphedStep:
         prog.delta = {k: after[k] - before[k] for k in after}
         # neither the warm-up nor the capture counts as launches on the
         # card's path: each replay does
-        _add_counts({k: counts[k] - after[k] for k in after})
+        add_counts({k: counts[k] - after[k] for k in after})
         prog.graph = graph
         torch.cuda.synchronize(self.device)
         self.capture_seconds = time.perf_counter() - t0

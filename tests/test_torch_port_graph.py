@@ -488,25 +488,53 @@ def test_fit_on_a_spilled_speech_pool_replays_one_graph(stats_setup,
 
 
 def test_launch_counters_are_read_and_credited_together():
-    """``launch_counts`` reads every counter of the three kernel modules,
-    and a credit adds to each (what a replay does)."""
+    """``launch_counts`` reads every counter of the kernel modules, and a
+    credit adds to each (what a replay does); ``graph`` reads the same."""
+    from meg_decoding_tpu_torch.ops import kernels
     from meg_decoding_tpu_torch.ops.kernels import batchnorm as bk
     from meg_decoding_tpu_torch.ops.kernels import quantile as qk
     from meg_decoding_tpu_torch.ops.kernels import window_gather as wg
     from meg_decoding_tpu_torch.train import graph
 
-    before = graph.launch_counts()
+    before = kernels.launch_counts()
+    assert graph.launch_counts() == before
     assert {k[:2] for k in before} == {
-        (m.__name__.rsplit(".", 1)[1], attr) for m, attr in graph._COUNTERS}
+        (m.__name__.rsplit(".", 1)[1], attr) for m, attr in kernels._COUNTERS}
     assert ("batchnorm", "stats_route_launches", "cluster") in before
     delta = {k: i + 1 for i, k in enumerate(before)}
-    graph._add_counts(delta)
+    kernels.add_counts(delta)
     try:
-        after = graph.launch_counts()
+        after = kernels.launch_counts()
         assert {k: after[k] - before[k] for k in after} == delta
         assert wg.launches == before[("window_gather", "launches", None)] + \
             delta[("window_gather", "launches", None)]
         assert qk.long_launches > 0 and bk.dx_launches > 0
     finally:
-        graph._add_counts({k: -n for k, n in delta.items()})
-    assert graph.launch_counts() == before
+        kernels.add_counts({k: -n for k, n in delta.items()})
+    assert kernels.launch_counts() == before
+
+
+def test_every_kernel_module_with_counters_is_listed():
+    """Each module under ``ops/kernels/`` that counts its launches (it
+    defines ``reset_launches``) is in the one list, and the one reset
+    zeroes every counter of the list."""
+    import importlib
+    import pkgutil
+
+    from meg_decoding_tpu_torch.ops import kernels
+
+    counting = set()
+    for info in pkgutil.iter_modules(kernels.__path__):
+        mod = importlib.import_module(f"{kernels.__name__}.{info.name}")
+        if hasattr(mod, "reset_launches"):
+            counting.add(mod)
+    listed = {m for m, _ in kernels._COUNTERS}
+    assert counting == listed and len(listed) == 4
+    before = kernels.launch_counts()
+    kernels.add_counts(dict.fromkeys(before, 3))
+    kernels.reset_launches()
+    try:
+        assert set(kernels.launch_counts().values()) == {0}
+    finally:
+        kernels.add_counts(before)
+    assert kernels.launch_counts() == before
