@@ -1,0 +1,10 @@
+"""llm.experts_ms_per_chunk: device ms a traced chunk of the chunk graphs'
+operations in scope ``moe_experts``, the routed experts (the two grouped
+GEMMs, the SwiGLU between them, the combine kernel)
+(``benchcore/program_trace.py``); moves ``request_ms_p50``."""
+
+from benchcore.program_trace import scope_ms
+
+
+def read(record):
+    return scope_ms(record, "moe_experts")

@@ -1,0 +1,11 @@
+"""llm.request_mfu: the model FLOPs of the untraced window's documents
+(``benchcore/counts_llm.py``: their real tokens through every layer and
+causal attention over them) over the window's summed request time and the
+card's bf16 peak, in %; moves ``request_ms_p50``."""
+
+
+def read(record):
+    if "window_flops" not in record or not record.get("request_s"):
+        return None
+    return (100.0 * record["window_flops"] / record["request_s"]
+            / record["peak_flops"])

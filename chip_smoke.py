@@ -390,7 +390,8 @@ that phase's speech paths, the GOD data and its GOD paths, and stops;
 ``--phase bench`` runs the build and the ``bench`` phase; ``--phase gelu``
 the build, the ``gelu`` phase and a captured exact-GELU step; ``--phase
 w2v`` the build and the ``w2v_features`` phase; ``--phase bn_time_major``
-the build, that phase and its captured throughput step.
+the build, that phase and its captured throughput step; ``--phase moe``
+the build and the MoE kernels' phase.
 """
 
 from __future__ import annotations
@@ -446,6 +447,7 @@ from meg_decoding_tpu_torch.ops.batchnorm import batch_norm_train
 from meg_decoding_tpu_torch.ops.kernels import batchnorm as bk
 from meg_decoding_tpu_torch.ops.kernels import build
 from meg_decoding_tpu_torch.ops.kernels import gelu as gk
+from meg_decoding_tpu_torch.ops.kernels import moe as mk
 from meg_decoding_tpu_torch.ops.kernels import quantile as qk
 from meg_decoding_tpu_torch.ops.kernels import launch_counts, reset_launches
 from meg_decoding_tpu_torch.ops.kernels import window_gather as wg
@@ -502,6 +504,8 @@ EEGNET_BN = 3              # bn1, bn2, bn3
 # throughput_exact.yaml): 2 in each of 5 ConvBlocks, the two final ones
 GELU_SITES = {(256, 320, 360): 10, (256, 640, 360): 1, (256, 1024, 360): 1}
 GELU_PER_STEP = sum(GELU_SITES.values())
+# DeepSeek-V2-Lite's MoE a chunk: tokens, routed experts, top-k, hidden
+MOE_CHUNK = (2048, 64, 6, 2048)
 GELU_STEPS = 3
 # the run_ms in µs that PERF.md §6 records for the kernels these replaced
 # (one CTA per channel for bn_stats, the first bn_bwd_dx; NVIDIA H100 80GB
@@ -1545,6 +1549,76 @@ def phase_gelu(flush) -> dict:
           "per_step_run_ms": sum(v["run_ms"] for v in per_step.values()),
           "per_step_bound_ms": sum(v["bound_ms"] for v in per_step.values())})
     return {"rows": rows, "per_step": per_step}
+
+
+def moe_check(T: int, E: int, k: int, H: int, gen) -> tuple:
+    """The MoE route and combine kernels on T tokens' logits over E experts
+    (top k) and rows of H against their plain versions: ids, offsets, rows,
+    tokens and the counter equal, weights within 4 f32 ulp (the softmax's
+    sum runs in another order); the combine, with and without the shared
+    rows, bit for bit.  Returns the inputs the timing reuses."""
+    logits = torch.randn(T, E, device="cuda", generator=gen)
+    nv = torch.tensor([max(T - 3, 1)], dtype=torch.int32, device="cuda")
+    c1 = torch.zeros(E, dtype=torch.int32, device="cuda")
+    c2 = torch.zeros(E, dtype=torch.int32, device="cuda")
+    got = mk.moe_route(logits, k, nv, c1)
+    want = mk.moe_route_plain(logits, k, nv, c2)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("ids", "offs", "pos", "sorted_token"), got[1:],
+                          want[1:]):
+        if not torch.equal(a, b.to(a.dtype)):
+            raise AssertionError(f"moe_route {T, E, k}: {name} differs")
+    if not (torch.allclose(got[0], want[0], rtol=5e-7, atol=0)
+            and torch.equal(c1, c2)):
+        raise AssertionError(f"moe_route {T, E, k}: weights or counter")
+    ys = torch.randn(T * k, H, device="cuda", generator=gen).bfloat16()
+    shared = torch.randn(T, H, device="cuda", generator=gen).bfloat16()
+    w, pos = got[0], got[3]
+    for sh in (shared, None):
+        if not torch.equal(mk.moe_combine(ys, pos, w, sh),
+                           mk.moe_combine_plain(ys, pos, w, sh)):
+            raise AssertionError(f"moe_combine {T, k, H}: differs")
+    return logits, nv, c1, ys, pos, w, shared
+
+
+def phase_moe(flush) -> dict:
+    """DeepSeek-V2-Lite's MoE kernels (``csrc/moe_route.cu``) against their
+    plain versions at a chunk's shape (``MOE_CHUNK``) and three off-path
+    ones, and timed alone at the chunk's: single launch and run against
+    the byte bound (``benchmark/benchcore/counts_llm.py``'s), the plain
+    version, and the library's nearest calls (route: ``softmax`` +
+    ``topk``, without the sort by expert; combine: the gather and weighted
+    sum as one einsum)."""
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    for shape in ((37, 8, 2, 64), (1, 256, 8, 2048), (4096, 64, 6, 1024)):
+        moe_check(*shape, gen)
+    T, E, k, H = MOE_CHUNK
+    logits, nv, c1, ys, pos, w, shared = moe_check(T, E, k, H, gen)
+    c2 = c1.clone()
+    nb = {"route": 4 * (T * E + T * k * 4 + E),
+          "combine": 2 * (T * k * H + 2 * T * H) + 8 * T * k}
+    lg, ysc = copies(logits, nb["route"]), copies(ys, nb["combine"])
+    calls = {
+        "route": (lambda: mk.moe_route(logits, k, nv, c1),
+                  lambda: mk.moe_route_plain(logits, k, nv, c2),
+                  lambda: torch.topk(torch.softmax(logits, -1), k, dim=-1),
+                  [lambda a=a: mk.moe_route(a, k, nv, c1) for a in lg]),
+        "combine": (lambda: mk.moe_combine(ys, pos, w, shared),
+                    lambda: mk.moe_combine_plain(ys, pos, w, shared),
+                    lambda: torch.einsum("tkh,tk->th", ys[pos.long()], w
+                                         .bfloat16()),
+                    [lambda a=a: mk.moe_combine(a, pos, w, shared)
+                     for a in ysc])}
+    row = {"shape": [T, E, k, H]}
+    for name, (kernel, plain, library, run) in calls.items():
+        row[name] = {"kernel_ms": time_ms(kernel, flush), "run_ms": run_ms(run),
+                     "plain_ms": time_ms(plain, flush),
+                     "library_ms": time_ms(library, flush),
+                     "bytes": nb[name],
+                     "bound_ms": nb[name] / HBM_BYTES_PER_S * 1e3}
+    emit({"phase": "moe", **row})
+    del lg, ysc
+    return row
 
 
 def phase_gelu_step(work: str, seed: int) -> dict:
@@ -5722,7 +5796,7 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--phase", choices=("all", "brennan_kernels", "graphs", "serve_graphs",
                             "spill_dp", "bench", "gelu", "w2v",
-                            "bn_time_major", "bn_affine"),
+                            "bn_time_major", "bn_affine", "moe"),
         default="all",
         help="brennan_kernels: build, then only that phase at Brennan's "
              "row length; copied into another checkout's root, it times that "
@@ -5737,7 +5811,8 @@ def main(argv=None) -> int:
              "only w2v_features; bn_time_major: build, the time-major BN "
              "route, then a captured full-width throughput step; bn_affine: "
              "build, the BN affine kernel, then captured full-width bf16 "
-             "and f32 steps")
+             "and f32 steps; moe: build, DeepSeek-V2-Lite's MoE route and "
+             "combine kernels")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -5789,6 +5864,13 @@ def main(argv=None) -> int:
         finally:
             shutil.rmtree(work, ignore_errors=True)
         lap("bn_affine_steps")
+        emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
+        return 0
+    if args.phase == "moe":
+        flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+        phase_moe(flush)
+        del flush
+        lap("moe")
         emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
         return 0
     if args.phase == "gelu":
@@ -5881,6 +5963,7 @@ def main(argv=None) -> int:
         phase_bn_time_major(flush)
         affine = phase_bn_affine(flush, work)
         gelu = phase_gelu(flush)
+        phase_moe(flush)
         del flush
         lap("kernels")
         serving = phase_serving(cfg, ds, tr_idx, args.seed)

@@ -1,7 +1,9 @@
 """Local Hugging Face checkpoints, read without transformers.
 
 A checkpoint is a directory holding ``config.json`` and the weights, as
-``model.safetensors`` or ``pytorch_model.bin``.  ``checkpoint_dir``
+``model.safetensors``, safetensors shards listed in
+``model.safetensors.index.json`` (DeepSeek-V2-Lite's four), or
+``pytorch_model.bin``.  ``checkpoint_dir``
 accepts such a directory, or a hub id (``org/name``) already in the hub
 cache (``$HF_HUB_CACHE``, else ``$HF_HOME/hub``, else
 ``~/.cache/huggingface/hub``: ``models--org--name/snapshots/<rev>/``).
@@ -13,7 +15,8 @@ range, then the raw little-endian tensors.  ``pytorch_model.bin`` goes
 through ``torch.load(weights_only=True)``.
 
 ``load_encoder`` is the backend choice of ``features/wav2vec.py:
-load_wav2vec`` and ``features/clip_features.py:load_clip``: ``hf`` (such a
+load_wav2vec``, ``features/clip_features.py:load_clip`` and
+``features/text_llm.py:load_text_llm``: ``hf`` (such a
 checkpoint), ``random`` (seeded weights drawn on the device), ``auto``
 (``hf``, else ``random`` with a loud message, as the JAX package does).
 """
@@ -27,10 +30,10 @@ import struct
 
 import torch
 
-from meg_decoding_tpu_torch.interop import encoder_params_from_hf
+from meg_decoding_tpu_torch.interop import _for_module, encoder_params_from_hf
 
 __all__ = ["checkpoint_dir", "read_config", "read_state_dict",
-           "read_safetensors", "load_encoder"]
+           "read_safetensors", "load_encoder", "deepseek_v2_params_from_hf"]
 
 _SAFETENSORS_DTYPES = {
     "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
@@ -94,11 +97,20 @@ def read_safetensors(path: str) -> dict[str, torch.Tensor]:
 
 
 def read_state_dict(ckpt_dir: str) -> dict[str, torch.Tensor]:
-    """The checkpoint's weights: ``model.safetensors`` if present, else
+    """The checkpoint's weights: ``model.safetensors`` if present, else the
+    shards that ``model.safetensors.index.json`` lists, else
     ``pytorch_model.bin``."""
     st = os.path.join(ckpt_dir, "model.safetensors")
     if os.path.exists(st):
         return read_safetensors(st)
+    index = os.path.join(ckpt_dir, "model.safetensors.index.json")
+    if os.path.exists(index):
+        with open(index) as f:
+            shards = sorted(set(json.load(f)["weight_map"].values()))
+        out = {}
+        for shard in shards:
+            out.update(read_safetensors(os.path.join(ckpt_dir, shard)))
+        return out
     binary = os.path.join(ckpt_dir, "pytorch_model.bin")
     if os.path.exists(binary):
         return torch.load(binary, map_location="cpu", weights_only=True)
@@ -106,11 +118,27 @@ def read_state_dict(ckpt_dir: str) -> dict[str, torch.Tensor]:
         f"{ckpt_dir} holds neither model.safetensors nor pytorch_model.bin")
 
 
+def deepseek_v2_params_from_hf(state_dict, module: torch.nn.Module) -> dict:
+    """A ``DeepseekV2ForCausalLM`` (or ``DeepseekV2Model``) state_dict →
+    ``module``'s (``features/deepseek_v2_model.py``, transformers' names
+    under ``model.``): the prefix dropped, and the LM head and any rotary
+    ``inv_freq`` buffer left out (the features are hidden states)."""
+    out = {}
+    for key, t in state_dict.items():
+        key = key.removeprefix("model.")
+        if key == "lm_head.weight" or key.endswith("rotary_emb.inv_freq"):
+            continue
+        out[key] = t
+    return _for_module(out, module, "the checkpoint")
+
+
 def load_encoder(model_name: str, backend: str, build, config_from_dict,
-                 init_random, what: str) -> torch.nn.Module:
+                 init_random, what: str,
+                 from_hf=encoder_params_from_hf) -> torch.nn.Module:
     """The encoder per ``backend``, in eval mode without gradients.
     ``build(config)`` makes the module on its device, ``config_from_dict``
-    reads a ``config.json``, ``init_random(module)`` draws its weights;
+    reads a ``config.json``, ``init_random(module)`` draws its weights,
+    ``from_hf(state_dict, module)`` renames a checkpoint's weights;
     ``build()`` with no argument is the random backend's architecture."""
     if backend not in ("hf", "random", "auto"):
         raise ValueError(f"unknown {what} backend {backend!r} (hf, random, auto)")
@@ -119,8 +147,7 @@ def load_encoder(model_name: str, backend: str, build, config_from_dict,
         try:
             ckpt = checkpoint_dir(model_name)
             model = build(config_from_dict(read_config(ckpt)))
-            model.load_state_dict(encoder_params_from_hf(read_state_dict(ckpt),
-                                                         model))
+            model.load_state_dict(from_hf(read_state_dict(ckpt), model))
         except (OSError, KeyError, ValueError, NotImplementedError) as e:
             if backend == "hf":
                 raise

@@ -14,6 +14,7 @@ from __future__ import annotations
 from meg_decoding_tpu_torch.ops.kernels import (
     batchnorm,
     gelu,
+    moe,
     quantile,
     window_gather,
 )
@@ -27,7 +28,7 @@ _COUNTERS = ((window_gather, "launches"), (quantile, "launches"),
              (batchnorm, "stats_route_launches"),
              (batchnorm, "bwd_route_launches"),
              (batchnorm, "sums_only_launches"), (batchnorm, "dx_launches"),
-             (gelu, "launches"))
+             (gelu, "launches"), (moe, "launches"))
 
 
 def launch_counts() -> dict:

@@ -45,6 +45,10 @@ extended.
                        (``request=``)
   ``w2v.chunk``        one chunk's host work there: its buffer and mask,
                        the graph's call, the slice it keeps (``chunk=``)
+  ``llm.embed``        one ``features/text_llm.py:embed_words_last4_avg``
+                       call (``request=``)
+  ``llm.chunk``        one chunk's host work there: its buffer, the graph's
+                       call, the slice it keeps (``chunk=``)
   ==================== =====================================================
 
 * ``StepTimer`` — host wall-clock time per phase, each phase the spans of
@@ -54,7 +58,8 @@ extended.
   unless the span ends in a wait.
 * ``scope(name)`` — marks a part of a body captured as a CUDA graph
   (``SCOPES``: the brain encoder's train and eval steps, then wav2vec2's
-  chunk forward, ``features/wav2vec2_model.py``).  Scopes nest; the innermost open scope owns the graph
+  chunk forward, ``features/wav2vec2_model.py``, then DeepSeek-V2's,
+  ``features/deepseek_v2_model.py``).  Scopes nest; the innermost open scope owns the graph
   nodes its stretch adds.  While ``capture_table`` records, each scope
   boundary reads how many nodes the graph under capture holds (the CUDA
   driver's ``cuStreamGetCaptureInfo`` and ``cuGraphGetNodes``, which are
@@ -90,7 +95,7 @@ __all__ = ["profile_trace", "span", "StepTimer", "batch_ids", "SCOPES",
 
 SCOPES = ("collate", "gelu", "batchnorm", "loss", "backward", "adam",
           "bn_commit", "w2v_conv", "w2v_pos_conv", "attention", "ffn",
-          "last4")
+          "last4", "mla", "moe_route", "moe_experts", "moe_shared")
 
 # the ids of the train sets' gathers (``data.gather``'s ``batch=``)
 batch_ids = itertools.count()
