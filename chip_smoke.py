@@ -79,6 +79,15 @@ Phases, each printed as one JSON line:
               non-contiguous input (refused); ``--phase gelu`` adds a
               captured ``configs/throughput_exact.yaml`` step at full
               width, whose replays must launch each kernel 12 times;
+    adam     — (after ``kernels``) Adam's multi-tensor kernel on the speech
+              and GOD encoders' parameter lists (9.57 M and 7.34 M
+              elements): p, mu and nu bit for bit against the eager chain
+              over 8 steps (one skipped, one None gradient), then timed
+              like phase 3 against its byte bound (28 bytes an element),
+              the chain and torch.optim.Adam's ``_foreach_*`` route;
+              ``--phase adam`` adds the captured full-width bf16, f32 and
+              GOD steps, whose replays must launch it once each and the
+              chain never (the train CLIs' phases check the same);
 4. serving  — a synthetic 27-subject cache, 4 requests of 64 raw windows
               through ``serving/forward.py`` (Z checked finite, of shape
               (64, 1024, 360), and against the same model on the CPU), then
@@ -391,7 +400,8 @@ that phase's speech paths, the GOD data and its GOD paths, and stops;
 the build, the ``gelu`` phase and a captured exact-GELU step; ``--phase
 w2v`` the build and the ``w2v_features`` phase; ``--phase bn_time_major``
 the build, that phase and its captured throughput step; ``--phase moe``
-the build and the MoE kernels' phase.
+the build and the MoE kernels' phase; ``--phase adam`` the build, the
+``adam`` phase and the captured bf16, f32 and GOD steps.
 """
 
 from __future__ import annotations
@@ -444,6 +454,7 @@ from meg_decoding_tpu_torch.parallel.dp import (
     setup_data_parallel,
 )
 from meg_decoding_tpu_torch.ops.batchnorm import batch_norm_train
+from meg_decoding_tpu_torch.ops.kernels import adam as ak
 from meg_decoding_tpu_torch.ops.kernels import batchnorm as bk
 from meg_decoding_tpu_torch.ops.kernels import build
 from meg_decoding_tpu_torch.ops.kernels import gelu as gk
@@ -506,6 +517,10 @@ GELU_SITES = {(256, 320, 360): 10, (256, 640, 360): 1, (256, 1024, 360): 1}
 GELU_PER_STEP = sum(GELU_SITES.values())
 # DeepSeek-V2-Lite's MoE a chunk: tokens, routed experts, top-k, hidden
 MOE_CHUNK = (2048, 64, 6, 2048)
+# the encoders whose parameter lists Adam updates: (sensors, subjects, F,
+# seq2seq) of the benchmark's gwilliams_speech and god_image
+ADAM_LISTS = {"speech": (208, 27, 1024, True), "god": (22, 1, 512, False)}
+ADAM_STEPS = 8
 GELU_STEPS = 3
 # the run_ms in µs that PERF.md §6 records for the kernels these replaced
 # (one CTA per channel for bn_stats, the first bn_bwd_dx; NVIDIA H100 80GB
@@ -1621,6 +1636,160 @@ def phase_moe(flush) -> dict:
     return row
 
 
+def adam_list(kind: str, gen) -> tuple:
+    """(params, grads) of the speech or GOD encoder's parameter list at the
+    benchmark configurations' widths and the temperature, as lists on the
+    card; gradients N(0, 1)·1e-3."""
+    from meg_decoding_tpu_torch.models.brain_encoder import BrainEncoder
+
+    C_, S, F_, seq2seq = ADAM_LISTS[kind]
+    loc = np.random.RandomState(0).rand(C_, 2).astype(np.float32)
+    model = BrainEncoder(loc, S, D1=270, D2=D2, F=F_, K=32, seq2seq=seq2seq,
+                         num_blocks=5, device="cuda", generator=gen)
+    params = [p.detach() for p in model.parameters()]
+    params.append(torch.tensor(5.1, device="cuda"))
+    grads = [torch.randn(p.shape, device="cuda", generator=gen) * 1e-3
+             for p in params]
+    return params, grads
+
+
+def adam_scalars(count: int) -> tuple:
+    """``Adam._update``'s (neg_lr, c1, c2) at ``count`` updates done, lr
+    3e-3, on the card."""
+    inc = torch.tensor(count + 1, dtype=torch.int32, device="cuda")
+    neg_lr = -torch.full((), 3e-3, device="cuda")
+    return (neg_lr, 1 - ak.B1 ** inc.to(torch.float32),
+            1 - ak.B2 ** inc.to(torch.float32))
+
+
+def adam_check(params, grads, gen) -> dict:
+    """The kernel (``adam_update``) against the eager chain
+    (``adam_update_plain``) on clones, ``ADAM_STEPS`` steps with fresh
+    gradients, the fourth skipped (``ok`` false) and the first tensor's
+    gradient None: p, mu and nu bit for bit after every step, one launch
+    a step and no chain."""
+    P = [p.clone() for p in params]
+    MU = [torch.zeros_like(p) for p in params]
+    NU = [torch.zeros_like(p) for p in params]
+    P2, MU2, NU2 = ([t.clone() for t in ts] for ts in (P, MU, NU))
+    ak.reset_launches()
+    for i in range(ADAM_STEPS):
+        G = [None] + [torch.randn(g.shape, device="cuda", generator=gen)
+                      * 10.0 ** (i % 5 - 4) for g in grads[1:]]
+        ok = torch.tensor(i != 3, device="cuda")
+        scalars = adam_scalars(i if i <= 3 else i - 1)  # step 3 undone
+        ak.adam_update(P, G, MU, NU, *scalars, ok)
+        ak.adam_update_plain(P2, G, MU2, NU2, *scalars, ok)
+        torch.cuda.synchronize()
+        for what, a, b in (("p", P, P2), ("mu", MU, MU2), ("nu", NU, NU2)):
+            for j, (x, y) in enumerate(zip(a, b)):
+                if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+                    raise AssertionError(f"adam step {i}: {what} of tensor "
+                                         f"{j} {tuple(x.shape)} differs from "
+                                         "the eager chain")
+    want = {"multi_tensor": ADAM_STEPS, "eager": 0}
+    if ak.launches != want:
+        raise AssertionError(f"adam launches {ak.launches}, expected {want}")
+    return {"steps": ADAM_STEPS, "bit_equal": True, "skipped_step": 3,
+            "none_grad": 0}
+
+
+def adam_library(params, grads, mus, nus, count: int = 1):
+    """torch.optim.Adam's foreach route (``_foreach_*`` ops, host-float
+    step sizes, no skipped step) on the same lists: the yardstick."""
+    bc1, bc2 = 1 - ak.B1 ** count, 1 - ak.B2 ** count
+
+    def run():
+        torch._foreach_lerp_(mus, grads, 1 - ak.B1)
+        torch._foreach_mul_(nus, ak.B2)
+        torch._foreach_addcmul_(nus, grads, grads, 1 - ak.B2)
+        den = torch._foreach_sqrt(nus)
+        torch._foreach_div_(den, math.sqrt(bc2))
+        torch._foreach_add_(den, ak.EPS)
+        torch._foreach_addcdiv_(params, mus, den, -3e-3 / bc1)
+    return run
+
+
+def phase_adam(flush) -> dict:
+    """Adam's multi-tensor kernel (``csrc/adam.cu``) on the speech and GOD
+    encoders' parameter lists: bit for bit against the eager chain over
+    ``ADAM_STEPS`` steps (``adam_check``), then timed alone (single and
+    run) against its byte bound (p, g, mu, nu read and p, mu, nu written:
+    28 bytes an element), the eager chain ("plain"), torch.optim.Adam's
+    ``_foreach_*`` route ("library") and the wrapper's host time a call."""
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    rows = {}
+    for kind in ADAM_LISTS:
+        params, grads = adam_list(kind, gen)
+        check = adam_check(params, grads, gen)
+        mus = [torch.rand(p.shape, device="cuda", generator=gen) * 1e-3
+               for p in params]
+        nus = [torch.rand(p.shape, device="cuda", generator=gen) * 1e-6
+               for p in params]
+        ok = torch.ones((), dtype=torch.bool, device="cuda")
+        scalars = adam_scalars(1)
+        numel = sum(p.numel() for p in params)
+        nbytes = 28 * numel
+        kernel = lambda: ak.adam_update(params, grads, mus, nus,  # noqa: E731
+                                        *scalars, ok)
+        plain = lambda: ak.adam_update_plain(  # noqa: E731
+            params, grads, mus, nus, *scalars, ok)
+        row = {"tensors": len(params), "elements": numel,
+               "launches_a_call": len(ak.plan([p.numel() for p in params])),
+               "check": check, "kernel_ms": time_ms(kernel, flush),
+               "run_ms": run_ms([kernel]), "plain_ms": time_ms(plain, flush),
+               "library_ms": time_ms(adam_library(params, grads, mus, nus),
+                                     flush),
+               "host_us": host_us(kernel), "bytes": nbytes,
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        row["run_share_of_bound"] = row["bound_ms"] / row["run_ms"]
+        emit({"phase": "adam", "list": kind, **row})
+        rows[kind] = row
+        del params, grads, mus, nus
+    return rows
+
+
+def adam_launches(path: str, updates: int) -> dict:
+    """``adam.launches`` since ``reset_all_launches()``: one kernel launch
+    an update and no eager chain, or raises."""
+    want = {"multi_tensor": updates, "eager": 0}
+    if ak.launches != want:
+        raise AssertionError(f"{path}: adam launches {ak.launches}, expected "
+                             f"{want}")
+    return dict(ak.launches)
+
+
+def phase_adam_steps(work: str, seed: int) -> dict:
+    """The captured full-width steps of the training cells' routes: the
+    bf16 speech step (``configs/throughput.yaml``), the f32 one
+    (``configs/config.yaml``) and GOD's per-step step (``config_GOD.yaml``):
+    each of ``AFFINE_STEPS`` replays must launch Adam's kernel once and
+    the eager chain never."""
+    from meg_decoding_tpu_torch.cli.profile_train_step import god_step, speech_step
+
+    out = {}
+    for name, make in (("throughput", speech_step), ("config", speech_step),
+                       ("config_GOD", god_step)):
+        _, routes = make(os.path.join(work, name), seed, [], config_name=name)
+        one = routes["graph"]
+        for i in range(3):
+            one(i)
+        torch.cuda.synchronize()
+        reset_all_launches()
+        for i in range(AFFINE_STEPS):
+            one(3 + i)
+        torch.cuda.synchronize()
+        replays = graph_counts()["train_replays"]
+        if replays != AFFINE_STEPS:
+            raise AssertionError(f"{name} step: {replays} replays, expected "
+                                 f"{AFFINE_STEPS}")
+        out[name] = {"replays": replays,
+                     "adam": adam_launches(f"{name} step", AFFINE_STEPS)}
+        del one, routes
+    emit({"phase": "adam_steps", **out})
+    return out
+
+
 def phase_gelu_step(work: str, seed: int) -> dict:
     """``configs/throughput_exact.yaml`` at full width (bf16, B = 256, the
     cached collate statistics, erf_poly GELU): the fused step through
@@ -1829,9 +1998,10 @@ def phase_training(cfg, ds, tr_idx, seed, work) -> dict:
                 "bn_bwd_stats": BN_PER_STEP * TRAIN_UPDATES}
     if launches != expected:
         raise AssertionError(f"train CLI launches {launches}, expected {expected}")
+    adam = adam_launches("train CLI", TRAIN_UPDATES)
     replays = graph_replays("train CLI", TRAIN_UPDATES, pools)
     emit({"phase": "training", "card_vs_cpu": check, "rel_err_limit": 1e-4,
-          "fused_losses": losses, "train_cli_s": run_s,
+          "fused_losses": losses, "train_cli_s": run_s, "adam": adam,
           "train_cli": {k: best[k] for k in ("train_loss", "train_skipped",
                                              "train_top1", "train_top10",
                                              "test_loss", "test_top1",
@@ -1839,7 +2009,8 @@ def phase_training(cfg, ds, tr_idx, seed, work) -> dict:
           "test_pools": pools, "launches": launches, "graph": replays,
           "bn_stats_routes": dict(bk.stats_route_launches),
           "bn_bwd_sums_only_launches": bk.sums_only_launches})
-    return {"launches": launches, "stats_routes": dict(bk.stats_route_launches)}
+    return {"launches": launches, "stats_routes": dict(bk.stats_route_launches),
+            "adam": adam}
 
 
 GOD_EVAL_KEYS = {"val_top1", "val_top10", "zeroshot_top1", "zeroshot_top10",
@@ -2001,9 +2172,11 @@ def phase_god_training(cfg, ds, seed) -> dict:
                 "bn_bwd_stats": BN_PER_STEP * updates}
     if launches != expected:
         raise AssertionError(f"GOD train CLI launches {launches}, expected {expected}")
+    adam = adam_launches("GOD train CLI", updates)
     replays = graph_replays("GOD train CLI", updates, pools)
     emit({"phase": "god_training", "card_vs_cpu": check, "rel_err_limit": 1e-4,
           "losses": losses, "train_cli_s": run_s, "updates": updates,
+          "adam": adam,
           "test_pools": pools,
           "train_cli": {k: best[k] for k in (
               "train_loss", "train_skipped", "train_top1", "train_top10",
@@ -2011,7 +2184,8 @@ def phase_god_training(cfg, ds, seed) -> dict:
           "launches": launches, "graph": replays,
           "bn_stats_routes": dict(bk.stats_route_launches),
           "bn_bwd_sums_only_launches": bk.sums_only_launches})
-    return {"launches": launches, "stats_routes": dict(bk.stats_route_launches)}
+    return {"launches": launches, "stats_routes": dict(bk.stats_route_launches),
+            "adam": adam}
 
 
 def phase_god_eval(cfg) -> dict:
@@ -5796,7 +5970,7 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--phase", choices=("all", "brennan_kernels", "graphs", "serve_graphs",
                             "spill_dp", "bench", "gelu", "w2v",
-                            "bn_time_major", "bn_affine", "moe"),
+                            "bn_time_major", "bn_affine", "moe", "adam"),
         default="all",
         help="brennan_kernels: build, then only that phase at Brennan's "
              "row length; copied into another checkout's root, it times that "
@@ -5812,7 +5986,8 @@ def main(argv=None) -> int:
              "route, then a captured full-width throughput step; bn_affine: "
              "build, the BN affine kernel, then captured full-width bf16 "
              "and f32 steps; moe: build, DeepSeek-V2-Lite's MoE route and "
-             "combine kernels")
+             "combine kernels; adam: build, Adam's multi-tensor kernel, then "
+             "captured full-width bf16, f32 and GOD steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -5871,6 +6046,19 @@ def main(argv=None) -> int:
         phase_moe(flush)
         del flush
         lap("moe")
+        emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
+        return 0
+    if args.phase == "adam":
+        flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+        phase_adam(flush)
+        del flush
+        lap("adam")
+        work = os.path.join(ROOT, "runs_out", f"chip_smoke_{os.getpid()}")
+        try:
+            phase_adam_steps(work, args.seed)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        lap("adam_steps")
         emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
         return 0
     if args.phase == "gelu":
@@ -5964,6 +6152,7 @@ def main(argv=None) -> int:
         affine = phase_bn_affine(flush, work)
         gelu = phase_gelu(flush)
         phase_moe(flush)
+        adam_rows = phase_adam(flush)
         del flush
         lap("kernels")
         serving = phase_serving(cfg, ds, tr_idx, args.seed)
@@ -6161,6 +6350,7 @@ def main(argv=None) -> int:
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in (*training["launches"], "robust_quantiles_long")}
     by_path = lambda k: {p: n.get(k, 0) for p, n in paths.items()}
+    adam_paths = {"training": training, "god_training": god_training}
     g = measured["gather"][:2]  # one batch: the X and the f32 Y gather
     q = measured["quantiles"]
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values()),
@@ -6302,6 +6492,18 @@ def main(argv=None) -> int:
              k: {m: r[k][m] for m in ("kernel_ms", "run_ms", "plain_ms",
                                       "library_ms", "bound_ms", "max_abs_err")}
              for k in ("fwd", "bwd")} for r in gelu["rows"].values()}},
+        # Adam's update of the parameter list: no Pallas kernel, XLA fused
+        # the JAX package's optax.adam; one launch an update on the card
+        {"name": "adam_multi_tensor", "route": "cuda",
+         "source": "meg_decoding_tpu_torch/csrc/adam.cu",
+         "replaces": "none (XLA fused optax.adam)",
+         "launches": sum(p["adam"]["multi_tensor"] for p in adam_paths.values()),
+         "launches_by_path": {k: p["adam"] for k, p in adam_paths.items()},
+         "bound_by": "bytes",
+         "by_list": {kind: {k: r[k] for k in (
+             "tensors", "elements", "launches_a_call", "check", "kernel_ms",
+             "run_ms", "plain_ms", "library_ms", "host_us", "bound_ms",
+             "run_share_of_bound")} for kind, r in adam_rows.items()}},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

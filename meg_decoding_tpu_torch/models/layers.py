@@ -294,6 +294,25 @@ class Conv1x1(nn.Module):
                 + self.bias.to(dt)[:, None])
 
 
+class _KrscWeight(torch.autograd.Function):
+    """A time-major ``Conv1d``'s weight (out, in, ks) cast to ``dt`` in the
+    KRSC order (out, ks, in) that cuDNN's NHWC engine takes, as an (out,
+    in, ks) view.  Its gradient comes back in the parameter's dtype and in
+    the parameter's contiguous layout, as every other parameter's does, so
+    Adam's multi-tensor kernel takes it (``ops/kernels/adam.py``);
+    autograd's own cast would keep the KRSC strides.  One cast each way."""
+
+    @staticmethod
+    def forward(ctx, weight, dt):
+        ctx.dtype = weight.dtype
+        return weight.transpose(1, 2).to(
+            dt, memory_format=torch.contiguous_format).transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype, memory_format=torch.contiguous_format), None
+
+
 class Conv1d(nn.Module):
     """flax ``nn.Conv`` with SAME padding on (B, C, T), or with
     ``time_major`` on (B, T, C): weight (out, in, ks), bias (out,)."""
@@ -325,8 +344,7 @@ class Conv1d(nn.Module):
             # is reordered; the channels-last output is (B, T, C) again by a
             # view.  conv2d, because conv1d copies a 3-D input contiguous
             # (NCW) before it looks at the layout.
-            w = self.weight.transpose(1, 2).to(
-                dt, memory_format=torch.contiguous_format).transpose(1, 2)
+            w = _KrscWeight.apply(self.weight, dt)
             y = F.conv2d(X.to(dt).transpose(1, 2).unsqueeze(2), w.unsqueeze(2),
                          self.bias.to(dt), padding="same")
             return y.squeeze(2).transpose(1, 2)

@@ -12,6 +12,7 @@ recorded (a replay runs no wrapper's Python), and the benchmark and
 from __future__ import annotations
 
 from meg_decoding_tpu_torch.ops.kernels import (
+    adam,
     batchnorm,
     gelu,
     moe,
@@ -28,7 +29,7 @@ _COUNTERS = ((window_gather, "launches"), (quantile, "launches"),
              (batchnorm, "stats_route_launches"),
              (batchnorm, "bwd_route_launches"),
              (batchnorm, "sums_only_launches"), (batchnorm, "dx_launches"),
-             (gelu, "launches"), (moe, "launches"))
+             (gelu, "launches"), (moe, "launches"), (adam, "launches"))
 
 
 def launch_counts() -> dict:

@@ -13,6 +13,12 @@ out so the port can do the same without a host sync:
 * every new value is written as ``torch.where(ok, new, old)``, with ``ok``
   a 0-dim bool tensor on the device.
 
+The update of the whole list is ``ops/kernels/adam.py:adam_update``: one
+multi-tensor CUDA kernel on the card, which takes f32 tensors (every
+configuration's) and refuses others, bit-identical to the eager op chain
+that runs on the CPU.  The learning rate, the bias corrections and the
+count stay a few 0-dim tensor ops here.
+
 ``torch.optim.Adam`` does not fit: it cannot skip a step on the device
 without a sync, and it applies the bias correction in another order.
 """
@@ -24,11 +30,10 @@ from typing import Callable
 
 import torch
 
+from meg_decoding_tpu_torch.ops.kernels.adam import B1, B2, adam_update
 from meg_decoding_tpu_torch.utils.profiling import scope
 
 __all__ = ["AdamState", "Adam", "global_norm"]
-
-B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults, the JAX trainer's
 
 
 @dataclass
@@ -73,15 +78,8 @@ class Adam:
         count_inc = state.count + 1
         c1 = 1 - B1 ** count_inc.to(torch.float32)
         c2 = 1 - B2 ** count_inc.to(torch.float32)
-        for name, p in params.items():
-            g = grads.get(name)
-            if g is None:
-                g = torch.zeros_like(p)
-            mu, nu = state.mu[name], state.nu[name]
-            mu_new = (1 - B1) * g + B1 * mu
-            nu_new = (1 - B2) * (g * g) + B2 * nu
-            u = (mu_new / c1) / (torch.sqrt(nu_new / c2) + EPS)
-            p.copy_(torch.where(ok, p + u * neg_lr, p))
-            mu.copy_(torch.where(ok, mu_new, mu))
-            nu.copy_(torch.where(ok, nu_new, nu))
+        names = list(params)
+        adam_update([params[k] for k in names], [grads.get(k) for k in names],
+                    [state.mu[k] for k in names], [state.nu[k] for k in names],
+                    neg_lr, c1, c2, ok)
         state.count.copy_(torch.where(ok, count_inc, state.count))
