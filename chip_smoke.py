@@ -401,7 +401,9 @@ the build, the ``gelu`` phase and a captured exact-GELU step; ``--phase
 w2v`` the build and the ``w2v_features`` phase; ``--phase bn_time_major``
 the build, that phase and its captured throughput step; ``--phase moe``
 the build and the MoE kernels' phase; ``--phase adam`` the build, the
-``adam`` phase and the captured bf16, f32 and GOD steps.
+``adam`` phase and the captured bf16, f32 and GOD steps; ``--phase kimi``
+the build and Kimi-Linear's kernels' phase (its KDA, convolution and
+sigmoid route kernels, then a small model's chunk graphs).
 """
 
 from __future__ import annotations
@@ -458,6 +460,7 @@ from meg_decoding_tpu_torch.ops.kernels import adam as ak
 from meg_decoding_tpu_torch.ops.kernels import batchnorm as bk
 from meg_decoding_tpu_torch.ops.kernels import build
 from meg_decoding_tpu_torch.ops.kernels import gelu as gk
+from meg_decoding_tpu_torch.ops.kernels import kda as kk
 from meg_decoding_tpu_torch.ops.kernels import moe as mk
 from meg_decoding_tpu_torch.ops.kernels import quantile as qk
 from meg_decoding_tpu_torch.ops.kernels import launch_counts, reset_launches
@@ -517,6 +520,10 @@ GELU_SITES = {(256, 320, 360): 10, (256, 640, 360): 1, (256, 1024, 360): 1}
 GELU_PER_STEP = sum(GELU_SITES.values())
 # DeepSeek-V2-Lite's MoE a chunk: tokens, routed experts, top-k, hidden
 MOE_CHUNK = (2048, 64, 6, 2048)
+# Kimi-Linear-48B-A3B's a chunk: tokens, KDA heads, routed experts, top-k,
+# hidden, experts held; its KDA and MoE layers
+KIMI_CHUNK = (2048, 32, 256, 8, 2304, 128)
+KIMI_KDA_LAYERS, KIMI_MOE_LAYERS = 20, 26
 # the encoders whose parameter lists Adam updates: (sensors, subjects, F,
 # seq2seq) of the benchmark's gwilliams_speech and god_image
 ADAM_LISTS = {"speech": (208, 27, 1024, True), "god": (22, 1, 512, False)}
@@ -1633,6 +1640,186 @@ def phase_moe(flush) -> dict:
                      "bound_ms": nb[name] / HBM_BYTES_PER_S * 1e3}
     emit({"phase": "moe", **row})
     del lg, ysc
+    return row
+
+
+def kda_check(C: int, H: int, gen) -> dict:
+    """The KDA kernel against its plain chunked form (the same bf16
+    roundings) on q, k, v strided as the layer passes them: outputs and the
+    f32 state within 1e-2 of their largest (an intermediate may round to
+    the neighbouring bf16: the kernel sums in other orders); the convolution
+    kernel against its plain version (within an ulp of bf16, the tail
+    exactly)."""
+    x = torch.randn(C, 3, H, 128, device="cuda", generator=gen).bfloat16()
+    g = -torch.rand(C, H, 128, device="cuda", generator=gen) * 0.5
+    b = torch.rand(C, H, device="cuda", generator=gen)
+    s0 = torch.randn(H, 128, 128, device="cuda", generator=gen) * 0.1
+    s1, s2 = s0.clone(), s0.clone()
+    got = kk.kda_chunk(x[:, 0], x[:, 1], x[:, 2], g, b, s1)
+    want = kk.kda_chunk_plain(x[:, 0], x[:, 1], x[:, 2], g, b, s2)
+    torch.cuda.synchronize()
+    o_gap = float((got.float() - want.float()).abs().max()
+                  / want.float().abs().max())
+    s_gap = float((s1 - s2).abs().max() / s2.abs().max())
+    if not (o_gap <= 1e-2 and s_gap <= 1e-2):
+        raise AssertionError(f"kda_chunk {C, H}: o {o_gap}, state {s_gap}")
+    p = x.reshape(C, 3 * H * 128)
+    w = (torch.randn(3 * H * 128, 1, 4, device="cuda", generator=gen)
+         * 0.5).bfloat16()
+    t1 = torch.randn(3, 3 * H * 128, device="cuda", generator=gen).bfloat16()
+    t2 = t1.clone()
+    cg, cw = kk.short_conv(p, t1, w), kk.short_conv_plain(p, t2, w)
+    torch.cuda.synchronize()
+    if not (torch.equal(t1, t2) and bool(((cg.float() - cw.float()).abs()
+                                          <= 2 ** -7 * cw.float().abs()
+                                          + 1e-30).all())):
+        raise AssertionError(f"short_conv {C, 3 * H * 128}: differs")
+    return {"shape": [C, H], "o_gap": o_gap, "state_gap": s_gap}
+
+
+def kimi_graph_check(seed: int) -> dict:
+    """A small Kimi-Linear (hidden 256, one period and a KDA layer, KDA
+    heads 2 of 128, 16 experts of which 8 held) through ``text_llm`` on the
+    card: a 3-chunk document of 2,048-token chunks, its first pass (each
+    chunk position captured, the carried state put back after each
+    warm-up), replays its chunk graphs and equals the eager forward
+    (within 1e-2 of the largest feature; whether bit for bit is printed),
+    with one ``kda_chunk`` and one ``kda_conv`` launch a KDA
+    layer a chunk and one route and one combine a MoE layer, and the
+    expert counter holding each real token once."""
+    from meg_decoding_tpu_torch.features import kimi_linear_model as km
+    from meg_decoding_tpu_torch.features import text_llm
+    from meg_decoding_tpu_torch.train import graph as graph_mod
+
+    la = {"full_attn_layers": [4], "kda_layers": [1, 2, 3, 5],
+          "head_dim": 128, "num_heads": 2, "short_conv_kernel_size": 4}
+    cfg = km.KimiLinearConfig(
+        vocab_size=4096, hidden_size=256, intermediate_size=512,
+        moe_intermediate_size=128, num_hidden_layers=5,
+        num_attention_heads=2, num_experts=16, num_experts_per_token=4,
+        kv_lora_rank=64, experts_held=8, linear_attn_config=la)
+    with torch.device("cuda"):
+        m = km.KimiLinearModel(cfg).eval().requires_grad_(False)
+    m.init_random(torch.Generator(device="cuda").manual_seed(seed))
+    ids = torch.randint(0, 4096, (5000,), generator=torch.Generator()
+                        .manual_seed(seed))
+    ends = np.arange(2, 5001, 2)
+    torch.backends.cudnn.deterministic = True
+    reset_launches()
+    replays = graph_mod.replays["forward"]
+    got = text_llm.embed_words_last4_avg(m, ids, ends, 2048, 8192)
+    torch.cuda.synchronize()
+    n_replays = graph_mod.replays["forward"] - replays
+    counts = launch_counts()
+    per = {k[2]: n for k, n in counts.items()
+           if k[0] in ("kda", "moe") and k[2] is not None}
+    held = m.expert_counts.sum(1).tolist()
+    want = []
+    m.allocate(8192)
+    for s in range(0, 6144, 2048):
+        buf = torch.zeros(2048, dtype=torch.int64, device="cuda")
+        n = min(2048, 5000 - s)
+        buf[:n] = ids[s:s + n].to("cuda")
+        hs = m(buf, m.positions[:s + 2048],
+               torch.tensor([n], dtype=torch.int32, device="cuda"))
+        want.append(torch.stack([h.float() for h in hs]).mean(0)[:n])
+    want = text_llm.word_mean(torch.cat(want), ends).T
+    gap = float((got - want).abs().max() / want.abs().max())
+    if gap > 1e-2:
+        raise AssertionError(f"kimi chunk graphs: graph != eager, {gap}")
+    expect = {"kda_chunk": 12, "kda_conv": 12, "moe_route": 12,
+              "moe_combine": 12}
+    if n_replays != 3 or any(per.get(k) != v for k, v in expect.items()) \
+            or held != [5000 * 4] * 4:
+        raise AssertionError(f"kimi chunk graphs: replays {n_replays}, "
+                             f"launches {per}, counted pairs {held}")
+    return {"replays": n_replays, "launches": per, "graph_vs_eager": gap,
+            "bit_identical": bool(torch.equal(got, want))}
+
+
+def phase_kimi(flush, seed: int) -> dict:
+    """Kimi-Linear's kernels: the KDA chunk and convolution against their
+    plain versions at the cell's shape (``KIMI_CHUNK``) and two off-path
+    ones, the sigmoid route with its selection bias and half the experts
+    held against its plain version and DeepSeek-V2's call, then each timed
+    alone at the cell's shape: single launch and run against the byte
+    bound (``benchmark/benchcore/counts_kimi.py``'s), the plain version,
+    and the library's nearest call (KDA: none computes a delta rule; the
+    convolution: cuDNN's depthwise conv2d on the channels-last view and
+    SiLU; the route: sigmoid + ``topk``, without the sort by expert); then
+    a small model's chunk graphs (``kimi_graph_check``)."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    T, H, E, k, Hd, held = KIMI_CHUNK
+    checked = [kda_check(C, h, gen) for C, h in ((100, 3), (1, 2))]
+    checked.append(kda_check(T, H, gen))
+    for first in (0, E - held):
+        logits = torch.randn(T, E, device="cuda", generator=gen)
+        bias = torch.randn(E, device="cuda", generator=gen) * 0.02
+        nv = torch.tensor([T - 3], dtype=torch.int32, device="cuda")
+        c1 = torch.zeros(E, dtype=torch.int32, device="cuda")
+        c2 = c1.clone()
+        kw = dict(bias=bias, renormalize=True, scale=2.446, first=first,
+                  held=held)
+        got = mk.moe_route(logits, k, nv, c1, **kw)
+        want = mk.moe_route_plain(logits, k, nv, c2, **kw)
+        torch.cuda.synchronize()
+        if not (all(torch.equal(a, b.to(a.dtype))
+                    for a, b in zip(got[1:], want[1:]))
+                and torch.allclose(got[0], want[0], rtol=5e-7, atol=0)
+                and torch.equal(c1, c2)):
+            raise AssertionError(f"sigmoid route held from {first}: differs")
+    x = torch.randn(T, 3, H, 128, device="cuda", generator=gen).bfloat16()
+    g = -torch.rand(T, H, 128, device="cuda", generator=gen) * 0.5
+    b = torch.rand(T, H, device="cuda", generator=gen)
+    state = torch.zeros(H, 128, 128, device="cuda")
+    p = x.reshape(T, 3 * H * 128)
+    w = (torch.randn(3 * H * 128, 1, 4, device="cuda", generator=gen)
+         * 0.5).bfloat16()
+    tail = torch.zeros(3, 3 * H * 128, dtype=torch.bfloat16, device="cuda")
+    nb = {"kda_chunk": T * H * (4 * 128 * 2 + 128 * 4 + 4)
+          + 2 * H * 128 * 128 * 4,
+          "kda_conv": 2 * 2 * T * 3 * H * 128 + 2 * 3 * H * 128 * 4,
+          "route": 4 * (T * E + T * k * 4 + E)}
+    xs, ps, lg = copies(x, nb["kda_chunk"]), copies(p, nb["kda_conv"]), \
+        copies(logits, nb["route"])
+    x4 = p.T[None, :, None, :]  # the channels-last view, as the conv reads it
+
+    def conv_library():
+        return tnf.silu(tnf.conv2d(x4, w.view(-1, 1, 1, 4), groups=w.shape[0],
+                                   padding=(0, 3))[..., :T])
+
+    calls = {
+        "kda_chunk": (lambda: kk.kda_chunk(x[:, 0], x[:, 1], x[:, 2], g, b,
+                                           state),
+                      lambda: kk.kda_chunk_plain(x[:, 0], x[:, 1], x[:, 2],
+                                                 g, b, state),
+                      None,
+                      [lambda a=a: kk.kda_chunk(a[:, 0], a[:, 1], a[:, 2], g,
+                                                b, state) for a in xs]),
+        "kda_conv": (lambda: kk.short_conv(p, tail, w),
+                     lambda: kk.short_conv_plain(p, tail, w), conv_library,
+                     [lambda a=a: kk.short_conv(a, tail, w) for a in ps]),
+        "route": (lambda: mk.moe_route(logits, k, nv, c1, **kw),
+                  lambda: mk.moe_route_plain(logits, k, nv, c2, **kw),
+                  lambda: torch.topk(torch.sigmoid(logits) + bias, k, dim=-1),
+                  [lambda a=a: mk.moe_route(a, k, nv, c1, **kw)
+                   for a in lg])}
+    row = {"shape": list(KIMI_CHUNK), "checked": checked}
+    for name, (kernel, plain, library, run) in calls.items():
+        row[name] = {"kernel_ms": time_ms(kernel, flush),
+                     "run_ms": run_ms(run),
+                     "plain_ms": time_ms(plain, flush, reps=3),
+                     "library_ms": (None if library is None
+                                    else time_ms(library, flush)),
+                     "bytes": nb[name],
+                     "bound_ms": nb[name] / HBM_BYTES_PER_S * 1e3}
+    row["per_chunk_run_ms"] = {
+        "kda_chunk": row["kda_chunk"]["run_ms"] * KIMI_KDA_LAYERS,
+        "kda_conv": row["kda_conv"]["run_ms"] * KIMI_KDA_LAYERS,
+        "route": row["route"]["run_ms"] * KIMI_MOE_LAYERS}
+    del xs, ps, lg
+    row["graphs"] = kimi_graph_check(seed)
+    emit({"phase": "kimi", **row})
     return row
 
 
@@ -5970,7 +6157,8 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--phase", choices=("all", "brennan_kernels", "graphs", "serve_graphs",
                             "spill_dp", "bench", "gelu", "w2v",
-                            "bn_time_major", "bn_affine", "moe", "adam"),
+                            "bn_time_major", "bn_affine", "moe", "adam",
+                            "kimi"),
         default="all",
         help="brennan_kernels: build, then only that phase at Brennan's "
              "row length; copied into another checkout's root, it times that "
@@ -5987,7 +6175,9 @@ def main(argv=None) -> int:
              "build, the BN affine kernel, then captured full-width bf16 "
              "and f32 steps; moe: build, DeepSeek-V2-Lite's MoE route and "
              "combine kernels; adam: build, Adam's multi-tensor kernel, then "
-             "captured full-width bf16, f32 and GOD steps")
+             "captured full-width bf16, f32 and GOD steps; kimi: build, "
+             "Kimi-Linear's KDA, convolution and sigmoid route kernels, "
+             "then a small model's chunk graphs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -6046,6 +6236,13 @@ def main(argv=None) -> int:
         phase_moe(flush)
         del flush
         lap("moe")
+        emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
+        return 0
+    if args.phase == "kimi":
+        flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+        phase_kimi(flush, args.seed)
+        del flush
+        lap("kimi")
         emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
         return 0
     if args.phase == "adam":
@@ -6152,6 +6349,7 @@ def main(argv=None) -> int:
         affine = phase_bn_affine(flush, work)
         gelu = phase_gelu(flush)
         phase_moe(flush)
+        phase_kimi(flush, args.seed)
         adam_rows = phase_adam(flush)
         del flush
         lap("kernels")

@@ -129,6 +129,15 @@ class DeepseekV2Config:
               "routed_scaling_factor": 1, "hidden_act": "silu",
               "attention_bias": False, "n_group": 1, "topk_group": 1}
 
+    # the settings of the shared MLA and MoE classes that DeepSeek-V2 fixes
+    # (another model's config sets them: features/kimi_linear_model.py)
+    mla_use_nope = False
+    scoring_func = "softmax"
+    norm_topk_prob = False
+    routed_scaling_factor = 1.0
+    experts_first = 0
+    experts_held = None   # all n_routed_experts
+
     @classmethod
     def from_dict(cls, d: dict) -> "DeepseekV2Config":
         """From a ``config.json`` (unknown keys ignored); raises for a
@@ -315,6 +324,27 @@ class _Expert(nn.Module):
         self.down_proj = _Linear(down)
 
 
+class _Experts(nn.ModuleDict):
+    """The experts held, by their ids among all the routed experts (so a
+    checkpoint's ``experts.<id>`` names load in place); ``[e]`` takes the
+    id."""
+
+    def __getitem__(self, e):
+        return super().__getitem__(str(e))
+
+
+class _Gate(nn.Module):
+    """A sigmoid router: ``weight`` (E, H) and the f32 selection bias
+    ``e_score_correction_bias`` (E,) (DeepSeek-V3's and Kimi's MoEGate)."""
+
+    def __init__(self, E: int, H: int, dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(E, H, dtype=dtype),
+                                   requires_grad=False)
+        self.e_score_correction_bias = nn.Parameter(
+            torch.empty(E, dtype=torch.float32), requires_grad=False)
+
+
 class _Chunk:
     """What every layer of one chunk's forward shares: its positions
     [start, end) of the document, its rope cos/sin (C, d/2) f32, the
@@ -327,7 +357,9 @@ class _Chunk:
 
 
 class MLA(nn.Module):
-    """DeepseekV2Attention (``q_lora_rank`` None) over the latent cache."""
+    """DeepseekV2Attention (``q_lora_rank`` None) over the latent cache;
+    with ``mla_use_nope`` (Kimi-Linear) the 64 "rope" dims of q and of the
+    shared key are used as they come, unrotated."""
 
     def __init__(self, cfg: DeepseekV2Config, dtype):
         super().__init__()
@@ -343,6 +375,7 @@ class MLA(nn.Module):
                                              self.r, dtype=dtype))
         self.o_proj = _Linear(torch.empty(H, nh * self.v, dtype=dtype))
         self.scale = softmax_scale(cfg)
+        self.use_rope = not cfg.mla_use_nope
 
     def _prefix(self, cache: torch.Tensor, start: int, end: int):
         """The cache's positions [0, end): the document's latents so far."""
@@ -354,33 +387,51 @@ class MLA(nn.Module):
         q_nope, q_pe = q.split([self.nope, self.rope], dim=-1)
         c, k_pe = self.kv_a_proj_with_mqa(x).split([r, self.rope], dim=-1)
         cache[ctx.start:ctx.end, :r] = self.kv_a_layernorm(c)
-        cache[ctx.start:ctx.end, r:] = apply_rope(k_pe, ctx.cos, ctx.sin)
+        cache[ctx.start:ctx.end, r:] = (apply_rope(k_pe, ctx.cos, ctx.sin)
+                                        if self.use_rope else k_pe)
         prefix = self._prefix(cache, ctx.start, ctx.end)
         L = prefix.shape[0]
         kv = self.kv_b_proj(prefix[:, :r]).view(L, nh, self.nope + self.v)
         k_nope, value = kv.split([self.nope, self.v], dim=-1)
         k = torch.cat([k_nope, prefix[:, None, r:].expand(L, nh, self.rope)],
                       dim=-1)
-        qq = torch.cat([q_nope, apply_rope(q_pe, ctx.cos, ctx.sin)], dim=-1)
+        qq = (torch.cat([q_nope, apply_rope(q_pe, ctx.cos, ctx.sin)], dim=-1)
+              if self.use_rope else q)
         o = _attention(qq, k, value, self.scale)
         return self.o_proj(o.reshape(C, nh * self.v))
 
 
 class DeepseekV2MoE(nn.Module):
     """The expert-parallel MoE layer (module docstring); ``index`` is its
-    row in the model's routing record and counter."""
+    row in the model's routing record and counter.  It routes over all
+    ``n_routed_experts`` and holds the experts ``experts_first`` ..
+    ``experts_first + experts_held − 1`` (all by default): a (token, slot)
+    pair sent to another expert adds nothing here, as on one card of an
+    expert-parallel deployment without its exchange.  Scoring by
+    ``scoring_func``: softmax (DeepSeek-V2), or sigmoid with the gate's
+    selection bias; then ``norm_topk_prob`` renormalises the k weights and
+    ``routed_scaling_factor`` scales them (``ops/kernels/moe.py``)."""
 
-    def __init__(self, cfg: DeepseekV2Config, index: int, dtype):
+    _EXPERT = _Expert  # an expert's module, by its checkpoint's names
+
+    def __init__(self, cfg, index: int, dtype):
         super().__init__()
         E, I, H = (cfg.n_routed_experts, cfg.moe_intermediate_size,
                    cfg.hidden_size)
+        self.first = cfg.experts_first
+        self.held = cfg.experts_held or E
         self.index, self.k, self.inter = index, cfg.num_experts_per_tok, I
-        self.gate = _Linear(torch.empty(E, H, dtype=dtype))
-        self.w13 = torch.empty(E, 2 * I, H, dtype=dtype)
-        self.w2 = torch.empty(E, H, I, dtype=dtype)
-        self.experts = nn.ModuleList(
-            _Expert(self.w13[e, :I], self.w13[e, I:], self.w2[e])
-            for e in range(E))
+        self.sigmoid = cfg.scoring_func == "sigmoid"
+        self.renormalize = bool(cfg.norm_topk_prob)
+        self.scale = float(cfg.routed_scaling_factor)
+        self.gate = (_Gate(E, H, dtype) if self.sigmoid
+                     else _Linear(torch.empty(E, H, dtype=dtype)))
+        self.w13 = torch.empty(self.held, 2 * I, H, dtype=dtype)
+        self.w2 = torch.empty(self.held, H, I, dtype=dtype)
+        self.experts = _Experts(
+            (str(self.first + e), self._EXPERT(self.w13[e, :I],
+                                               self.w13[e, I:], self.w2[e]))
+            for e in range(self.held))
         self.shared_experts = (MLP(H, I * cfg.n_shared_experts, dtype)
                                if cfg.n_shared_experts else None)
 
@@ -393,8 +444,10 @@ class DeepseekV2MoE(nn.Module):
 
     def forward(self, x, ctx: _Chunk, counter, ids_out):
         with scope("moe_route"):
-            w, _, offs, pos, token = moe_route(self._logits(x), self.k,
-                                               ctx.n_valid, counter, ids_out)
+            w, _, offs, pos, token = moe_route(
+                self._logits(x), self.k, ctx.n_valid, counter, ids_out,
+                self.gate.e_score_correction_bias if self.sigmoid else None,
+                self.renormalize, self.scale, self.first, self.held)
             xs = x.index_select(0, token)
         with scope("moe_experts"):
             gu = torch._grouped_mm(xs, self.w13.transpose(1, 2), offs=offs)
@@ -461,6 +514,11 @@ class DeepseekV2Model(nn.Module):
         """The routed experts' weights (views of each MoE's ``w13`` and
         ``w2``)."""
         return [p for n, p in self.named_parameters() if ".experts." in n]
+
+    def carried(self) -> list:
+        """What a chunk updates in place and the next chunk reads: the
+        expert counter (``allocate`` first)."""
+        return [self.expert_counts]
 
     def allocate(self, positions: int) -> None:
         """The latent cache, the routing record and the expert counter for

@@ -122,7 +122,10 @@ def deepseek_v2_params_from_hf(state_dict, module: torch.nn.Module) -> dict:
     """A ``DeepseekV2ForCausalLM`` (or ``DeepseekV2Model``) state_dict →
     ``module``'s (``features/deepseek_v2_model.py``, transformers' names
     under ``model.``): the prefix dropped, and the LM head and any rotary
-    ``inv_freq`` buffer left out (the features are hidden states)."""
+    ``inv_freq`` buffer left out (the features are hidden states).  The
+    same for ``KimiLinearForCausalLM`` (``features/kimi_linear_model.py``),
+    whose routed experts not held by the module are left out with every
+    other entry it does not have."""
     out = {}
     for key, t in state_dict.items():
         key = key.removeprefix("model.")

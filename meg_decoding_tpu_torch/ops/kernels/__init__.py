@@ -15,6 +15,7 @@ from meg_decoding_tpu_torch.ops.kernels import (
     adam,
     batchnorm,
     gelu,
+    kda,
     moe,
     quantile,
     window_gather,
@@ -29,7 +30,8 @@ _COUNTERS = ((window_gather, "launches"), (quantile, "launches"),
              (batchnorm, "stats_route_launches"),
              (batchnorm, "bwd_route_launches"),
              (batchnorm, "sums_only_launches"), (batchnorm, "dx_launches"),
-             (gelu, "launches"), (moe, "launches"), (adam, "launches"))
+             (gelu, "launches"), (moe, "launches"), (adam, "launches"),
+             (kda, "launches"))
 
 
 def launch_counts() -> dict:

@@ -3,8 +3,9 @@
 The sources are ``window_gather.cu``, ``robust_quantiles.cu``,
 ``batchnorm_stats.cu`` (``bn_stats``, ``bn_bwd_stats`` and ``bn_bwd``),
 ``gelu_erf_poly.cu`` (the erf_poly GELU's forward and backward),
-``moe_route.cu`` (a mixture-of-experts layer's route and combine) and
-``adam.cu`` (Adam's update of a parameter list).  Each
+``moe_route.cu`` (a mixture-of-experts layer's route and combine),
+``adam.cu`` (Adam's update of a parameter list) and ``kda.cu`` (Kimi
+Delta Attention's chunk).  Each
 ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``meg_decoding_tpu_torch/_build/`` (ignored by git).  The library's file
@@ -34,7 +35,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 KERNELS = ("window_gather", "robust_quantiles", "batchnorm_stats",
-           "gelu_erf_poly", "moe_route", "adam")
+           "gelu_erf_poly", "moe_route", "adam", "kda")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -35,7 +35,11 @@ cuBLAS set up their workspaces there, as ``torch.cuda.graph`` requires),
 then captures one body.  For a train step it first saves, and after the
 warm-up puts back, every tensor of the state (parameters, Adam's moments
 and count, the BN buffers, the step counter); for a forward it checks that
-the warm-up left the tensors it ``reads`` bit-equal, and raises otherwise.
+the warm-up left the tensors it ``reads`` bit-equal, and raises otherwise,
+and puts back the tensors it ``writes`` in place from one call to the next
+(a model's state carried from chunk to chunk), so that the warm-up leaves
+no trace and the replay after the capture runs on what the call before
+left.
 The kernels' launch counters are put back as they were before the warm-up.
 Each call copies the inputs in (device inputs device to device; host
 inputs through a pinned buffer, without a sync), replays, credits the
@@ -179,19 +183,22 @@ class GraphedStep:
     step: kind ``"train"``, one input signature, on the state's device.
     Without one, ``body(**inputs)`` is a forward: kind ``"forward"``, one
     graph per input signature, on ``device``; ``reads`` are tensors the
-    body reads (the weights), checked unchanged by each capture's warm-up.
+    body reads (the weights), checked unchanged by each capture's warm-up;
+    ``writes`` are tensors it updates in place from call to call, put back
+    after each capture's warm-up.
     ``capture_seconds`` is the last warm-up and capture's wall time, None
     before the first capture on the card; ``programs`` maps each signature
     seen to its buffers and graph.  ``mesh``: the data-parallel mesh whose
     collectives the body issues, or None."""
 
-    def __init__(self, body, state=None, device="cuda", reads=(), mesh=None):
+    def __init__(self, body, state=None, device="cuda", reads=(), mesh=None,
+                 writes=()):
         self.body, self.state, self.mesh = body, state, mesh
         self.kind = "forward" if state is None else "train"
         # raises for a CUDA device on a machine without a card
         self.device = resolve_device(device if state is None
                                      else state.step.device)
-        self.reads = list(reads)
+        self.reads, self.writes = list(reads), list(writes)
         self.capture_seconds = None
         self.programs: dict = {}
         self._pool = None     # the graphs' shared memory pool
@@ -301,6 +308,7 @@ class GraphedStep:
                    else state_tensors(self.state))
         with torch.no_grad():
             saved = [t.clone() for t in watched]
+            carried = [t.clone() for t in self.writes]
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
@@ -313,7 +321,9 @@ class GraphedStep:
                     t.copy_(s)
             elif not all(torch.equal(t, s) for t, s in zip(watched, saved)):
                 raise RuntimeError("a forward body wrote a tensor it reads")
-        del saved
+            for t, s in zip(self.writes, carried):
+                t.copy_(s)
+        del saved, carried
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool,

@@ -59,7 +59,8 @@ extended.
 * ``scope(name)`` — marks a part of a body captured as a CUDA graph
   (``SCOPES``: the brain encoder's train and eval steps, then wav2vec2's
   chunk forward, ``features/wav2vec2_model.py``, then DeepSeek-V2's,
-  ``features/deepseek_v2_model.py``).  Scopes nest; the innermost open scope owns the graph
+  ``features/deepseek_v2_model.py``, then Kimi-Linear's KDA layers,
+  ``features/kimi_linear_model.py``).  Scopes nest; the innermost open scope owns the graph
   nodes its stretch adds.  While ``capture_table`` records, each scope
   boundary reads how many nodes the graph under capture holds (the CUDA
   driver's ``cuStreamGetCaptureInfo`` and ``cuGraphGetNodes``, which are
@@ -95,7 +96,7 @@ __all__ = ["profile_trace", "span", "StepTimer", "batch_ids", "SCOPES",
 
 SCOPES = ("collate", "gelu", "batchnorm", "loss", "backward", "adam",
           "bn_commit", "w2v_conv", "w2v_pos_conv", "attention", "ffn",
-          "last4", "mla", "moe_route", "moe_experts", "moe_shared")
+          "last4", "mla", "moe_route", "moe_experts", "moe_shared", "kda")
 
 # the ids of the train sets' gathers (``data.gather``'s ``batch=``)
 batch_ids = itertools.count()

@@ -530,7 +530,7 @@ def test_every_kernel_module_with_counters_is_listed():
         if hasattr(mod, "reset_launches"):
             counting.add(mod)
     listed = {m for m, _ in kernels._COUNTERS}
-    assert counting == listed and len(listed) == 6
+    assert counting == listed and len(listed) == 7
     before = kernels.launch_counts()
     kernels.add_counts(dict.fromkeys(before, 3))
     kernels.reset_launches()
